@@ -1,0 +1,312 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (thormang_isaacgym_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, one line each (any failure raises and exits non-zero):
+ 0. device: nvidia-smi name and power limit, torch and CUDA versions;
+    raises when torch.cuda.is_available() is false.
+ 1. build: compiles csrc/fused_step.cu with nvcc for sm_90a (build seconds,
+    registers and spills as ptxas reports them).
+ 2. compare: the fused kernel against its plain PyTorch version on the card,
+    Cartpole and Ant at 4096 envs, seeded numpy states, 1 and 5 control
+    steps; max abs error of q, qd and net against TOL, beside the largest
+    |value| of each and the share of non-zero net rows.
+ 3. time: kernel, plain version and whole wrapper on Ant at 4096 envs (CUDA
+    events after warm-up, ms per control step) beside the kernel's bound.
+ 4. train: make("Ant", cfg=cfg/task/Ant.yaml) at 4096 envs,
+    PPO(PPOConfig.from_rlgames(cfg/train/AntPPO.yaml)), 3 train_iterations;
+    every metric finite and exactly 3 x 16 kernel launches.
+Then a {"kernels": [...]} line and, last, the {"ok": true, "device": ...} line.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import yaml
+
+from thormang_isaacgym_tpu_torch.ops import fused
+from thormang_isaacgym_tpu_torch.ops.sim import Controls
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+B = 4096
+SEED = 0
+# (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
+# (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
+# an H100 (1.2e-3 N, Ant, 5 steps) with room on both sides, where the largest
+# net entry is 62 N and 27 % of the net rows are non-zero
+TOL = dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1e-2, 5e-3))
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def log(phase: str, **kv) -> None:
+    print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: no GPU to run on")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+                kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    log("device", **info)
+    return info
+
+
+def phase_build() -> fused.BuildInfo:
+    info = fused.build_library()
+    fused.load_library()
+    ptxas = [ln.strip() for ln in info.log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    log("build", seconds=round(info.seconds, 3), source=os.path.relpath(fused.SOURCE, ROOT),
+        ptxas=ptxas)
+    return info
+
+
+def _task(name: str, device):
+    """The port's task at B envs with its cfg/task YAML's sim block."""
+    from thormang_isaacgym_tpu_torch.tasks import apply_cfg_sim, get_task_class
+    task = get_task_class(name)(num_envs=B, device=device)
+    with open(os.path.join(ROOT, "cfg", "task", f"{name}.yaml")) as f:
+        apply_cfg_sim(task, yaml.safe_load(f)["sim"])
+    return task
+
+
+def random_inputs(task, rng: np.random.Generator, device):
+    """Valid seeded states, controls and wrenches for `task`'s model."""
+    m = task.model
+    nj, nb = m.nj, m.nb
+    lo = m._defaults["dof_lower"]
+    hi = m._defaults["dof_upper"]
+    if m.n_floating:
+        q = np.zeros((B, m.nq), np.float32)
+        q[:, 2] = task.spawn_z + rng.uniform(-0.1, 0.1, B)
+        axis = rng.normal(size=(B, 3))
+        axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+        ang = rng.uniform(-0.3, 0.3, B)
+        q[:, 3] = np.cos(ang / 2)
+        q[:, 4:7] = axis * np.sin(ang / 2)[:, None]
+        q[:, 7:] = np.clip(task._init_jq + rng.uniform(-0.2, 0.2, (B, nj)), lo, hi)
+        qd = np.concatenate([rng.normal(size=(B, 6)) * 0.5,
+                             rng.uniform(-0.1, 0.1, (B, nj))], axis=1)
+        effort = rng.uniform(-15.0, 15.0, (B, nj))
+    else:
+        q = np.stack([rng.uniform(-2.0, 2.0, B), rng.uniform(-1.0, 1.0, B)], axis=1)
+        qd = rng.uniform(-2.0, 2.0, (B, m.nv))
+        effort = np.stack([rng.uniform(-400.0, 400.0, B), np.zeros(B)], axis=1)
+    wrench = np.concatenate([rng.normal(size=(B, nb, 3)) * 0.2,
+                             rng.normal(size=(B, nb, 3)) * 2.0], axis=-1)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    ctrl = Controls(t(rng.normal(size=(B, nj)) * 0.1), t(np.zeros((B, nj))), t(effort))
+    params = m.default_params(device).batch(B)
+    return params, t(q), t(qd), ctrl, t(wrench)
+
+
+def phase_compare(device) -> float:
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for name in ("Cartpole", "Ant"):
+        task = _task(name, device)
+        step = fused.build_fused_step_fn(task.model, task.sim_params, need_torque=True)
+        params, q0, qd0, ctrl, wrench = random_inputs(task, rng, device)
+        for n_ctrl in (1, 5):
+            qa, qda, qb, qdb = q0, qd0, q0, qd0
+            for _ in range(n_ctrl):
+                qa, qda, na = step(params, qa, qda, ctrl, wrench)
+                qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, wrench)
+            torch.cuda.synchronize()
+            errs, size, ok = {}, {}, True
+            for key, a, b in (("q", qa, qb), ("qd", qda, qdb), ("net", na, nb_)):
+                atol, rtol = TOL[key]
+                d = (a - b).abs()
+                errs[key] = float(d.max())
+                size[key] = float(b.abs().max())
+                ok = ok and bool(torch.isfinite(a).all()) and bool((d <= atol + rtol * b.abs()).all())
+                worst = max(worst, errs[key])
+            nonzero = float((nb_.abs().amax(-1) > 0).float().mean())
+            log("compare", model=name, envs=B, control_steps=n_ctrl,
+                max_abs_err=errs, max_abs=size, net_nonzero_row_share=nonzero,
+                tol={k: {"atol": v[0], "rtol": v[1]} for k, v in TOL.items()},
+                within_tol=ok)
+            if not ok:
+                raise AssertionError(f"fused kernel disagrees with the plain version: {name} {errs}")
+        if step.launches != 6:
+            raise AssertionError(f"compare launched the kernel {step.launches} times, expected 6")
+    return worst
+
+
+# fp32 operations of the formulas of one physics substep, as
+# csrc/fused_step.cu and the plain version (ops/sim.py) write them. An add,
+# multiply, divide, min, max or compare counts one, and so do sin, cos, tanh
+# and sqrt; a negation counts none (it folds into the next instruction).
+# Primitives: cross product, 3-vector add or scale, quaternion product and
+# rotation, quaternion -> 3x3 matrix, 3x3 matrix times vector, 3x3 product.
+_CROSS, _V3, _QMUL, _QROT, _QTOMAT, _M3V, _MM = 9, 3, 28, 30, 30, 15, 45
+_SPATIAL_XFORM = 2 * _M3V + _CROSS + _V3              # motion to child / force to parent
+_SPATIAL_CROSS = 3 * _CROSS + _V3                     # v x m, v x* f
+_SYMI_MUL = 4 * _M3V + 2 * _V3                        # 6x6 spatial inertia times vector
+OPS = dict(
+    # per root: its body-frame linear velocity (one inverse rotation)
+    root=_QROT,
+    # per revolute / prismatic joint: local pose + velocity term
+    joint_local={1: 1 + 2 + 3 + _QMUL + 3,            # half angle, cos/sin, axis*sin, q*q, S qd
+                 0: 3 + _QROT + _V3 + 3},             # axis*q, rotate, add, S qd
+    # per joint: R, link velocity, bias acceleration, world pose
+    joint_fk=_QTOMAT + _SPATIAL_XFORM + 6 + _SPATIAL_CROSS + _QMUL + _QROT + _V3,
+    # per joint: implicit PD drive 22, damping 4, dry friction 4, limit spring 19
+    joint_drive=6 + 2 + 7 + 7 + 4 + 4 + 19,
+    # per joint, ABA inward pass: U and D 40 + 6, rank-1 update 63, I c 66,
+    # pA 19, Y I Y^T to the parent 477, force to the parent 48
+    joint_inward=40 + 6 + 63 + _SYMI_MUL + 19
+    + (27 + 4 * _MM + 18 + 2 * _MM + 12 + _MM + 9 + 2 * _MM + 6) + _SPATIAL_XFORM + 6,
+    # per joint, outward pass: parent acceleration 48, U.a 11, qdd 4, a 9
+    joint_outward=_SPATIAL_XFORM + 6 + 11 + 4 + 9,
+    # per joint: clamp, limit and integrate qd and q
+    joint_euler=11,
+    # per body: spatial inertia 32, I v 66, gravity 36, external wrench 66,
+    # v x* I v 30, pA 21
+    body=32 + _SYMI_MUL + (_QROT + 2 * _V3) + (6 + 2 * _QROT) + _SPATIAL_CROSS + 21,
+    # per contact candidate, its geometry once: frame and point 94, depth and
+    # the active count 4; extra for a rim candidate 52
+    cand_geom=_QMUL + 2 * (_QROT + _V3) + 4,
+    cand_rim=_QROT + 6 + 5 + 2 + 3 + 2 * _V3,
+    # per candidate, force: arm 4, point velocity 72, |vt| 5, effective mass
+    # 12, stiffness and damping 6, normal force 11, friction 9, force and
+    # torque 11, sums 12
+    cand_force=4 + (2 * _QROT + _CROSS + _V3) + 5 + 12 + 6 + 11 + 9 + 11 + 12,
+    # per floating root: 6x6 LDL^T solve 198, semi-implicit Euler with
+    # quaternion renormalisation 188
+    floating=198 + 188,
+)
+
+
+def kernel_ops_per_env(model, n_steps: int) -> float:
+    """fp32 operations of one env's physics step (n_steps substeps), from
+    OPS: what the function needs, each contact candidate's geometry once."""
+    cand = fused.contact.candidates(model)
+    jt = np.asarray(model.joint_type)
+    per_sub = (model.n_roots * OPS["root"]
+               + sum(OPS["joint_local"][int(t == 1)] for t in jt)
+               + model.nj * (OPS["joint_fk"] + OPS["joint_drive"] + OPS["joint_inward"]
+                             + OPS["joint_outward"] + OPS["joint_euler"])
+               + model.nb * OPS["body"]
+               + len(cand["geom"]) * (OPS["cand_geom"] + OPS["cand_force"])
+               + int(np.sum(cand["rim"])) * OPS["cand_rim"]
+               + model.n_floating * OPS["floating"])
+    return float(per_sub * n_steps)
+
+
+def _time_cuda(fn, iters: int, warmup: int) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_time(device) -> dict:
+    task = _task("Ant", device)
+    m = task.model
+    step = fused.build_fused_step_fn(m, task.sim_params, need_torque=False)
+    params, q, qd, ctrl, wrench = random_inputs(task, np.random.default_rng(SEED + 1), device)
+    packed = step.pack(params, q, qd, ctrl, wrench)
+    kernel_ms = _time_cuda(lambda: step.launch(packed), iters=200, warmup=20)
+    wrapper_ms = _time_cuda(lambda: step(params, q, qd, ctrl, wrench), iters=100, warmup=10)
+    plain_ms = _time_cuda(lambda: step.plain(params, q, qd, ctrl, wrench), iters=20, warmup=3)
+    nbytes = 4 * B * (step.rows["total"] + step.out_rows)
+    flops = B * kernel_ops_per_env(m, step.n_steps)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP32_FLOP_PER_S * 1e3
+    out = dict(ms=kernel_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+               bound_ms=max(bytes_ms, flops_ms),
+               bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+               bytes=nbytes, bytes_ms=bytes_ms, flops=flops, flops_ms=flops_ms)
+    log("time", model="Ant", envs=B, substeps=step.n_steps, **out)
+    return out
+
+
+def phase_train(device, card: str) -> dict:
+    import thormang_isaacgym_tpu_torch as tgt
+    from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig
+
+    with open(os.path.join(ROOT, "cfg", "task", "Ant.yaml")) as f:
+        task_cfg = yaml.safe_load(f)
+    with open(os.path.join(ROOT, "cfg", "train", "AntPPO.yaml")) as f:
+        train_cfg = yaml.safe_load(f)
+    env = tgt.make("Ant", num_envs=B, seed=SEED, cfg=task_cfg, device=device)
+    cfg = PPOConfig.from_rlgames(train_cfg)
+    ppo = PPO(env, cfg, device=device)
+    ts = ppo.init(SEED)
+    env_state = env.reset(SEED)
+    torch.cuda.synchronize()
+    iters = 3
+    env.physics_step.launches = 0
+    times, metrics = [], None
+    for it in range(iters):
+        t0 = time.perf_counter()
+        ts, env_state, metrics = ppo.train_iteration(ts, env_state)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = env.physics_step.launches
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"non-finite training metrics: {bad}")
+    expected = iters * cfg.horizon_length * env.task.control_freq_inv
+    if launches != expected:
+        raise AssertionError(f"fused kernel launched {launches} times, expected {expected}")
+    if tuple(env_state.obs.shape) != (B, env.num_obs) or not bool(torch.isfinite(env_state.obs).all()):
+        raise AssertionError("observations are not finite of shape (B, num_obs)")
+    steady = times[1:]
+    out = dict(launches=launches, expected_launches=expected,
+               s_per_iter=times, env_steps_per_s=B * cfg.horizon_length / (sum(steady) / len(steady)),
+               card=card, metrics=metrics)
+    log("train", task="Ant", envs=B, horizon=cfg.horizon_length,
+        minibatch=cfg.minibatch_size, mini_epochs=cfg.mini_epochs,
+        mixed_precision=cfg.mixed_precision, **out)
+    return out
+
+
+def main() -> None:
+    dev_info = phase_device()
+    device = torch.device("cuda")
+    phase_build()
+    max_err = phase_compare(device)
+    timing = phase_time(device)
+    train = phase_train(device, dev_info["kind"])
+    kernels = [dict(
+        name="fused_step", route="cuda",
+        source="thormang_isaacgym_tpu_torch/csrc/fused_step.cu",
+        replaces="thormang_isaacgym_tpu/ops/fused.py:1707",
+        launches=train["launches"], max_abs_err=max_err, max_err=max_err,
+        ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+        bound_by=timing["bound_by"], library_ms=None)]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_info["kind"],
+                                             "count": dev_info["count"]}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

@@ -1,0 +1,192 @@
+"""The fused CUDA kernel (thormang_isaacgym_tpu_torch/csrc/fused_step.cu)
+against its plain PyTorch version.
+
+On the CPU the kernel source is compiled as host C++ (one loop iteration per
+CUDA thread; the CUDA qualifiers defined away), so its per-thread arithmetic,
+table layout and packing are checked without a GPU. On a machine with a card
+`test_cuda_kernel_matches_plain` launches the real kernel (it skips where
+there is none). Tolerances of tests/test_fused.py: q atol=rtol 2e-3, qd
+atol=rtol 2e-2, net atol 1.0 / rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine without
+it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from thormang_isaacgym_tpu_torch.models import load_urdf
+from thormang_isaacgym_tpu_torch.ops import fused
+from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
+from thormang_isaacgym_tpu_torch.tasks.ant import Ant
+from thormang_isaacgym_tpu_torch.tasks.cartpole import Cartpole
+
+B = 64
+# the tiny floating model of tests/test_fused.py: free sphere + one revolute arm
+TINY_URDF = """
+<robot name="tiny">
+  <link name="base">
+    <inertial><mass value="1.0"/>
+      <inertia ixx="0.01" iyy="0.01" izz="0.01" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><geometry><sphere radius="0.1"/></geometry></collision>
+  </link>
+  <link name="arm">
+    <inertial><origin xyz="0 0 -0.1"/><mass value="0.3"/>
+      <inertia ixx="0.002" iyy="0.002" izz="0.001" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0 0 -0.2"/><geometry><sphere radius="0.05"/></geometry></collision>
+  </link>
+  <joint name="hinge" type="revolute">
+    <parent link="base"/><child link="arm"/>
+    <origin xyz="0.1 0 0"/><axis xyz="0 1 0"/>
+    <limit lower="-1.5" upper="1.5" effort="10" velocity="10"/>
+  </joint>
+</robot>"""
+TINY_SP = dict(dt=1 / 60, substeps=2, contact_stiffness=5e3, contact_damping=100.0)
+_HOST_PRELUDE = """#include <cmath>
+#include <math.h>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__ __restrict
+struct HostDim { int x; };
+static HostDim blockIdx, threadIdx, blockDim;
+"""
+_HOST_LOOP = """
+extern "C" void host_launch(const int* mi, const float* mf, const float* in, float* out,
+                            int B) {
+  blockDim.x = 128;
+  for (int b = 0; b < B; ++b) {
+    blockIdx.x = b / 128;
+    threadIdx.x = b % 128;
+    fused_step_kernel(mi, mf, in, out, B);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel source for the CPU")
+    src = open(fused.SOURCE).read().replace("#include <cuda_runtime.h>", "")
+    src = src[:src.index('extern "C"')]
+    d = tmp_path_factory.mktemp("host_kernel")
+    cpp, so = d / "fused_step_host.cpp", d / "libfused_step_host.so"
+    cpp.write_text(_HOST_PRELUDE + src + _HOST_LOOP)
+    subprocess.run([cxx, "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+                    "-o", str(so), str(cpp)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.host_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    lib.host_launch.restype = None
+    return lib
+
+
+def _model(name):
+    if name == "tiny":
+        return load_urdf(TINY_URDF), SimParams(**TINY_SP), None
+    task = {"cartpole": Cartpole, "ant": Ant}[name](num_envs=B, device="cpu")
+    return task.model, task.sim_params, task
+
+
+def _inputs(name, model, task, device):
+    rng = np.random.default_rng(3)
+    nj = model.nj
+    if model.n_floating:
+        q = np.zeros((B, model.nq))
+        qr = rng.normal(size=(B, 4)) * 0.2 + [1.0, 0.0, 0.0, 0.0]
+        q[:, 3:7] = qr / np.linalg.norm(qr, axis=1, keepdims=True)
+        q[:, 2] = task.spawn_z + rng.uniform(-0.05, 0.05, B) if task else 0.12
+        base = task._init_jq if task else np.zeros(nj)
+        q[:, 7:] = base + rng.uniform(-0.2, 0.2, (B, nj))
+        qd = rng.normal(size=(B, model.nv)) * 0.5
+    else:
+        q = rng.uniform(-1.0, 1.0, (B, model.nq))
+        qd = rng.uniform(-1.0, 1.0, (B, model.nv))
+    wrench = np.concatenate([rng.normal(size=(B, model.nb, 3)) * 0.1,
+                             rng.normal(size=(B, model.nb, 3))], axis=-1)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    ctrl = Controls(t(rng.normal(size=(B, nj)) * 0.1), t(np.zeros((B, nj))),
+                    t(rng.uniform(-15, 15, (B, nj))))
+    return model.default_params(device).batch(B), t(q), t(qd), ctrl, t(wrench)
+
+
+def _host_call(lib, step, params, q, qd, ctrl, wrench):
+    packed = step.pack(params, q, qd, ctrl, wrench)
+    mi, mf = (torch.as_tensor(x) for x in step._tables)
+    out = torch.full((step.out_rows, q.shape[0]), float("nan"))
+    lib.host_launch(mi.data_ptr(), mf.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                    q.shape[0])
+    return step.unpack(out, q.shape[0])
+
+
+def _assert_close(a, b):
+    for x, y, (atol, rtol) in zip(a, b, ((2e-3, 2e-3), (2e-2, 2e-2), (1.0, 5e-3))):
+        assert bool(torch.isfinite(x).all())
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("name", ["cartpole", "tiny", "ant"])
+def test_kernel_source_on_host_matches_plain(host_kernel, name):
+    model, sp, task = _model(name)
+    step = fused.build_fused_step_fn(model, sp, need_torque=(0,) if name == "ant" else True)
+    params, q, qd, ctrl, w = _inputs(name, model, task, "cpu")
+    qa, qda, qb, qdb = q, qd, q, qd
+    for _ in range(5):
+        qa, qda, na = _host_call(host_kernel, step, params, qa, qda, ctrl, w)
+        qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, w)
+        _assert_close((qa, qda, na), (qb, qdb, nb_))
+
+
+def test_kernel_caps_raise():
+    model, sp, _ = _model("tiny")
+    fused.check_caps(model)
+    n = fused.MAX_BODIES + 1
+    big = load_urdf("<robot name='chain'>" + "".join(
+        f"<link name='l{i}'><inertial><mass value='1'/><inertia ixx='1' iyy='1' izz='1'"
+        f" ixy='0' ixz='0' iyz='0'/></inertial></link>" for i in range(n)) + "".join(
+        f"<joint name='j{i}' type='revolute'><parent link='l{i}'/><child link='l{i + 1}'/>"
+        f"<axis xyz='0 0 1'/></joint>" for i in range(n - 1)) + "</robot>")
+    with pytest.raises(NotImplementedError):
+        fused.check_caps(big)
+    with pytest.raises(NotImplementedError):      # at build time, not at the first launch
+        fused.build_fused_step_fn(big, sp)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name", ["cartpole", "tiny", "ant"])
+def test_cuda_kernel_matches_plain(cuda_device, name):
+    model, sp, task = _model(name)
+    step = fused.build_fused_step_fn(model, sp)
+    params, q, qd, ctrl, w = _inputs(name, model, task, cuda_device)
+    qa, qda, qb, qdb = q, qd, q, qd
+    for _ in range(5):
+        qa, qda, na = step(params, qa, qda, ctrl, w)
+        qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, w)
+    torch.cuda.synchronize()
+    _assert_close((qa, qda, na), (qb, qdb, nb_))
+    assert step.launches == 5
+
+
+def test_wrapper_rejects_bad_inputs():
+    model, sp, task = _model("ant")
+    step = fused.build_fused_step_fn(model, sp)
+    params, q, qd, ctrl, w = _inputs("ant", model, task, "cpu")
+    with pytest.raises(ValueError):
+        step.pack(params, q[:, :-1], qd, ctrl, w)
+    with pytest.raises(ValueError):
+        step.pack(params, q, qd, ctrl, w[:, :-1])
+    with pytest.raises(ValueError):
+        step.launch(step.pack(params, q, qd, ctrl, w))     # CPU slab: no kernel launch
+    assert step.launches == 0

@@ -1,0 +1,583 @@
+// Fused physics step for NVIDIA Hopper (sm_90a): the whole substep loop of a
+// tree articulation on flat ground, one thread per env.
+//
+// Replaces the TPU kernel `_make_kernel(...).kernel` launched by the
+// `pl.pallas_call` in `build_fused_step_fn` (thormang_isaacgym_tpu/ops/fused.py).
+// It computes what that kernel computes for feature blocks B1-B3: implicit
+// joint drives, passive damping / dry friction / limit springs, forward
+// kinematics, penalty ground contact with stability-clamped coefficients and
+// tanh-regularised Coulomb friction, the three-sweep Featherstone ABA with a
+// 6x6 LDL^T solve per floating root, and semi-implicit Euler with quaternion
+// renormalisation, repeated n_steps times inside the kernel. Tendons,
+// attractors, actor pairs and heightfield grounds are not covered; the
+// Python wrapper refuses such models.
+//
+// Design. One generic kernel for every model: the model's static data (parent
+// indices, joint types, axes and frames, root flags, contact candidates,
+// torque-body slots) arrives as two small read-only device buffers that every
+// thread reads at the same address. Per-thread arrays are bounded by the
+// compile-time caps below (bodies, roots); the wrapper raises above them, and
+// only the first nb entries of each array are touched. Inputs are structure-of-arrays (R, B)
+// rows exactly as `_make_rows` lays them out, so thread b reads row r at
+// in[r * B + b] and neighbouring threads load neighbouring words; the output
+// (nq + nv + 3 nb + 3 ntq, B) has the same layout. Blocks of 128 threads,
+// the ragged edge masked.
+//
+// What bounds it. Per env and control step the kernel reads R rows and writes
+// out_rows rows once (Ant: 330 input + 56 output rows of 4 bytes), so at 4096
+// envs the bytes are 6.3 MB (1.89 us at 3.35 TB/s); the arithmetic is 15.2k
+// fp32 operations per env and substep (counted in chip_smoke.py's OPS; Ant,
+// 2 substeps: 1.86 us at 67 TFLOP/s). Neither bound is close: this simple
+// design is bound by latency. q, qd and the 21-float articulated inertias live in per-thread
+// local memory (spills are accepted), 4096 envs make only 32 blocks of 128
+// threads (32 of 132 SMs busy), and the per-env model parameters are re-read
+// from the input slab in every substep. What it leaves on the table: smaller
+// blocks or more envs per launch, keeping the inertias in registers or shared
+// memory, splitting an env's bodies across a warp, and fusing the packing of
+// the input slab into the kernel.
+//
+// Numerics: float32 throughout, built without --use_fast_math and with
+// -fmad=false so every product and sum rounds as the plain PyTorch version's
+// separate elementwise operations do; tanh, sin, cos, sqrt and division are
+// the accurate CUDA library versions.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kHeader = 48;     // ints / floats of header in the two tables
+constexpr int kMaxBodies = 64;  // MAX_BODIES in ops/fused.py
+constexpr int kMaxRoots = 8;    // MAX_ROOTS in ops/fused.py
+constexpr float kLockBig = 1e12f;
+constexpr float kJointFrictionVel = 0.05f;
+
+// input row offsets, in _make_rows order (header ints 10..36)
+struct Rows {
+  int q, qd, tp, tv, eff, mass, com, inertia, gscale, armature, damping,
+      friction, lower, upper, vel_limit, posm, velm, effm, kp, kd, eff_lim,
+      locked, locked_pos, geom_fric, gravity, wrench, total;
+};
+
+struct V3 { float x, y, z; };
+struct Q4 { float w, x, y, z; };
+// symmetric 6x6 spatial inertia [[A, B], [B^T, C]]: A, C symmetric as
+// (xx, xy, xz, yy, yz, zz), B row-major 3x3
+struct SymI { float A[6]; float B[9]; float C[6]; };
+struct S6 { V3 a, b; };  // spatial vector, angular part first
+
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 scl(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ S6 add6(S6 p, S6 q) { return {add(p.a, q.a), add(p.b, q.b)}; }
+
+__device__ __forceinline__ Q4 qmul(Q4 a, Q4 b) {
+  return {a.w * b.w - a.x * b.x - a.y * b.y - a.z * b.z,
+          a.w * b.x + a.x * b.w + a.y * b.z - a.z * b.y,
+          a.w * b.y - a.x * b.z + a.y * b.w + a.z * b.x,
+          a.w * b.z + a.x * b.y - a.y * b.x + a.z * b.w};
+}
+// body -> world: v + w t + qv x t, t = 2 qv x v
+__device__ __forceinline__ V3 qrot(Q4 q, V3 v) {
+  V3 qv = {q.x, q.y, q.z};
+  V3 t = scl(cross(qv, v), 2.0f);
+  return add(add(v, scl(t, q.w)), cross(qv, t));
+}
+__device__ __forceinline__ V3 qrotinv(Q4 q, V3 v) { return qrot({q.w, -q.x, -q.y, -q.z}, v); }
+
+__device__ __forceinline__ void qtomat(Q4 q, float* R) {
+  float xx = q.x * q.x, yy = q.y * q.y, zz = q.z * q.z;
+  float xy = q.x * q.y, xz = q.x * q.z, yz = q.y * q.z;
+  float wx = q.w * q.x, wy = q.w * q.y, wz = q.w * q.z;
+  R[0] = 1.0f - 2.0f * (yy + zz); R[1] = 2.0f * (xy - wz); R[2] = 2.0f * (xz + wy);
+  R[3] = 2.0f * (xy + wz); R[4] = 1.0f - 2.0f * (xx + zz); R[5] = 2.0f * (yz - wx);
+  R[6] = 2.0f * (xz - wy); R[7] = 2.0f * (yz + wx); R[8] = 1.0f - 2.0f * (xx + yy);
+}
+__device__ __forceinline__ V3 m3v(const float* M, V3 v) {
+  return {M[0] * v.x + M[1] * v.y + M[2] * v.z, M[3] * v.x + M[4] * v.y + M[5] * v.z,
+          M[6] * v.x + M[7] * v.y + M[8] * v.z};
+}
+__device__ __forceinline__ V3 m3Tv(const float* M, V3 v) {
+  return {M[0] * v.x + M[3] * v.y + M[6] * v.z, M[1] * v.x + M[4] * v.y + M[7] * v.z,
+          M[2] * v.x + M[5] * v.y + M[8] * v.z};
+}
+__device__ __forceinline__ V3 sym3v(const float* S, V3 v) {
+  return {S[0] * v.x + S[1] * v.y + S[2] * v.z, S[1] * v.x + S[3] * v.y + S[4] * v.z,
+          S[2] * v.x + S[4] * v.y + S[5] * v.z};
+}
+__device__ __forceinline__ void sym9(const float* S, float* M) {
+  M[0] = S[0]; M[1] = S[1]; M[2] = S[2]; M[3] = S[1]; M[4] = S[3];
+  M[5] = S[4]; M[6] = S[2]; M[7] = S[4]; M[8] = S[5];
+}
+__device__ __forceinline__ void mm(const float* A, const float* B, float* O) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      O[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] + A[3 * i + 2] * B[6 + j];
+}
+__device__ __forceinline__ void mmT(const float* A, const float* B, float* O) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      O[3 * i + j] = A[3 * i] * B[3 * j] + A[3 * i + 1] * B[3 * j + 1] + A[3 * i + 2] * B[3 * j + 2];
+}
+
+// motion vector parent -> child coordinates
+__device__ __forceinline__ S6 motion_to_child(const float* R, V3 p, S6 m) {
+  return {m3Tv(R, m.a), m3Tv(R, sub(m.b, cross(p, m.a)))};
+}
+// force vector child -> parent coordinates
+__device__ __forceinline__ S6 force_to_parent(const float* R, V3 p, S6 f) {
+  V3 Fp = m3v(R, f.b);
+  return {add(m3v(R, f.a), cross(p, Fp)), Fp};
+}
+__device__ __forceinline__ S6 cross_motion(S6 a, S6 b) {
+  return {cross(a.a, b.a), add(cross(a.a, b.b), cross(a.b, b.a))};
+}
+__device__ __forceinline__ S6 cross_force(S6 a, S6 f) {
+  return {add(cross(a.a, f.a), cross(a.b, f.b)), cross(a.a, f.b)};
+}
+
+__device__ __forceinline__ void inertia_body(float m, V3 c, const float* I6, SymI& I) {
+  float c2 = c.x * c.x + c.y * c.y + c.z * c.z;
+  I.A[0] = I6[0] + m * (c2 - c.x * c.x);
+  I.A[1] = I6[1] - m * (c.x * c.y);
+  I.A[2] = I6[2] - m * (c.x * c.z);
+  I.A[3] = I6[3] + m * (c2 - c.y * c.y);
+  I.A[4] = I6[4] - m * (c.y * c.z);
+  I.A[5] = I6[5] + m * (c2 - c.z * c.z);
+  I.B[0] = 0.0f; I.B[1] = -(m * c.z); I.B[2] = m * c.y;
+  I.B[3] = m * c.z; I.B[4] = 0.0f; I.B[5] = -(m * c.x);
+  I.B[6] = -(m * c.y); I.B[7] = m * c.x; I.B[8] = 0.0f;
+  I.C[0] = m; I.C[1] = 0.0f; I.C[2] = 0.0f; I.C[3] = m; I.C[4] = 0.0f; I.C[5] = m;
+}
+__device__ __forceinline__ S6 symI_mul(const SymI& I, S6 m) {
+  return {add(sym3v(I.A, m.a), m3v(I.B, m.b)), add(m3Tv(I.B, m.a), sym3v(I.C, m.b))};
+}
+// I - U U^T / D
+__device__ __forceinline__ void symI_rank1_sub(SymI& I, const float* U, float invD) {
+  const int si[6] = {0, 0, 0, 1, 1, 2}, sj[6] = {0, 1, 2, 1, 2, 2};
+  for (int k = 0; k < 6; ++k) {
+    I.A[k] -= (U[si[k]] * U[sj[k]]) * invD;
+    I.C[k] -= (U[3 + si[k]] * U[3 + sj[k]]) * invD;
+  }
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) I.B[3 * i + j] -= (U[i] * U[3 + j]) * invD;
+}
+// P += Y I Y^T with Y = [[R, skew(p) R], [0, R]] (child -> parent)
+__device__ void symI_add_to_parent(const float* R, V3 p, const SymI& I, SymI& P) {
+  float SkR[9] = {p.y * R[6] - p.z * R[3], p.y * R[7] - p.z * R[4], p.y * R[8] - p.z * R[5],
+                 p.z * R[0] - p.x * R[6], p.z * R[1] - p.x * R[7], p.z * R[2] - p.x * R[8],
+                 p.x * R[3] - p.y * R[0], p.x * R[4] - p.y * R[1], p.x * R[5] - p.y * R[2]};
+  float A9[9], C9[9], Bt[9], T1[9], T2[9], M1[9], M2[9];
+  sym9(I.A, A9);
+  sym9(I.C, C9);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) Bt[3 * i + j] = I.B[3 * j + i];
+  mm(R, A9, T1); mm(SkR, Bt, T2);
+  for (int k = 0; k < 9; ++k) M1[k] = T1[k] + T2[k];
+  mm(R, I.B, T1); mm(SkR, C9, T2);
+  for (int k = 0; k < 9; ++k) M2[k] = T1[k] + T2[k];
+  mmT(M1, R, T1); mmT(M2, SkR, T2);
+  const int up[6] = {0, 1, 2, 4, 5, 8};
+  for (int k = 0; k < 6; ++k) P.A[k] += T1[up[k]] + T2[up[k]];
+  mmT(M2, R, T1);
+  for (int k = 0; k < 9; ++k) P.B[k] += T1[k];
+  mm(R, C9, T1); mmT(T1, R, T2);
+  for (int k = 0; k < 6; ++k) P.C[k] += T2[up[k]];
+}
+
+// x = M^-1 b for the symmetric positive-definite 6x6 of I (LDL^T, D + 1e-9)
+__device__ void ldlt_solve6(const SymI& I, const float* b, float* x) {
+  float M[6][6], L[6][6], D[6], invD[6], y[6];
+  float A9[9], C9[9];
+  sym9(I.A, A9);
+  sym9(I.C, C9);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      M[i][j] = A9[3 * i + j];
+      M[i][3 + j] = I.B[3 * i + j];
+      M[3 + i][j] = I.B[3 * j + i];
+      M[3 + i][3 + j] = C9[3 * i + j];
+    }
+  for (int j = 0; j < 6; ++j) {
+    float s = M[j][j];
+    for (int k = 0; k < j; ++k) s -= (L[j][k] * L[j][k]) * D[k];
+    D[j] = s + 1e-9f;
+    invD[j] = 1.0f / D[j];
+    for (int i = j + 1; i < 6; ++i) {
+      float t = M[i][j];
+      for (int k = 0; k < j; ++k) t -= (L[i][k] * L[j][k]) * D[k];
+      L[i][j] = t * invD[j];
+    }
+  }
+  for (int i = 0; i < 6; ++i) {
+    float s = b[i];
+    for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
+    y[i] = s;
+  }
+  for (int i = 5; i >= 0; --i) {
+    float s = y[i] * invD[i];
+    for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
+    x[i] = s;
+  }
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
+
+__global__ void __launch_bounds__(128)
+fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
+                  const float* __restrict__ in, float* __restrict__ out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  constexpr int MAXB = kMaxBodies;
+  constexpr int MAXQ = 7 * kMaxRoots + MAXB;
+  constexpr int MAXV = 6 * kMaxRoots + MAXB;
+
+  const int nb = mi[0], nj = mi[1], nr = mi[2], nf = mi[3], nq = mi[4], nv = mi[5];
+  const int nc = mi[7], ntq = mi[8], n_steps = mi[9];
+  Rows rw;
+  {
+    int* dst = reinterpret_cast<int*>(&rw);
+    for (int k = 0; k < 27; ++k) dst[k] = mi[10 + k];
+  }
+  const int* parent = mi + kHeader;
+  const int* jtype = parent + nb;
+  const int* root_float = jtype + nj;
+  const int* cand_body = root_float + nr;
+  const int* cand_geom = cand_body + nc;
+  const int* cand_rim = cand_geom + nc;
+  const int* tq_slot = cand_rim + nc;
+
+  const float h = mf[0], h2 = mf[1], ground_z = mf[2], kn_max = mf[3], kd_max = mf[4];
+  const float fric_vel = mf[5], plane_fric = mf[6], lim_k = mf[7], lim_d = mf[8];
+  const float damp_l = mf[9], damp_a = mf[10], max_v = mf[11], max_dep_v = mf[12];
+  const float lim_diag = mf[13];  // h^2 lim_k + h lim_d
+  const float* jaxis = mf + kHeader;
+  const float* jpos = jaxis + 3 * nj;
+  const float* jquat = jpos + 3 * nj;
+  const float* root_base = jquat + 4 * nj;
+  const float* cand_gpos = root_base + 7 * nr;
+  const float* cand_gquat = cand_gpos + 3 * nc;
+  const float* cand_off = cand_gquat + 4 * nc;
+  const float* cand_r = cand_off + 3 * nc;
+
+#define RD(r) in[(size_t)(r) * B + b]
+
+  float q[MAXQ], qd[MAXV];
+  for (int i = 0; i < nq; ++i) q[i] = RD(rw.q + i);
+  for (int i = 0; i < nv; ++i) qd[i] = RD(rw.qd + i);
+  int fidx[kMaxRoots];
+  for (int r = 0, fi = 0; r < nr; ++r) fidx[r] = root_float[r] ? fi++ : -1;
+  const V3 gvec = {RD(rw.gravity), RD(rw.gravity + 1), RD(rw.gravity + 2)};
+
+  // per-body / per-joint scratch (local memory)
+  S6 v[MAXB], cb[MAXB], pA[MAXB];
+  Q4 quat_w[MAXB];
+  V3 pos_w[MAXB], net_f[MAXB], net_t[MAXB];
+  SymI IA[MAXB];
+  float n_active[MAXB];
+  float Rl[MAXB][9];
+  V3 pl[MAXB];
+  float U[MAXB][6], invD[MAXB], uj[MAXB], tau[MAXB], diag[MAXB];
+
+  for (int step = 0; step < n_steps; ++step) {
+    const float* jq = q + 7 * nf;
+    const float* jqd = qd + 6 * nf;
+    // ---- root state ----
+    Q4 root_quat[kMaxRoots];
+    V3 root_pos[kMaxRoots], root_wb[kMaxRoots], root_vw[kMaxRoots];
+    for (int r = 0; r < nr; ++r) {
+      int fi = fidx[r];
+      if (fi >= 0) {
+        const float* qr = q + 7 * fi;
+        const float* vr = qd + 6 * fi;
+        root_pos[r] = {qr[0], qr[1], qr[2]};
+        root_quat[r] = {qr[3], qr[4], qr[5], qr[6]};
+        root_wb[r] = {vr[0], vr[1], vr[2]};
+        root_vw[r] = {vr[3], vr[4], vr[5]};
+      } else {
+        const float* bp = root_base + 7 * r;
+        root_pos[r] = {bp[0], bp[1], bp[2]};
+        root_quat[r] = {bp[3], bp[4], bp[5], bp[6]};
+        root_wb[r] = {0.0f, 0.0f, 0.0f};
+        root_vw[r] = {0.0f, 0.0f, 0.0f};
+      }
+    }
+    // ---- joint local poses + pass 1 (outward): link velocities, world poses ----
+    Q4 quat_l[MAXB];
+    for (int r = 0; r < nr; ++r) {
+      v[r] = {root_wb[r], qrotinv(root_quat[r], root_vw[r])};
+      cb[r] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+      quat_w[r] = root_quat[r];
+      pos_w[r] = root_pos[r];
+    }
+    for (int bi = nr; bi < nb; ++bi) {
+      const int j = bi - nr, p = parent[bi];
+      const V3 ax = {jaxis[3 * j], jaxis[3 * j + 1], jaxis[3 * j + 2]};
+      const Q4 jqc = {jquat[4 * j], jquat[4 * j + 1], jquat[4 * j + 2], jquat[4 * j + 3]};
+      const V3 jp = {jpos[3 * j], jpos[3 * j + 1], jpos[3 * j + 2]};
+      const bool rev = jtype[j] == 1;
+      S6 vj;
+      if (rev) {
+        const float half = jq[j] * 0.5f;
+        const float cw = cosf(half), sw = sinf(half);
+        quat_l[j] = qmul(jqc, {cw, ax.x * sw, ax.y * sw, ax.z * sw});
+        pl[j] = jp;
+        vj = {scl(ax, jqd[j]), {0.0f, 0.0f, 0.0f}};
+      } else {
+        quat_l[j] = jqc;
+        pl[j] = add(jp, qrot(jqc, scl(ax, jq[j])));
+        vj = {{0.0f, 0.0f, 0.0f}, scl(ax, jqd[j])};
+      }
+      qtomat(quat_l[j], Rl[j]);
+      const S6 vi = add6(motion_to_child(Rl[j], pl[j], v[p]), vj);
+      v[bi] = vi;
+      cb[bi] = cross_motion(vi, vj);
+      quat_w[bi] = qmul(quat_w[p], quat_l[j]);
+      pos_w[bi] = add(pos_w[p], qrot(quat_w[p], pl[j]));
+    }
+
+    // ---- ground contact; pA[] first holds the world wrench [torque, force] ----
+    for (int bi = 0; bi < nb; ++bi) {
+      pA[bi] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+      net_f[bi] = {0.0f, 0.0f, 0.0f};
+      net_t[bi] = {0.0f, 0.0f, 0.0f};
+      n_active[bi] = 0.0f;
+    }
+    for (int phase = 0; phase < 2; ++phase) {
+      for (int c = 0; c < nc; ++c) {
+        const int bi = cand_body[c];
+        const Q4 bq = quat_w[bi];
+        const Q4 gq = qmul(bq, {cand_gquat[4 * c], cand_gquat[4 * c + 1],
+                                cand_gquat[4 * c + 2], cand_gquat[4 * c + 3]});
+        const V3 gp = add(pos_w[bi], qrot(bq, {cand_gpos[3 * c], cand_gpos[3 * c + 1],
+                                               cand_gpos[3 * c + 2]}));
+        V3 pc = add(gp, qrot(gq, {cand_off[3 * c], cand_off[3 * c + 1], cand_off[3 * c + 2]}));
+        float eff_r = cand_r[c];
+        if (cand_rim[c]) {
+          const V3 a = qrot(gq, {0.0f, 0.0f, 1.0f});
+          const V3 perp = {0.0f - a.x * a.z, 0.0f - a.y * a.z, 1.0f - a.z * a.z};
+          const float pn = fmaxf(sqrtf(dot(perp, perp)), 1e-6f);
+          const V3 u = {-perp.x / pn, -perp.y / pn, -perp.z / pn};
+          pc = add(pc, scl(u, cand_r[c]));
+          eff_r = 0.0f;
+        }
+        const float depth = ground_z - (pc.z - eff_r);
+        const bool active = depth > 0.0f;
+        if (phase == 0) {
+          n_active[bi] += active ? 1.0f : 0.0f;
+          continue;
+        }
+        const V3 cp = {pc.x, pc.y, pc.z - eff_r};
+        const V3 r_arm = sub(cp, pos_w[bi]);
+        const V3 om_w = qrot(bq, v[bi].a);
+        const V3 vl_w = qrot(bq, v[bi].b);
+        const V3 vp = add(vl_w, cross(om_w, r_arm));
+        const float vn = vp.z;
+        const float vt_norm = sqrtf(vp.x * vp.x + vp.y * vp.y + 1e-18f);
+        const float mass = RD(rw.mass + bi);
+        const float I_min = fminf(fminf(RD(rw.inertia + 6 * bi), RD(rw.inertia + 6 * bi + 3)),
+                                  RD(rw.inertia + 6 * bi + 5));
+        const float mu = RD(rw.geom_fric + cand_geom[c]) * plane_fric;
+        const float r_perp2 = r_arm.x * r_arm.x + r_arm.y * r_arm.y;
+        const float m_rot = I_min / (r_perp2 + 1e-6f);
+        float m_eff = fminf(mass, r_perp2 < 1e-6f ? mass : m_rot);
+        m_eff = m_eff / fmaxf(n_active[bi], 1.0f);
+        const float kn = fminf(0.25f * m_eff / h2, kn_max);
+        const float kd = fminf(0.5f * m_eff / h, kd_max);
+        float fn = kn * depth - kd * vn;
+        fn = active ? fmaxf(fn, 0.0f) : 0.0f;
+        const float cap = vn > 0.0f ? m_eff * fmaxf(max_dep_v - vn, 0.0f) / h : INFINITY;
+        fn = fmaxf(fminf(fn, cap), 0.0f);
+        float ft_mag = mu * fn * tanhf(vt_norm / fric_vel);
+        ft_mag = fminf(ft_mag, mass * vt_norm / h);
+        const float s = ft_mag / fmaxf(vt_norm, 1e-6f);
+        const V3 f = {-s * vp.x, -s * vp.y, fn};
+        const V3 tq = cross(r_arm, f);
+        pA[bi].a = add(pA[bi].a, tq);
+        pA[bi].b = add(pA[bi].b, f);
+        net_f[bi] = add(net_f[bi], f);
+        net_t[bi] = add(net_t[bi], tq);
+      }
+    }
+
+    // ---- drives + passive joint forces (implicit form) ----
+    for (int j = 0; j < nj; ++j) {
+      const float x = jq[j], xd = jqd[j];
+      const float kp = RD(rw.kp + j), kdd = RD(rw.kd + j);
+      const float posm = RD(rw.posm + j), velm = RD(rw.velm + j), effm = RD(rw.effm + j);
+      const float pd = kp * (RD(rw.tp + j) - x - h * xd) - kdd * xd;
+      const float vl = kdd * (RD(rw.tv + j) - xd);
+      const float lim = RD(rw.eff_lim + j);
+      float t = clampf(posm * pd + velm * vl + effm * RD(rw.eff + j), -lim, lim);
+      float dg = posm * (h2 * kp + h * kdd) + velm * (h * kdd);
+      const float damp = RD(rw.damping + j);
+      t = t - damp * xd;
+      dg = dg + h * damp;
+      t = t - RD(rw.friction + j) * tanhf(xd / kJointFrictionVel);
+      const float lo = RD(rw.lower + j), hi = RD(rw.upper + j);
+      const float below = isfinite(lo) ? fminf(x - lo, 0.0f) : 0.0f;
+      const float above = isfinite(hi) ? fmaxf(x - hi, 0.0f) : 0.0f;
+      const float in_vio = (below < 0.0f || above > 0.0f) ? 1.0f : 0.0f;
+      t = t + in_vio * (-lim_k * ((below + above) + h * xd) - lim_d * xd);
+      dg = dg + in_vio * lim_diag;
+      tau[j] = t;
+      diag[j] = dg;
+    }
+
+    // ---- body inertias + bias forces pA (link frame) ----
+    for (int bi = 0; bi < nb; ++bi) {
+      const float m = RD(rw.mass + bi);
+      const V3 com = {RD(rw.com + 3 * bi), RD(rw.com + 3 * bi + 1), RD(rw.com + 3 * bi + 2)};
+      float I6[6];
+      for (int k = 0; k < 6; ++k) I6[k] = RD(rw.inertia + 6 * bi + k);
+      inertia_body(m, com, I6, IA[bi]);
+      const S6 Iv = symI_mul(IA[bi], v[bi]);
+      const V3 gl = scl(qrotinv(quat_w[bi], gvec), RD(rw.gscale + bi));
+      const V3 mg = scl(gl, m);
+      const V3 w_ang = {pA[bi].a.x + RD(rw.wrench + 6 * bi), pA[bi].a.y + RD(rw.wrench + 6 * bi + 1),
+                        pA[bi].a.z + RD(rw.wrench + 6 * bi + 2)};
+      const V3 w_lin = {pA[bi].b.x + RD(rw.wrench + 6 * bi + 3), pA[bi].b.y + RD(rw.wrench + 6 * bi + 4),
+                        pA[bi].b.z + RD(rw.wrench + 6 * bi + 5)};
+      const S6 cf = cross_force(v[bi], Iv);
+      pA[bi] = {sub(sub(cf.a, qrotinv(quat_w[bi], w_ang)), cross(com, mg)),
+                sub(sub(cf.b, qrotinv(quat_w[bi], w_lin)), mg)};
+    }
+
+    // ---- pass 2 (inward): articulated inertia ----
+    for (int bi = nb - 1; bi >= nr; --bi) {
+      const int j = bi - nr, p = parent[bi];
+      const V3 ax = {jaxis[3 * j], jaxis[3 * j + 1], jaxis[3 * j + 2]};
+      V3 Ua, Ul;
+      float D, SpA;
+      if (jtype[j] == 1) {
+        Ua = sym3v(IA[bi].A, ax);
+        Ul = m3Tv(IA[bi].B, ax);
+        D = dot(ax, Ua);
+        SpA = dot(ax, pA[bi].a);
+      } else {
+        Ua = m3v(IA[bi].B, ax);
+        Ul = sym3v(IA[bi].C, ax);
+        D = dot(ax, Ul);
+        SpA = dot(ax, pA[bi].b);
+      }
+      D = D + RD(rw.armature + j) + RD(rw.locked + j) * kLockBig + diag[j];
+      const float iD = 1.0f / D;
+      const float u = tau[j] - SpA;
+      float* Uj = U[j];
+      Uj[0] = Ua.x; Uj[1] = Ua.y; Uj[2] = Ua.z; Uj[3] = Ul.x; Uj[4] = Ul.y; Uj[5] = Ul.z;
+      invD[j] = iD;
+      uj[j] = u;
+      symI_rank1_sub(IA[bi], Uj, iD);
+      const S6 Ic = symI_mul(IA[bi], cb[bi]);
+      const float uD = u * iD;
+      const S6 pa = {add(add(pA[bi].a, Ic.a), scl(Ua, uD)), add(add(pA[bi].b, Ic.b), scl(Ul, uD))};
+      symI_add_to_parent(Rl[j], pl[j], IA[bi], IA[p]);
+      const S6 fp = force_to_parent(Rl[j], pl[j], pa);
+      pA[p] = add6(pA[p], fp);
+    }
+
+    // ---- pass 3 (outward): accelerations; v[] is reused to hold them ----
+    for (int r = 0; r < nr; ++r) {
+      if (fidx[r] >= 0) {
+        float rhs[6] = {-pA[r].a.x, -pA[r].a.y, -pA[r].a.z, -pA[r].b.x, -pA[r].b.y, -pA[r].b.z};
+        float x[6];
+        ldlt_solve6(IA[r], rhs, x);
+        v[r] = {{x[0], x[1], x[2]}, {x[3], x[4], x[5]}};
+      } else {
+        v[r] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+      }
+    }
+    float qdd[MAXB];
+    for (int bi = nr; bi < nb; ++bi) {
+      const int j = bi - nr, p = parent[bi];
+      const S6 ap = add6(motion_to_child(Rl[j], pl[j], v[p]), cb[bi]);
+      const float* Uj = U[j];
+      const float Ua = (Uj[0] * ap.a.x + Uj[1] * ap.a.y + Uj[2] * ap.a.z) +
+                       (Uj[3] * ap.b.x + Uj[4] * ap.b.y + Uj[5] * ap.b.z);
+      const float a = (uj[j] - Ua) * invD[j] * (1.0f - RD(rw.locked + j));
+      qdd[j] = a;
+      const V3 ax = {jaxis[3 * j], jaxis[3 * j + 1], jaxis[3 * j + 2]};
+      v[bi] = jtype[j] == 1 ? add6(ap, S6{scl(ax, a), {0.0f, 0.0f, 0.0f}})
+                            : add6(ap, S6{{0.0f, 0.0f, 0.0f}, scl(ax, a)});
+    }
+
+    // ---- semi-implicit Euler ----
+    for (int r = 0; r < nr; ++r) {
+      const int fi = fidx[r];
+      if (fi < 0) continue;
+      const V3 wb = root_wb[r], vw = root_vw[r];
+      const Q4 qo = root_quat[r];
+      const V3 a_ang = v[r].a;
+      const V3 a_lin_w = qrot(qo, add(v[r].b, cross(wb, qrotinv(qo, vw))));
+      const V3 wb2 = {clampf((wb.x + h * a_ang.x) * damp_a, -max_v, max_v),
+                      clampf((wb.y + h * a_ang.y) * damp_a, -max_v, max_v),
+                      clampf((wb.z + h * a_ang.z) * damp_a, -max_v, max_v)};
+      const V3 vw2 = {clampf((vw.x + h * a_lin_w.x) * damp_l, -max_v, max_v),
+                      clampf((vw.y + h * a_lin_w.y) * damp_l, -max_v, max_v),
+                      clampf((vw.z + h * a_lin_w.z) * damp_l, -max_v, max_v)};
+      const V3 om = qrot(qo, wb2);
+      const Q4 dq = qmul({0.0f, om.x, om.y, om.z}, qo);
+      const float hh = 0.5f * h;
+      Q4 qn = {qo.w + hh * dq.w, qo.x + hh * dq.x, qo.y + hh * dq.y, qo.z + hh * dq.z};
+      const float norm = sqrtf(qn.w * qn.w + qn.x * qn.x + qn.y * qn.y + qn.z * qn.z) + 1e-9f;
+      float* qr = q + 7 * fi;
+      float* vr = qd + 6 * fi;
+      qr[0] = root_pos[r].x + h * vw2.x;
+      qr[1] = root_pos[r].y + h * vw2.y;
+      qr[2] = root_pos[r].z + h * vw2.z;
+      qr[3] = qn.w / norm; qr[4] = qn.x / norm; qr[5] = qn.y / norm; qr[6] = qn.z / norm;
+      vr[0] = wb2.x; vr[1] = wb2.y; vr[2] = wb2.z;
+      vr[3] = vw2.x; vr[4] = vw2.y; vr[5] = vw2.z;
+    }
+    for (int j = 0; j < nj; ++j) {
+      const float vlim = RD(rw.vel_limit + j), locked = RD(rw.locked + j);
+      float v2 = clampf(qd[6 * nf + j] + h * qdd[j], -max_v, max_v);
+      v2 = clampf(v2, -vlim, vlim) * (1.0f - locked);
+      const float q2 = q[7 * nf + j] + h * v2;
+      q[7 * nf + j] = locked > 0.0f ? RD(rw.locked_pos + j) : q2;
+      qd[6 * nf + j] = v2;
+    }
+  }
+
+  // ---- outputs: q, qd, net force rows (3 nb), torque rows (3 ntq) ----
+  float* o = out + b;
+  const size_t Bs = (size_t)B;
+  for (int i = 0; i < nq; ++i) o[(size_t)i * Bs] = q[i];
+  for (int i = 0; i < nv; ++i) o[(size_t)(nq + i) * Bs] = qd[i];
+  const int base = nq + nv;
+  for (int bi = 0; bi < nb; ++bi) {
+    o[(size_t)(base + 3 * bi) * Bs] = net_f[bi].x;
+    o[(size_t)(base + 3 * bi + 1) * Bs] = net_f[bi].y;
+    o[(size_t)(base + 3 * bi + 2) * Bs] = net_f[bi].z;
+    const int s = tq_slot[bi];
+    if (s >= 0) {
+      o[(size_t)(base + 3 * nb + 3 * s) * Bs] = net_t[bi].x;
+      o[(size_t)(base + 3 * nb + 3 * s + 1) * Bs] = net_t[bi].y;
+      o[(size_t)(base + 3 * nb + 3 * s + 2) * Bs] = net_t[bi].z;
+    }
+  }
+  (void)ntq;
+#undef RD
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes. Returns cudaGetLastError() after the
+// launch (0 = success); the launch is asynchronous on `stream`.
+extern "C" int fused_step_launch(const void* mi, const void* mf, const void* in,
+                                 void* out, int B, void* stream) {
+  if (B <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (B + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* mi_ = static_cast<const int*>(mi);
+  const float* mf_ = static_cast<const float*>(mf);
+  const float* in_ = static_cast<const float*>(in);
+  float* out_ = static_cast<float*>(out);
+  fused_step_kernel<<<blocks, threads, 0, s>>>(mi_, mf_, in_, out_, B);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,303 @@
+"""Fused physics step: the whole substep loop in ONE hand-written CUDA kernel.
+
+Port of ``thormang_isaacgym_tpu/ops/fused.py``: ``build_fused_step_fn``
+returns a step with the same signature and output layout as the TPU
+version's, ``step(params, q, qd, ctrl, wrench) -> (q', qd', net (B, nb, 6))``.
+The kernel (``csrc/fused_step.cu``) replaces the Pallas kernel
+``_make_kernel(...).kernel``; see the note at the top of that file.
+
+Packing follows ``_make_rows``: every per-env input is one row of a
+structure-of-arrays (R, B) float32 slab, so CUDA thread b reads row r at
+``in[r * B + b]``. The model's static data (topology, joint frames, contact
+candidates, torque-body slots, sim constants) goes in as two small device
+tables, one int32 and one float32, so one compiled kernel serves every model
+under the caps below.
+
+The kernel is built at first use with ``nvcc`` alone (no PyTorch headers)
+into ``thormang_isaacgym_tpu_torch/_build/`` and loaded with ``ctypes``. For
+CPU tensors the step runs the plain PyTorch version (``ops.sim``'s op path);
+for CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from thormang_isaacgym_tpu_torch.models.robot import RobotModel
+from thormang_isaacgym_tpu_torch.ops import contact
+from thormang_isaacgym_tpu_torch.ops.sim import SimParams, build_plain_step_fn, check_supported
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "fused_step.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+
+# caps of the generic kernel (kMaxBodies, kMaxRoots in csrc/fused_step.cu;
+# the contact candidates are looped over, not stored per thread)
+MAX_BODIES = 64
+MAX_ROOTS = 8
+MAX_CANDIDATES = 128
+_HEADER = 48
+
+_ROW_NAMES = ("q", "qd", "tp", "tv", "eff", "mass", "com", "inertia", "gscale",
+              "armature", "damping", "friction", "lower", "upper", "vel_limit",
+              "posm", "velm", "effm", "kp", "kd", "eff_lim", "locked",
+              "locked_pos", "geom_fric", "gravity", "wrench")
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: str        # the shared library
+    seconds: float   # nvcc wall time (0.0 when an up-to-date build was found)
+    log: str         # nvcc / ptxas output (registers, spills)
+
+
+def _nvcc() -> str:
+    """nvcc on PATH, else under the CUDA toolkit PyTorch finds."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the fused CUDA kernel cannot be built")
+
+
+def build_library() -> BuildInfo:
+    """Compile csrc/fused_step.cu for sm_90a into BUILD_DIR, unless a build
+    of the same source and flags is already there."""
+    with open(SOURCE, "rb") as f:
+        src = f.read()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"libfused_step_{tag}.so")
+    log_path = path[:-3] + ".log"
+    if os.path.exists(path):
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        return BuildInfo(path, 0.0, log)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    os.replace(tmp, path)
+    with open(log_path, "w") as f:
+        f.write(log)
+    return BuildInfo(path, seconds, log)
+
+
+@lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    lib = ctypes.CDLL(build_library().path)
+    fn = lib.fused_step_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def make_rows(model: RobotModel) -> dict:
+    """Row offsets into the packed (R, B) input, in ``_make_rows`` order
+    (no tendon or heightfield rows), plus ``total``."""
+    nq, nv, nj, nb, ng = model.nq, model.nv, model.nj, model.nb, model.ng
+    sizes = dict(q=nq, qd=nv, tp=nj, tv=nj, eff=nj, mass=nb, com=3 * nb,
+                 inertia=6 * nb, gscale=nb, geom_fric=ng, gravity=3, wrench=6 * nb)
+    rows, off = {}, 0
+    for name in _ROW_NAMES:
+        rows[name] = off
+        off += sizes.get(name, nj)
+    rows["total"] = off
+    return rows
+
+
+def norm_torque_bodies(need_torque, nb: int) -> tuple:
+    """bool | iterable of body ids -> sorted tuple of torque-sensor bodies."""
+    if need_torque is True:
+        return tuple(range(nb))
+    if not need_torque:
+        return ()
+    return tuple(sorted({int(b) for b in need_torque}))
+
+
+def check_caps(model: RobotModel) -> None:
+    """Raise NotImplementedError for a model above the kernel's caps."""
+    nc = len(contact.candidates(model)["geom"])
+    if model.n_roots > MAX_ROOTS or nc > MAX_CANDIDATES or model.nb > MAX_BODIES:
+        raise NotImplementedError(
+            f"model {model.name!r} exceeds the fused kernel's caps "
+            f"({model.nb} bodies / {MAX_BODIES}, {model.n_roots} roots / {MAX_ROOTS}, "
+            f"{nc} contact candidates / {MAX_CANDIDATES})")
+
+
+def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
+                  ground_z: float, tq_bodies: tuple):
+    """The kernel's static model data: (int32 table, float32 table)."""
+    cand = contact.candidates(model)
+    nc = len(cand["geom"])
+    nb, nj, nr = model.nb, model.nj, model.n_roots
+    rows = make_rows(model)
+    head = [nb, nj, nr, model.n_floating, model.nq, model.nv, model.ng, nc,
+            len(tq_bodies), n_steps] + [rows[n] for n in _ROW_NAMES] + [rows["total"]]
+    slot = np.full(nb, -1, np.int64)
+    slot[list(tq_bodies)] = np.arange(len(tq_bodies))
+    mi = np.concatenate([
+        np.array(head + [0] * (_HEADER - len(head))),
+        np.array(model.parent), np.array(model.joint_type),
+        np.array(model.roots_floating, np.int64),
+        cand["body"], cand["geom"], cand["rim"].astype(np.int64), slot,
+    ]).astype(np.int32)
+    h = sp.dt / sp.substeps
+    fhead = [h, h * h, ground_z, sp.contact_stiffness, sp.contact_damping,
+             sp.friction_vel, sp.plane_friction, sp.joint_limit_stiffness,
+             sp.joint_limit_damping, 1.0 - sp.root_linear_damping * h,
+             1.0 - sp.root_angular_damping * h, sp.max_velocity,
+             sp.max_depenetration_velocity,
+             h * h * sp.joint_limit_stiffness + h * sp.joint_limit_damping]
+    base = np.array(model.root_base_pose if model.root_base_pose is not None
+                    else [(0, 0, 0, 1, 0, 0, 0)] * nr, np.float64)
+    mf = np.concatenate([
+        np.array(fhead + [0.0] * (_HEADER - len(fhead))),
+        np.array(model.joint_axis, np.float64).reshape(-1),
+        np.array(model.joint_pos, np.float64).reshape(-1),
+        np.array(model.joint_quat, np.float64).reshape(-1),
+        base.reshape(-1),
+        cand["gpos"].reshape(-1), cand["gquat"].reshape(-1),
+        cand["off"].reshape(-1), cand["r"],
+    ]).astype(np.float32)
+    return mi, mf
+
+
+class FusedStep:
+    """step(params, q, qd, ctrl, wrench) -> (q', qd', net (B, nb, 6)).
+
+    params batched (B, ...); q (B, nq); qd (B, nv); ctrl leaves (B, nj);
+    wrench (B, nb, 6) world frame. net = [force | torque] of the last
+    substep, torque zero outside the torque-sensor bodies. ``launches``
+    counts kernel launches (CPU calls run the plain version and do not
+    count)."""
+
+    def __init__(self, model: RobotModel, sim_params: SimParams, *,
+                 ground=0.0, need_torque=True):
+        self.model = model
+        self.sim_params = sim_params
+        self.n_steps = int(sim_params.substeps)
+        ground_z = check_supported(model, ground)
+        check_caps(model)
+        self.tq_bodies = norm_torque_bodies(need_torque, model.nb)
+        self.rows = make_rows(model)
+        self.out_rows = model.nq + model.nv + 3 * model.nb + 3 * len(self.tq_bodies)
+        self._tables = kernel_tables(model, sim_params, self.n_steps, ground_z,
+                                     self.tq_bodies)
+        self._dev_tables = {}
+        self._tq_idx = torch.tensor(self.tq_bodies, dtype=torch.long)
+        self._plain = build_plain_step_fn(model, sim_params, ground_z)
+        self.launches = 0
+
+    def _on(self, dev):
+        """(int table, float table, torque-body index) on `dev`, built once:
+        copying them per call would be a synchronous host transfer."""
+        if dev not in self._dev_tables:
+            mi, mf = self._tables
+            self._dev_tables[dev] = (torch.as_tensor(mi, device=dev),
+                                     torch.as_tensor(mf, device=dev),
+                                     self._tq_idx.to(dev))
+        return self._dev_tables[dev]
+
+    # ---- plain version (CPU path; the reference on the card) ----
+    def plain(self, params, q, qd, ctrl, wrench):
+        q, qd, net = self._plain(params, q, qd, ctrl, wrench)
+        mask = torch.zeros(self.model.nb, 1, device=q.device)
+        mask[self._on(q.device)[2]] = 1.0
+        return q, qd, torch.cat([net[..., 0:3], net[..., 3:6] * mask], dim=-1)
+
+    # ---- packing ----
+    def pack(self, params, q, qd, ctrl, wrench) -> torch.Tensor:
+        """(R, B) float32 slab in ``_make_rows`` order."""
+        B, m = q.shape[0], self.model
+        for name, t, shape in (("q", q, (B, m.nq)), ("qd", qd, (B, m.nv)),
+                               ("target_pos", ctrl.target_pos, (B, m.nj)),
+                               ("target_vel", ctrl.target_vel, (B, m.nj)),
+                               ("effort", ctrl.effort, (B, m.nj)),
+                               ("wrench", wrench, (B, m.nb, 6)),
+                               ("params.body_mass", params.body_mass, (B, m.nb))):
+            if tuple(t.shape) != shape or t.device != q.device:
+                raise ValueError(f"{name}: expected shape {shape} on {q.device}, "
+                                 f"got {tuple(t.shape)} on {t.device}")
+        Ic = params.body_inertia
+        sym = torch.stack([Ic[..., 0, 0], Ic[..., 0, 1], Ic[..., 0, 2],
+                           Ic[..., 1, 1], Ic[..., 1, 2], Ic[..., 2, 2]], dim=-1)
+        dm = params.drive_mode
+        cols = [q, qd, ctrl.target_pos, ctrl.target_vel, ctrl.effort,
+                params.body_mass, params.body_com, sym, params.body_gravity_scale,
+                params.dof_armature, params.dof_damping, params.dof_friction,
+                params.dof_lower, params.dof_upper, params.dof_velocity_limit,
+                dm == 1, dm == 2, dm == 3,
+                params.drive_stiffness, params.drive_damping,
+                params.drive_effort_limit, params.dof_locked,
+                params.dof_locked_pos, params.geom_friction, params.gravity, wrench]
+        packed = torch.cat([c.to(torch.float32).reshape(B, -1).t() for c in cols], 0)
+        if packed.shape[0] != self.rows["total"]:
+            raise ValueError(f"packed {packed.shape[0]} rows, expected {self.rows['total']}")
+        return packed.contiguous()
+
+    def unpack(self, out: torch.Tensor, B: int):
+        m = self.model
+        nq, nv, nb = m.nq, m.nv, m.nb
+        q = out[:nq].t().contiguous()
+        qd = out[nq:nq + nv].t().contiguous()
+        net3 = out[nq + nv:nq + nv + 3 * nb].t().reshape(B, nb, 3)
+        tq = out.new_zeros(B, nb, 3)
+        if self.tq_bodies:
+            tq_rows = out[nq + nv + 3 * nb:].t().reshape(B, len(self.tq_bodies), 3)
+            tq[:, self._on(out.device)[2]] = tq_rows
+        return q, qd, torch.cat([net3, tq], dim=-1)
+
+    # ---- the kernel ----
+    def launch(self, packed: torch.Tensor) -> torch.Tensor:
+        """Run the kernel on a packed (R, B) CUDA slab: (out_rows, B)."""
+        if packed.device.type != "cuda":
+            raise ValueError("the fused kernel takes CUDA tensors only")
+        if packed.dtype != torch.float32 or not packed.is_contiguous() \
+                or packed.dim() != 2 or packed.shape[0] != self.rows["total"]:
+            raise ValueError(f"expected a contiguous float32 ({self.rows['total']}, B) "
+                             f"slab, got {packed.dtype} {tuple(packed.shape)}")
+        dev = packed.device
+        mi_t, mf_t, _ = self._on(dev)
+        B = packed.shape[1]
+        out = torch.empty(self.out_rows, B, device=dev, dtype=torch.float32)
+        fn = load_library().fused_step_launch
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(mi_t.data_ptr(), mf_t.data_ptr(), packed.data_ptr(),
+                     out.data_ptr(), B, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return out
+
+    def __call__(self, params, q, qd, ctrl, wrench):
+        if q.device.type == "cpu":
+            return self.plain(params, q, qd, ctrl, wrench)
+        if q.device.type != "cuda":
+            raise ValueError(f"unsupported device {q.device}")
+        return self.unpack(self.launch(self.pack(params, q, qd, ctrl, wrench)), q.shape[0])
+
+
+def build_fused_step_fn(model: RobotModel, sim_params: SimParams, *,
+                        ground=0.0, need_torque=True) -> FusedStep:
+    """step(params, q, qd, ctrl, wrench) -> (q', qd', net), running
+    sim_params.substeps substeps in one kernel launch."""
+    return FusedStep(model, sim_params, ground=ground, need_torque=need_torque)

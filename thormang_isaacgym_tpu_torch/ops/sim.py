@@ -1,0 +1,160 @@
+"""The physics step: drives + contact + ABA + semi-implicit Euler, x substeps.
+
+Port of ``thormang_isaacgym_tpu/ops/sim.py``. :func:`build_plain_step_fn` is
+the batched op path (``_substep`` in a Python loop): the plain PyTorch
+version of the fused CUDA kernel, which the tests hold against the JAX
+package and ``chip_smoke.py`` holds the kernel against on the card.
+:func:`build_step_fn` returns the fused kernel's wrapper
+(``ops/fused.py``): it launches the kernel for CUDA tensors and runs the
+plain version for CPU tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from thormang_isaacgym_tpu_torch.core import quat as Q
+from thormang_isaacgym_tpu_torch.models.robot import ModelParams, RobotModel
+from thormang_isaacgym_tpu_torch.ops import contact as contact_mod
+from thormang_isaacgym_tpu_torch.ops import dynamics as dyn
+from thormang_isaacgym_tpu_torch.ops.kinematics import (
+    forward_kinematics, joint_local_pose, split_q, split_qd,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SimParams:
+    """Static simulation parameters (the reference's sim config block)."""
+    dt: float = 1.0 / 60.0
+    substeps: int = 2
+    gravity: tuple = (0.0, 0.0, -9.81)
+    contact_stiffness: float = 1.0e5
+    contact_damping: float = 3.0e3
+    contact_beta: float = 0.5
+    friction_vel: float = 0.05
+    plane_friction: float = 1.0
+    joint_limit_stiffness: float = 2000.0
+    joint_limit_damping: float = 50.0
+    root_linear_damping: float = 0.0
+    root_angular_damping: float = 0.0
+    max_velocity: float = 1e3
+    max_depenetration_velocity: float = 2.0
+
+
+class Controls(NamedTuple):
+    """Per-step actuation targets, each (B, nj)."""
+    target_pos: torch.Tensor
+    target_vel: torch.Tensor
+    effort: torch.Tensor
+
+
+def zero_controls(model: RobotModel, batch: int, device="cpu") -> Controls:
+    z = torch.zeros(batch, model.nj, device=device)
+    return Controls(z, z, z)
+
+
+def check_supported(model: RobotModel, ground=0.0, attractors=None) -> float:
+    """Raise for what this slice does not port; return the ground height."""
+    if len({model.actors[g.body] for g in model.geoms}) > 1:
+        raise NotImplementedError("actor-pair contact (ops/collide.py) is not ported yet")
+    if attractors:
+        raise NotImplementedError("rigid-body attractors are not ported yet")
+    if getattr(model, "tendons", ()):
+        raise NotImplementedError("fixed tendons are not ported yet")
+    if ground is not None and not isinstance(ground, (int, float)):
+        raise NotImplementedError("heightfield and callable grounds are not ported yet")
+    return float(ground or 0.0)
+
+
+def _substep(model: RobotModel, sp_: SimParams, params: ModelParams,
+             q: torch.Tensor, qd: torch.Tensor, ctrl: Controls,
+             body_wrench_w: torch.Tensor, ground_z: float = 0.0):
+    """One physics substep for a batch of envs: (q', qd', net (B, nb, 6))."""
+    h = sp_.dt / sp_.substeps
+    B = q.shape[0]
+    _, _, joint_q = split_q(model, q)
+    _, _, joint_qd = split_qd(model, qd)
+    local = joint_local_pose(model, joint_q)
+    frames = forward_kinematics(model, q, qd, local=local)
+    f_ext_w, net = contact_mod.ground_contact_forces(
+        model, params, frames,
+        stiffness=sp_.contact_stiffness, damping=sp_.contact_damping,
+        friction_vel=sp_.friction_vel, plane_friction=sp_.plane_friction,
+        ground_z=ground_z, dt=h,
+        max_depenetration_velocity=sp_.max_depenetration_velocity)
+    net_tq = f_ext_w[..., 0:3]
+    f_ext_w = f_ext_w + body_wrench_w
+
+    # world wrench -> link-frame spatial force
+    f_ext = torch.cat([Q.rotate_inv(frames.quat, f_ext_w[..., 0:3]),
+                       Q.rotate_inv(frames.quat, f_ext_w[..., 3:6])], dim=-1)
+    tau_d, diag_d = dyn.drive_forces(params, joint_q, joint_qd, ctrl.target_pos,
+                                     ctrl.target_vel, ctrl.effort, h)
+    tau_p, diag_p = dyn.passive_forces(params, joint_q, joint_qd, h,
+                                       limit_stiffness=sp_.joint_limit_stiffness,
+                                       limit_damping=sp_.joint_limit_damping)
+    qdd = dyn.aba(model, params, q, qd, tau_d + tau_p, f_ext, params.gravity,
+                  precomputed=(local[0], local[1], frames.quat),
+                  extra_diag=diag_d + diag_p)
+
+    # ---- semi-implicit Euler ----
+    nf = model.n_floating
+    qd_new = qd + h * qdd
+    if nf > 0:
+        # root damping: angular then linear 3-block of each floating root
+        root = qd_new[:, :6 * nf].reshape(B, nf, 2, 3)
+        root = torch.stack([root[:, :, 0] * (1.0 - sp_.root_angular_damping * h),
+                            root[:, :, 1] * (1.0 - sp_.root_linear_damping * h)], dim=2)
+        qd_new = torch.cat([root.reshape(B, 6 * nf), qd_new[:, 6 * nf:]], dim=-1)
+    qd_new = torch.clamp(qd_new, -sp_.max_velocity, sp_.max_velocity)
+
+    jqd = qd_new[:, 6 * nf:]
+    vlim = params.dof_velocity_limit
+    jqd = torch.minimum(torch.maximum(jqd, -vlim), vlim)
+    jqd = jqd * (1.0 - params.dof_locked)
+    jq_new = q[:, 7 * nf:] + h * jqd
+    jq_new = torch.where(params.dof_locked > 0, params.dof_locked_pos, jq_new)
+    if nf == 0:
+        return jq_new, jqd, torch.cat([net, net_tq], dim=-1)
+    root_q = q[:, :7 * nf].reshape(B, nf, 7)
+    root_qd = qd_new[:, :6 * nf].reshape(B, nf, 6)
+    root_pos, root_quat = root_q[..., 0:3], root_q[..., 3:7]
+    omega_w = Q.rotate(root_quat, root_qd[..., 0:3])
+    new_quat = Q.integrate(root_quat, omega_w, h)
+    new_pos = root_pos + h * root_qd[..., 3:6]
+    q_new = torch.cat([torch.cat([new_pos, new_quat], -1).reshape(B, -1), jq_new], -1)
+    qd_out = torch.cat([root_qd.reshape(B, -1), jqd], -1)
+    return q_new, qd_out, torch.cat([net, net_tq], dim=-1)
+
+
+def build_plain_step_fn(model: RobotModel, sim_params: SimParams,
+                        ground=0.0) -> Callable:
+    """The op path: step(params, q, qd, ctrl, wrench) -> (q', qd', net
+    (B, nb, 6) [force | torque] of the last substep). params batched (B, ...);
+    q (B, nq); qd (B, nv); ctrl leaves (B, nj); wrench (B, nb, 6) world."""
+    ground_z = check_supported(model, ground)
+
+    def step(params, q, qd, ctrl, wrench):
+        net = None
+        for _ in range(sim_params.substeps):
+            q, qd, net = _substep(model, sim_params, params, q, qd, ctrl,
+                                  wrench, ground_z)
+        return q, qd, net
+
+    return step
+
+
+def build_step_fn(model: RobotModel, sim_params: SimParams,
+                  ground_height_fn=None, attractors=None,
+                  need_torque=True) -> Callable:
+    """step(params, q, qd, ctrl, wrench) -> (q', qd', net (B, nb, 6)).
+
+    Returns the fused kernel's wrapper: CUDA tensors launch the kernel (or
+    raise for a model it does not cover), CPU tensors take the plain op
+    path. Torque columns of `net` are zero outside `need_torque`'s bodies."""
+    from thormang_isaacgym_tpu_torch.ops import fused
+    ground = check_supported(model, ground_height_fn, attractors)
+    return fused.build_fused_step_fn(model, sim_params, ground=ground,
+                                     need_torque=need_torque)
