@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Where one PPO train iteration of the PyTorch/CUDA port spends its time:
-Ant at 4096 envs, cfg/task/Ant.yaml + cfg/train/AntPPO.yaml, on one GPU.
+a task at 4096 envs, cfg/task/<task>.yaml + cfg/train/<task>PPO.yaml (Ant by
+default), on one GPU.
 
-Run from the repository root:  python3 scripts/profile_torch_ant.py
+Run from the repository root:  python3 scripts/profile_torch_ant.py [--task AnymalTerrain]
 
 Prints JSON lines: the card (nvidia-smi name and power limit); host-clock
-times, each closed by torch.cuda.synchronize(), of one rollout (16 x policy +
-env step), one whole train_iteration (their difference is GAE + update) and
-one env step alone; then a torch.profiler window over one iteration: device
-busy time (sum of CUDA kernel times on the one stream), wall time, the
-device's idle share and the top kernels by device time. Needs a CUDA device.
+times, each closed by torch.cuda.synchronize(), of one rollout (horizon x
+policy + env step), one whole train_iteration (their difference is GAE +
+update) and one env step alone; then a torch.profiler window over one
+iteration: device busy time (sum of CUDA kernel times on the one stream),
+wall time, the device's idle share and the top kernels by device time.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -32,16 +35,19 @@ B = 4096
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--task", default="Ant")
+    task = ap.parse_args().task
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"card": smi}), flush=True)
-    with open(os.path.join(ROOT, "cfg", "task", "Ant.yaml")) as f:
+    print(json.dumps({"card": smi, "task": task}), flush=True)
+    with open(os.path.join(ROOT, "cfg", "task", f"{task}.yaml")) as f:
         task_cfg = yaml.safe_load(f)
-    with open(os.path.join(ROOT, "cfg", "train", "AntPPO.yaml")) as f:
+    with open(os.path.join(ROOT, "cfg", "train", f"{task}PPO.yaml")) as f:
         cfg = PPOConfig.from_rlgames(yaml.safe_load(f))
-    env = tgt.make("Ant", num_envs=B, seed=0, cfg=task_cfg, device="cuda")
+    env = tgt.make(task, num_envs=B, seed=0, cfg=task_cfg, device="cuda")
     ppo = PPO(env, cfg, device="cuda")
     ts = ppo.init(0)
     state = env.reset(0)

@@ -163,3 +163,44 @@ def test_make_applies_cfg_sim_block_and_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tgt.make("Ant", num_envs=2)
+
+
+def _task_yaml(name):
+    import yaml
+    with open(os.path.join(os.path.dirname(__file__), "..", "cfg", "task", f"{name}.yaml")) as f:
+        return yaml.safe_load(f)
+
+
+def test_make_applies_decimation_and_hands_the_ground_to_the_env():
+    """AnymalTerrain.yaml's sim block is the physics step (dt 0.005, 1
+    substep); decimation 4 makes the JAX task's 0.02 s control step of 4
+    substeps, and what derives from dt follows it. Ant is unchanged."""
+    env = tgt.make("AnymalTerrain", num_envs=2, cfg=_task_yaml("AnymalTerrain"), device="cpu")
+    t = env.task
+    assert (t.decimation, t.sim_params.substeps) == (4, 4)
+    assert t.sim_params.dt == pytest.approx(0.02) and t.dt == pytest.approx(0.02)
+    assert (t.max_episode_length, t.push_interval) == (1000, 750)
+    assert env.physics_step.hf is t.field and t.field.shape == (820, 1620)
+    ant = tgt.make("Ant", num_envs=2, cfg=_task_yaml("Ant"), device="cpu").task
+    assert (ant.decimation, ant.sim_params.substeps) == (1, 2)
+    assert ant.sim_params.dt == pytest.approx(0.0166)
+    assert tgt.make("Ant", num_envs=2, device="cpu").physics_step.hf is None
+
+
+def test_anymal_terrain_rollout_stays_finite_and_on_the_grid():
+    env = tgt.make("AnymalTerrain", num_envs=8, seed=0, device="cpu", num_levels=2, num_types=4)
+    s = env.reset(0)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(20):
+        s = env.step(s, torch.rand(8, 12, generator=gen) * 2 - 1)
+        for x in (s.obs, s.q, s.qd, s.reward):
+            assert bool(torch.isfinite(x).all())
+        lev = s.task.terrain_level
+        assert lev.dtype == torch.int32 and bool(((lev >= 0) & (lev < 2)).all())
+    assert s.obs.shape == (8, 188) and s.task.terrain_type.dtype == torch.int32
+    # int32 task leaves survive the masked reset's select
+    from thormang_isaacgym_tpu_torch.engine.env import mask_select
+    mixed = mask_select(torch.tensor([True, False] * 4), s.task,
+                        dataclasses.replace(s.task, terrain_level=s.task.terrain_level + 1))
+    assert mixed.terrain_level.dtype == torch.int32
+    assert mixed.terrain_level.tolist() == (s.task.terrain_level + torch.tensor([0, 1] * 4)).tolist()

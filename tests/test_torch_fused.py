@@ -5,10 +5,15 @@ On the CPU the kernel source is compiled as host C++ (one loop iteration per
 CUDA thread; the CUDA qualifiers defined away), so its per-thread arithmetic,
 table layout and packing are checked without a GPU. On a machine with a card
 `test_cuda_kernel_matches_plain` launches the real kernel (it skips where
-there is none). Tolerances of tests/test_fused.py: q atol=rtol 2e-3, qd
-atol=rtol 2e-2, net atol 1.0 / rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine without
-it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
+there is none). The heightfield mode is held against its plain twin (ground
+planes sampled at the step's input q, frozen across the substeps) on Anymal
+over a TerrainGrid and on a single cylinder over a slope, whose rim shift
+pins the sampling point (the candidate before the shift). Tolerances of
+tests/test_fused.py: q atol=rtol 2e-3, qd atol=rtol 2e-2, net atol 1.0 /
+rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine
+without it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 
@@ -16,10 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield, TerrainGrid
 from thormang_isaacgym_tpu_torch.models import load_urdf
 from thormang_isaacgym_tpu_torch.ops import fused
 from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
 from thormang_isaacgym_tpu_torch.tasks.ant import Ant
+from thormang_isaacgym_tpu_torch.tasks.anymal import Anymal
 from thormang_isaacgym_tpu_torch.tasks.cartpole import Cartpole
 
 B = 64
@@ -43,8 +50,20 @@ TINY_URDF = """
   </joint>
 </robot>"""
 TINY_SP = dict(dt=1 / 60, substeps=2, contact_stiffness=5e3, contact_damping=100.0)
-_HOST_PRELUDE = """#include <cmath>
+# one free cylinder (a wheel), for the heightfield mode's rim candidates
+CYL_URDF = """
+<robot name="wheel">
+  <link name="wheel">
+    <inertial><mass value="2.0"/>
+      <inertia ixx="0.006" iyy="0.006" izz="0.01" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><geometry><cylinder radius="0.1" length="0.08"/></geometry></collision>
+  </link>
+</robot>"""
+_HOST_PRELUDE = """#include <algorithm>
+#include <cmath>
 #include <math.h>
+using std::max;
+using std::min;
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -54,13 +73,16 @@ struct HostDim { int x; };
 static HostDim blockIdx, threadIdx, blockDim;
 """
 _HOST_LOOP = """
-extern "C" void host_launch(const int* mi, const float* mf, const float* in, float* out,
-                            int B) {
+extern "C" void host_launch(const int* mi, const float* mf, const float* hf, const float* in,
+                            float* out, int B) {
   blockDim.x = 128;
   for (int b = 0; b < B; ++b) {
     blockIdx.x = b / 128;
     threadIdx.x = b % 128;
-    fused_step_kernel(mi, mf, in, out, B);
+    if (hf)
+      fused_step_kernel<true>(mi, mf, hf, in, out, B);
+    else
+      fused_step_kernel<false>(mi, mf, hf, in, out, B);
   }
 }
 """
@@ -79,22 +101,59 @@ def host_kernel(tmp_path_factory):
     subprocess.run([cxx, "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
                     "-o", str(so), str(cpp)], check=True)
     lib = ctypes.CDLL(str(so))
-    lib.host_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
     lib.host_launch.restype = None
     return lib
 
 
 def _model(name):
+    """(model, sim params, task or None, ground)."""
     if name == "tiny":
-        return load_urdf(TINY_URDF), SimParams(**TINY_SP), None
+        return load_urdf(TINY_URDF), SimParams(**TINY_SP), None, 0.0
+    if name == "cylinder_slope":
+        i, j = np.meshgrid(np.arange(40), np.arange(40), indexing="ij")
+        # a slope with bumps, so the plane depends on where it is sampled
+        h = 0.03 * i + 0.02 * j + 0.05 * np.sin(0.9 * i) * np.cos(0.7 * j)
+        hf = Heightfield(h.astype(np.float32), 0.1, origin=(-2.0, -2.0))
+        return load_urdf(CYL_URDF), SimParams(**TINY_SP), None, hf
+    if name == "anymal_terrain":
+        task = Anymal(num_envs=B, device="cpu")
+        sp = dataclasses.replace(task.sim_params, dt=0.02, substeps=4)
+        return task.model, sp, task, TerrainGrid(num_levels=2, num_types=5, seed=0)
     task = {"cartpole": Cartpole, "ant": Ant}[name](num_envs=B, device="cpu")
-    return task.model, task.sim_params, task
+    return task.model, task.sim_params, task, 0.0
 
 
-def _inputs(name, model, task, device):
+def _ground(ground, device):
+    """The kernel's ground on `device`: a height or a Heightfield."""
+    if isinstance(ground, TerrainGrid):
+        ground = ground.field
+    return ground.to(device) if isinstance(ground, Heightfield) else ground
+
+
+def _inputs(name, model, task, device, ground=None):
     rng = np.random.default_rng(3)
     nj = model.nj
-    if model.n_floating:
+    if name == "anymal_terrain":
+        # bases over tile centres of every level and type, feet near the ground
+        lev = rng.integers(0, ground.num_levels, B)
+        typ = rng.integers(0, ground.num_types, B)
+        o = ground.env_origins[lev, typ]
+        q = np.zeros((B, model.nq))
+        q[:, 0:2] = o[:, 0:2] + rng.uniform(-0.5, 0.5, (B, 2))
+        q[:, 2] = o[:, 2] + 0.53 + rng.uniform(-0.05, 0.05, B)
+        qr = rng.normal(size=(B, 4)) * 0.05 + [1.0, 0.0, 0.0, 0.0]
+        q[:, 3:7] = qr / np.linalg.norm(qr, axis=1, keepdims=True)
+        q[:, 7:] = task.default_dof_pos.numpy() + rng.uniform(-0.3, 0.3, (B, nj))
+        qd = rng.normal(size=(B, model.nv)) * 0.5
+    elif name == "cylinder_slope":
+        q = np.zeros((B, model.nq))
+        q[:, 0:2] = rng.uniform(-0.5, 0.5, (B, 2))
+        q[:, 2] = 0.3 * (q[:, 0] + 2.0) + 0.2 * (q[:, 1] + 2.0) + rng.uniform(0.0, 0.12, B)
+        qr = rng.normal(size=(B, 4))
+        q[:, 3:7] = qr / np.linalg.norm(qr, axis=1, keepdims=True)
+        qd = rng.normal(size=(B, model.nv)) * 0.5
+    elif model.n_floating:
         q = np.zeros((B, model.nq))
         qr = rng.normal(size=(B, 4)) * 0.2 + [1.0, 0.0, 0.0, 0.0]
         q[:, 3:7] = qr / np.linalg.norm(qr, axis=1, keepdims=True)
@@ -119,8 +178,9 @@ def _inputs(name, model, task, device):
 def _host_call(lib, step, params, q, qd, ctrl, wrench):
     packed = step.pack(params, q, qd, ctrl, wrench)
     mi, mf = (torch.as_tensor(x) for x in step._tables)
+    hf = step.hf.table.data_ptr() if step.hf is not None else None
     out = torch.full((step.out_rows, q.shape[0]), float("nan"))
-    lib.host_launch(mi.data_ptr(), mf.data_ptr(), packed.data_ptr(), out.data_ptr(),
+    lib.host_launch(mi.data_ptr(), mf.data_ptr(), hf, packed.data_ptr(), out.data_ptr(),
                     q.shape[0])
     return step.unpack(out, q.shape[0])
 
@@ -131,20 +191,28 @@ def _assert_close(a, b):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("name", ["cartpole", "tiny", "ant"])
+HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope"]
+
+
+@pytest.mark.parametrize("name", HOST_CASES)
 def test_kernel_source_on_host_matches_plain(host_kernel, name):
-    model, sp, task = _model(name)
-    step = fused.build_fused_step_fn(model, sp, need_torque=(0,) if name == "ant" else True)
-    params, q, qd, ctrl, w = _inputs(name, model, task, "cpu")
+    model, sp, task, ground = _model(name)
+    step = fused.build_fused_step_fn(model, sp, ground=_ground(ground, "cpu"),
+                                     need_torque=(0,) if name == "ant" else True)
+    params, q, qd, ctrl, w = _inputs(name, model, task, "cpu", ground)
     qa, qda, qb, qdb = q, qd, q, qd
+    touched = 0.0
     for _ in range(5):
         qa, qda, na = _host_call(host_kernel, step, params, qa, qda, ctrl, w)
         qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, w)
         _assert_close((qa, qda, na), (qb, qdb, nb_))
+        touched = max(touched, float((nb_[..., :3].abs().amax(-1) > 0).float().mean()))
+    if name in ("anymal_terrain", "cylinder_slope"):
+        assert touched > 0.1                     # the ground is touched
 
 
 def test_kernel_caps_raise():
-    model, sp, _ = _model("tiny")
+    model, sp, _, _ = _model("tiny")
     fused.check_caps(model)
     n = fused.MAX_BODIES + 1
     big = load_urdf("<robot name='chain'>" + "".join(
@@ -165,11 +233,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", ["cartpole", "tiny", "ant"])
+@pytest.mark.parametrize("name", HOST_CASES)
 def test_cuda_kernel_matches_plain(cuda_device, name):
-    model, sp, task = _model(name)
-    step = fused.build_fused_step_fn(model, sp)
-    params, q, qd, ctrl, w = _inputs(name, model, task, cuda_device)
+    model, sp, task, ground = _model(name)
+    step = fused.build_fused_step_fn(model, sp, ground=_ground(ground, cuda_device))
+    params, q, qd, ctrl, w = _inputs(name, model, task, cuda_device, ground)
     qa, qda, qb, qdb = q, qd, q, qd
     for _ in range(5):
         qa, qda, na = step(params, qa, qda, ctrl, w)
@@ -180,7 +248,7 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
 
 
 def test_wrapper_rejects_bad_inputs():
-    model, sp, task = _model("ant")
+    model, sp, task, _ = _model("ant")
     step = fused.build_fused_step_fn(model, sp)
     params, q, qd, ctrl, w = _inputs("ant", model, task, "cpu")
     with pytest.raises(ValueError):

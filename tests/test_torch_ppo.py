@@ -184,6 +184,50 @@ def test_adaptive_lr_matches_jax(ref, port):
     assert got[0] < 2e-4 and got[1] < 2e-4          # non-finite KL counts as too high
 
 
+def test_separate_critic_network_matches_jax():
+    """cfg/train/AnymalTerrainPPO.yaml's network (separate actor and critic
+    trunks, 512-256-128 elu, fixed sigma) on AnymalTerrain's 188 obs: the
+    forward pass, the loss and its gradients against JAX, in float32."""
+    import os
+    import yaml
+    with open(os.path.join(os.path.dirname(__file__), "..", "cfg", "train",
+                           "AnymalTerrainPPO.yaml")) as f:
+        train = yaml.safe_load(f)
+    small = dict(horizon_length=T, minibatch_size=B * T, mixed_precision=False)
+    jcfg = dataclasses.replace(jppo.PPOConfig.from_rlgames(train), **small)
+    tcfg = dataclasses.replace(tppo.PPOConfig.from_rlgames(train), **small)
+    assert tcfg.separate and tcfg.units == (512, 256, 128) and tcfg.critic_coef == 2
+    assert (tcfg.normalize_value, tcfg.value_bootstrap, tcfg.fixed_sigma) == (True, True, True)
+    kw = dict(num_levels=2, num_types=4)
+    jenv = tgx.make("AnymalTerrain", num_envs=B, seed=0, **kw)
+    jp = jppo.PPO(jenv, jcfg)
+    rng = np.random.default_rng(5)
+    jts = jp.init(jax.random.key(1))
+    jts = dataclasses.replace(
+        jts, obs_rms=jrms_update(jts.obs_rms, jnp.asarray(rng.normal(size=(64, 188)), jnp.float32)),
+        value_rms=jrms_update(jts.value_rms, jnp.asarray(rng.normal(size=64) * 2, jnp.float32)))
+    batch = _batch(rng, 188, 12)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    fwd = jp.network.apply(jts.params, jb["obs"])
+    (loss, aux), grads = jax.value_and_grad(jp._loss, has_aux=True)(jts.params, jts, jb)
+
+    env = tgt.make("AnymalTerrain", num_envs=B, seed=0, device="cpu", **kw)
+    ppo = tppo.PPO(env, tcfg, device="cpu")
+    ts = convert.train_state(ppo, jax.tree.map(np.asarray, jts))
+    assert ts.model.vtrunk is not None and ts.model.vtrunk[0].weight.shape == (512, 188)
+    with torch.no_grad():
+        got = ts.model(_t(batch["obs"]))
+    for g, w in zip(got, fwd):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    tloss, taux = ppo._loss(ts, {k: _t(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(tloss.detach()), float(loss), **TOL)
+    for k, v in aux.items():
+        np.testing.assert_allclose(float(taux[k].detach()), float(v), err_msg=k, **TOL)
+    tgrads = torch.autograd.grad(tloss, list(ts.model.parameters()))
+    for g, w in zip(tgrads, convert._flat_like_torch(ts.model, jax.tree.map(np.asarray, grads))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4, rtol=1e-4)
+
+
 def test_cartpole_train_iterations_finite():
     env = tgt.make("Cartpole", num_envs=16, seed=0, device="cpu")
     ppo = tppo.PPO(env, tppo.PPOConfig(horizon_length=8, minibatch_size=64, mini_epochs=2,

@@ -156,8 +156,14 @@ def test_wrapper_masks_torque_to_sensor_bodies():
 
 
 def test_unported_features_raise():
+    from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield
     from thormang_isaacgym_tpu_torch.ops.sim import check_supported
     _, _, tm, tsp = _models("tiny")
+    # a Heightfield ground is ported: it builds and steps (a callable does not)
+    hf = Heightfield(np.full((16, 16), 0.1, np.float32), 0.25, origin=(-2.0, -2.0))
+    assert check_supported(tm, ground=hf) is hf
+    q, qd, net = _run_torch(build_step_fn(tm, tsp, ground_height_fn=hf), tm, _inputs("tiny", tm), 2)
+    assert np.isfinite(q).all() and np.isfinite(qd).all() and np.isfinite(net).all()
     with pytest.raises(NotImplementedError):
         check_supported(tm, ground=lambda x, y: 0 * x)
     with pytest.raises(NotImplementedError):

@@ -1,16 +1,39 @@
 // Fused physics step for NVIDIA Hopper (sm_90a): the whole substep loop of a
-// tree articulation on flat ground, one thread per env.
+// tree articulation on flat ground or a heightfield, one thread per env.
 //
 // Replaces the TPU kernel `_make_kernel(...).kernel` launched by the
 // `pl.pallas_call` in `build_fused_step_fn` (thormang_isaacgym_tpu/ops/fused.py).
-// It computes what that kernel computes for feature blocks B1-B3: implicit
-// joint drives, passive damping / dry friction / limit springs, forward
-// kinematics, penalty ground contact with stability-clamped coefficients and
-// tanh-regularised Coulomb friction, the three-sweep Featherstone ABA with a
-// 6x6 LDL^T solve per floating root, and semi-implicit Euler with quaternion
-// renormalisation, repeated n_steps times inside the kernel. Tendons,
-// attractors, actor pairs and heightfield grounds are not covered; the
+// It computes what that kernel computes for feature blocks B1-B3 and B7:
+// implicit joint drives, passive damping / dry friction / limit springs,
+// forward kinematics, penalty ground contact with stability-clamped
+// coefficients and tanh-regularised Coulomb friction, the three-sweep
+// Featherstone ABA with a 6x6 LDL^T solve per floating root, and
+// semi-implicit Euler with quaternion renormalisation, repeated n_steps times
+// inside the kernel. Tendons, attractors and actor pairs are not covered; the
 // Python wrapper refuses such models.
+//
+// Heightfield ground (B7). The TPU kernel reads, per contact candidate, a
+// local ground plane z = c + gx x + gy y that a separate sampler computed at
+// the control step's input q (`_ground_plane_sampler`, forward kinematics plus
+// a bilinear gather), and holds it across all substeps. Here the kernel
+// samples the plane itself, in its first substep, from the candidate points
+// its own forward kinematics produces (before a cylinder's rim shift, as the
+// sampler does), and keeps the 3 C plane words in a per-thread array for the
+// later substeps. The table is a global const float* (launch argument `hf`,
+// row-major (H, W), already scaled to metres), H and W are header ints 37-38,
+// horizontal scale and origin header floats 14-16. Sampling here saves the
+// sampler's ~100 small PyTorch launches per control step on a host-bound
+// path; it costs 4 gathers per candidate and step from a table that stays in
+// L2 (AnymalTerrain: 820 x 1620 floats, 5.3 MB). Over the plane the contact
+// is along the unit normal n = (-gx, -gy, 1) / |.|: depth (plane_z - p_z)
+// |n_z| + r, contact point p - n r, normal and 3-D tangent velocity split
+// along n, force n fn + friction. The ground mode is a template parameter,
+// picked by the launcher from whether it is given a table: the plane array
+// (3 x 128 floats, 1.5 KB of stack at the candidate cap) and the tilted
+// branches exist only in the heightfield instance. Built into the one
+// instance with a run-time flag they cost Ant's flat-ground step 4.7 % on an
+// H100 at 700 W (0.1245 against 0.1188 ms); as a template the flat instance
+// is the flat-ground kernel as it was (167 registers, 20,864-byte stack).
 //
 // Design. One generic kernel for every model: the model's static data (parent
 // indices, joint types, axes and frames, root flags, contact candidates,
@@ -27,8 +50,11 @@
 // out_rows rows once (Ant: 330 input + 56 output rows of 4 bytes), so at 4096
 // envs the bytes are 6.3 MB (1.89 us at 3.35 TB/s); the arithmetic is 15.2k
 // fp32 operations per env and substep (counted in chip_smoke.py's OPS; Ant,
-// 2 substeps: 1.86 us at 67 TFLOP/s). Neither bound is close: this simple
-// design is bound by latency. q, qd and the 21-float articulated inertias live in per-thread
+// 2 substeps: 1.86 us at 67 TFLOP/s). AnymalTerrain (474 input + 76 output
+// rows, 4 table words per candidate; 4 substeps of 21.9k operations plus 820
+// for the planes) is bound by operations: 5.41 us for 88.5k operations per
+// env against 3.08 us for 10.3 MB. Neither bound is close (0.12 and 0.39 ms
+// measured on an H100 at 700 W): this simple design is bound by latency. q, qd and the 21-float articulated inertias live in per-thread
 // local memory (spills are accepted), 4096 envs make only 32 blocks of 128
 // threads (32 of 132 SMs busy), and the per-env model parameters are re-read
 // from the input slab in every substep. What it leaves on the table: smaller
@@ -49,6 +75,7 @@ namespace {
 constexpr int kHeader = 48;     // ints / floats of header in the two tables
 constexpr int kMaxBodies = 64;  // MAX_BODIES in ops/fused.py
 constexpr int kMaxRoots = 8;    // MAX_ROOTS in ops/fused.py
+constexpr int kMaxCands = 128;  // MAX_CANDIDATES in ops/fused.py
 constexpr float kLockBig = 1e12f;
 constexpr float kJointFrictionVel = 0.05f;
 
@@ -227,9 +254,33 @@ __device__ void ldlt_solve6(const SymI& I, const float* b, float* x) {
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
 
+// the local plane (c, gx, gy) of the bilinear surface at (x, y), with the
+// plain version's conventions (engine/terrain.py height_and_grad_fn: floor,
+// clip(i0, 0, H - 2), clip(f, 0, 1)) and its order of operations
+__device__ __forceinline__ void hf_plane(const float* hf, int H, int W, float hs, float ox,
+                                         float oy, float x, float y, float* out) {
+  const float ux = (x - ox) / hs, uy = (y - oy) / hs;
+  const int i0 = min(max((int)floorf(ux), 0), H - 2);
+  const int j0 = min(max((int)floorf(uy), 0), W - 2);
+  const float fx = clampf(ux - (float)i0, 0.0f, 1.0f);
+  const float fy = clampf(uy - (float)j0, 0.0f, 1.0f);
+  const float* r = hf + (size_t)i0 * W + j0;
+  const float h00 = r[0], h01 = r[1], h10 = r[W], h11 = r[W + 1];
+  const float z = h00 * (1.0f - fx) * (1.0f - fy) + h10 * fx * (1.0f - fy) +
+                  h01 * (1.0f - fx) * fy + h11 * fx * fy;
+  const float gx = ((h10 - h00) * (1.0f - fy) + (h11 - h01) * fy) / hs;
+  const float gy = ((h01 - h00) * (1.0f - fx) + (h11 - h10) * fx) / hs;
+  out[0] = z - gx * x - gy * y;
+  out[1] = gx;
+  out[2] = gy;
+}
+
+// kHF: heightfield ground (the launcher picks it when it is given a table)
+template <bool kHF>
 __global__ void __launch_bounds__(128)
 fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
-                  const float* __restrict__ in, float* __restrict__ out, int B) {
+                  const float* __restrict__ hf, const float* __restrict__ in,
+                  float* __restrict__ out, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   constexpr int MAXB = kMaxBodies;
@@ -238,6 +289,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 
   const int nb = mi[0], nj = mi[1], nr = mi[2], nf = mi[3], nq = mi[4], nv = mi[5];
   const int nc = mi[7], ntq = mi[8], n_steps = mi[9];
+  const int hf_H = mi[37], hf_W = mi[38];
   Rows rw;
   {
     int* dst = reinterpret_cast<int*>(&rw);
@@ -255,6 +307,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const float fric_vel = mf[5], plane_fric = mf[6], lim_k = mf[7], lim_d = mf[8];
   const float damp_l = mf[9], damp_a = mf[10], max_v = mf[11], max_dep_v = mf[12];
   const float lim_diag = mf[13];  // h^2 lim_k + h lim_d
+  const float hf_hs = mf[14], hf_ox = mf[15], hf_oy = mf[16];
   const float* jaxis = mf + kHeader;
   const float* jpos = jaxis + 3 * nj;
   const float* jquat = jpos + 3 * nj;
@@ -282,6 +335,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   float Rl[MAXB][9];
   V3 pl[MAXB];
   float U[MAXB][6], invD[MAXB], uj[MAXB], tau[MAXB], diag[MAXB];
+  float gpl[kHF ? 3 * kMaxCands : 1];  // heightfield mode: (c, gx, gy) per candidate
 
   for (int step = 0; step < n_steps; ++step) {
     const float* jq = q + 7 * nf;
@@ -356,6 +410,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
         const V3 gp = add(pos_w[bi], qrot(bq, {cand_gpos[3 * c], cand_gpos[3 * c + 1],
                                                cand_gpos[3 * c + 2]}));
         V3 pc = add(gp, qrot(gq, {cand_off[3 * c], cand_off[3 * c + 1], cand_off[3 * c + 2]}));
+        if (kHF && step == 0 && phase == 0)
+          hf_plane(hf, hf_H, hf_W, hf_hs, hf_ox, hf_oy, pc.x, pc.y, gpl + 3 * c);
         float eff_r = cand_r[c];
         if (cand_rim[c]) {
           const V3 a = qrot(gq, {0.0f, 0.0f, 1.0f});
@@ -365,19 +421,38 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
           pc = add(pc, scl(u, cand_r[c]));
           eff_r = 0.0f;
         }
-        const float depth = ground_z - (pc.z - eff_r);
+        float depth;
+        V3 n = {0.0f, 0.0f, 1.0f};  // ground normal
+        if (kHF) {
+          const float gc = gpl[3 * c], ggx = gpl[3 * c + 1], ggy = gpl[3 * c + 2];
+          const float plane_z = gc + (ggx * pc.x + ggy * pc.y);
+          const float inv_nn = 1.0f / sqrtf(1.0f + (ggx * ggx + ggy * ggy));
+          n = {-ggx * inv_nn, -ggy * inv_nn, inv_nn};
+          depth = (plane_z - pc.z) * inv_nn + eff_r;
+        } else {
+          depth = ground_z - (pc.z - eff_r);
+        }
         const bool active = depth > 0.0f;
         if (phase == 0) {
           n_active[bi] += active ? 1.0f : 0.0f;
           continue;
         }
-        const V3 cp = {pc.x, pc.y, pc.z - eff_r};
+        const V3 cp = kHF ? sub(pc, scl(n, eff_r)) : V3{pc.x, pc.y, pc.z - eff_r};
         const V3 r_arm = sub(cp, pos_w[bi]);
         const V3 om_w = qrot(bq, v[bi].a);
         const V3 vl_w = qrot(bq, v[bi].b);
         const V3 vp = add(vl_w, cross(om_w, r_arm));
-        const float vn = vp.z;
-        const float vt_norm = sqrtf(vp.x * vp.x + vp.y * vp.y + 1e-18f);
+        float vn, vt_norm;
+        V3 vt;
+        if (kHF) {
+          vn = dot(vp, n);
+          vt = sub(vp, scl(n, vn));
+          vt_norm = sqrtf(dot(vt, vt) + 1e-18f);
+        } else {
+          vn = vp.z;
+          vt = {vp.x, vp.y, 0.0f};
+          vt_norm = sqrtf(vp.x * vp.x + vp.y * vp.y + 1e-18f);
+        }
         const float mass = RD(rw.mass + bi);
         const float I_min = fminf(fminf(RD(rw.inertia + 6 * bi), RD(rw.inertia + 6 * bi + 3)),
                                   RD(rw.inertia + 6 * bi + 5));
@@ -395,7 +470,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
         float ft_mag = mu * fn * tanhf(vt_norm / fric_vel);
         ft_mag = fminf(ft_mag, mass * vt_norm / h);
         const float s = ft_mag / fmaxf(vt_norm, 1e-6f);
-        const V3 f = {-s * vp.x, -s * vp.y, fn};
+        const V3 f = kHF ? add(scl(n, fn), scl(vt, -s)) : V3{-s * vt.x, -s * vt.y, fn};
         const V3 tq = cross(r_arm, f);
         pA[bi].a = add(pA[bi].a, tq);
         pA[bi].b = add(pA[bi].b, f);
@@ -568,16 +643,21 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 
 // Plain C entry point for ctypes. Returns cudaGetLastError() after the
 // launch (0 = success); the launch is asynchronous on `stream`.
-extern "C" int fused_step_launch(const void* mi, const void* mf, const void* in,
-                                 void* out, int B, void* stream) {
+// `hf` is the heightfield table in heightfield mode, else null.
+extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
+                                 const void* in, void* out, int B, void* stream) {
   if (B <= 0) return 0;
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mi_ = static_cast<const int*>(mi);
   const float* mf_ = static_cast<const float*>(mf);
+  const float* hf_ = static_cast<const float*>(hf);
   const float* in_ = static_cast<const float*>(in);
   float* out_ = static_cast<float*>(out);
-  fused_step_kernel<<<blocks, threads, 0, s>>>(mi_, mf_, in_, out_, B);
+  if (hf_)
+    fused_step_kernel<true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+  else
+    fused_step_kernel<false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
   return static_cast<int>(cudaGetLastError());
 }

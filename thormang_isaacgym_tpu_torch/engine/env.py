@@ -130,6 +130,10 @@ class Task:
     clip_actions: float = 1.0
     clip_obs: float = float("inf")
     control_freq_inv: int = 1
+    # physics steps per control step folded into one sim step: a YAML whose
+    # sim block is the physics step (dt 0.005, decimation 4) gives a control
+    # step of dt x decimation made of substeps x decimation substeps
+    decimation: int = 1
     dr_config: Optional[dict] = None
     uses_net_torque: bool = False
     net_torque_bodies: Optional[tuple] = None
@@ -138,6 +142,11 @@ class Task:
         self.num_envs = num_envs
         self.seed = seed
         self.device = resolve_device(device)
+
+    def set_dt(self, dt: float) -> None:
+        """Adopt the control step `dt` (s); tasks recompute what derives
+        from it (episode length, push interval)."""
+        self.dt = dt
 
     def default_task_state(self) -> Any:
         return ()

@@ -13,10 +13,20 @@ candidates, torque-body slots, sim constants) goes in as two small device
 tables, one int32 and one float32, so one compiled kernel serves every model
 under the caps below.
 
+The ground is a constant height or a ``Heightfield`` (block B7 of the TPU
+kernel). Over a heightfield the kernel samples, at the step's input q, a
+local plane z = c + gx x + gy y under each contact candidate and holds it
+for all substeps, as the TPU kernel holds the plane rows that
+``_ground_plane_sampler`` feeds it. The CUDA kernel samples the table itself
+(a global pointer beside the two tables); the plain version keeps the JAX
+structure: :func:`ground_plane_sampler` makes the (B, 3C) plane rows and the
+op path reads them.
+
 The kernel is built at first use with ``nvcc`` alone (no PyTorch headers)
 into ``thormang_isaacgym_tpu_torch/_build/`` and loaded with ``ctypes``. For
-CPU tensors the step runs the plain PyTorch version (``ops.sim``'s op path);
-for CUDA tensors it launches the kernel or raises.
+CPU tensors the step runs the plain PyTorch version (``ops.sim``'s op path,
+with frozen ground planes over a heightfield); for CUDA tensors it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -32,8 +42,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield
 from thormang_isaacgym_tpu_torch.models.robot import RobotModel
 from thormang_isaacgym_tpu_torch.ops import contact
+from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import SimParams, build_plain_step_fn, check_supported
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,23 +116,46 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     lib = ctypes.CDLL(build_library().path)
     fn = lib.fused_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def make_rows(model: RobotModel) -> dict:
-    """Row offsets into the packed (R, B) input, in ``_make_rows`` order
-    (no tendon or heightfield rows), plus ``total``."""
+def make_rows(model: RobotModel, ground_rows: int = 0) -> dict:
+    """Row offsets into the packed (R, B) input, in ``_make_rows`` order,
+    plus ``total``. No tendon rows yet; ``ground_rows`` = 3C gives the JAX
+    layout's plane rows (the plain version's), 0 the CUDA kernel's slab,
+    which samples the heightfield itself."""
     nq, nv, nj, nb, ng = model.nq, model.nv, model.nj, model.nb, model.ng
     sizes = dict(q=nq, qd=nv, tp=nj, tv=nj, eff=nj, mass=nb, com=3 * nb,
-                 inertia=6 * nb, gscale=nb, geom_fric=ng, gravity=3, wrench=6 * nb)
+                 inertia=6 * nb, gscale=nb, geom_fric=ng, gravity=3, wrench=6 * nb,
+                 tstiff=0, tdamp=0, gplane=ground_rows)
     rows, off = {}, 0
-    for name in _ROW_NAMES:
+    for name in _ROW_NAMES + ("tstiff", "tdamp", "gplane"):
         rows[name] = off
         off += sizes.get(name, nj)
     rows["total"] = off
     return rows
+
+
+def ground_plane_sampler(model: RobotModel, hf: Heightfield):
+    """(B, nq) q -> (B, 3C) rows (c, gx, gy) per contact candidate, with
+    z(x, y) = c + gx x + gy y the bilinear surface's height and gradient at
+    the candidate's point (before a cylinder's rim shift) at q. Port of
+    ``_ground_plane_sampler``; the plain gather replaces its clustered
+    sampler. The kernel computes the same rows from its first substep's
+    forward kinematics."""
+    hgfn = hf.height_and_grad_fn()
+
+    def sample(q: torch.Tensor) -> torch.Tensor:
+        frames = forward_kinematics(model, q, q.new_zeros(q.shape[0], model.nv))
+        p, _ = contact.candidate_points(model, frames)
+        x, y = p[..., 0], p[..., 1]
+        z0, gx, gy = hgfn(x, y)
+        c0 = z0 - gx * x - gy * y
+        return torch.stack([c0, gx, gy], dim=-1).reshape(q.shape[0], -1)
+
+    return sample
 
 
 def norm_torque_bodies(need_torque, nb: int) -> tuple:
@@ -143,14 +178,20 @@ def check_caps(model: RobotModel) -> None:
 
 
 def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
-                  ground_z: float, tq_bodies: tuple):
-    """The kernel's static model data: (int32 table, float32 table)."""
+                  ground, tq_bodies: tuple):
+    """The kernel's static model data: (int32 table, float32 table).
+    `ground`: a constant height or a Heightfield (header ints 37-38: H, W;
+    floats 14-16: horizontal scale, origin x, y)."""
     cand = contact.candidates(model)
     nc = len(cand["geom"])
     nb, nj, nr = model.nb, model.nj, model.n_roots
     rows = make_rows(model)
+    hf = ground if isinstance(ground, Heightfield) else None
+    ground_z = 0.0 if hf is not None else float(ground)
+    H, W = hf.shape if hf is not None else (0, 0)
     head = [nb, nj, nr, model.n_floating, model.nq, model.nv, model.ng, nc,
-            len(tq_bodies), n_steps] + [rows[n] for n in _ROW_NAMES] + [rows["total"]]
+            len(tq_bodies), n_steps] + [rows[n] for n in _ROW_NAMES] + [rows["total"]] \
+        + [H, W]
     slot = np.full(nb, -1, np.int64)
     slot[list(tq_bodies)] = np.arange(len(tq_bodies))
     mi = np.concatenate([
@@ -165,7 +206,10 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
              sp.joint_limit_damping, 1.0 - sp.root_linear_damping * h,
              1.0 - sp.root_angular_damping * h, sp.max_velocity,
              sp.max_depenetration_velocity,
-             h * h * sp.joint_limit_stiffness + h * sp.joint_limit_damping]
+             h * h * sp.joint_limit_stiffness + h * sp.joint_limit_damping,
+             hf.h_scale if hf is not None else 0.0,
+             float(hf.origin[0]) if hf is not None else 0.0,
+             float(hf.origin[1]) if hf is not None else 0.0]
     base = np.array(model.root_base_pose if model.root_base_pose is not None
                     else [(0, 0, 0, 1, 0, 0, 0)] * nr, np.float64)
     mf = np.concatenate([
@@ -185,25 +229,28 @@ class FusedStep:
 
     params batched (B, ...); q (B, nq); qd (B, nv); ctrl leaves (B, nj);
     wrench (B, nb, 6) world frame. net = [force | torque] of the last
-    substep, torque zero outside the torque-sensor bodies. ``launches``
-    counts kernel launches (CPU calls run the plain version and do not
-    count)."""
+    substep, torque zero outside the torque-sensor bodies. ``ground``: a
+    constant height or a Heightfield, whose table must lie on the device
+    of the tensors the step is given. ``launches`` counts kernel launches
+    (CPU calls run the plain version and do not count)."""
 
     def __init__(self, model: RobotModel, sim_params: SimParams, *,
                  ground=0.0, need_torque=True):
         self.model = model
         self.sim_params = sim_params
         self.n_steps = int(sim_params.substeps)
-        ground_z = check_supported(model, ground)
+        ground = check_supported(model, ground)
         check_caps(model)
+        self.hf = ground if isinstance(ground, Heightfield) else None
         self.tq_bodies = norm_torque_bodies(need_torque, model.nb)
         self.rows = make_rows(model)
         self.out_rows = model.nq + model.nv + 3 * model.nb + 3 * len(self.tq_bodies)
-        self._tables = kernel_tables(model, sim_params, self.n_steps, ground_z,
+        self._tables = kernel_tables(model, sim_params, self.n_steps, ground,
                                      self.tq_bodies)
         self._dev_tables = {}
         self._tq_idx = torch.tensor(self.tq_bodies, dtype=torch.long)
-        self._plain = build_plain_step_fn(model, sim_params, ground_z)
+        self._plain = build_plain_step_fn(model, sim_params, ground)
+        self.sampler = ground_plane_sampler(model, self.hf) if self.hf is not None else None
         self.launches = 0
 
     def _on(self, dev):
@@ -218,7 +265,10 @@ class FusedStep:
 
     # ---- plain version (CPU path; the reference on the card) ----
     def plain(self, params, q, qd, ctrl, wrench):
-        q, qd, net = self._plain(params, q, qd, ctrl, wrench)
+        planes = None
+        if self.sampler is not None:
+            planes = self.sampler(q).reshape(q.shape[0], -1, 3)
+        q, qd, net = self._plain(params, q, qd, ctrl, wrench, planes)
         mask = torch.zeros(self.model.nb, 1, device=q.device)
         mask[self._on(q.device)[2]] = 1.0
         return q, qd, torch.cat([net[..., 0:3], net[..., 3:6] * mask], dim=-1)
@@ -276,12 +326,20 @@ class FusedStep:
                              f"slab, got {packed.dtype} {tuple(packed.shape)}")
         dev = packed.device
         mi_t, mf_t, _ = self._on(dev)
+        hf_ptr = None
+        if self.hf is not None:
+            table = self.hf.table
+            if table.device != dev or table.dtype != torch.float32 \
+                    or not table.is_contiguous():
+                raise ValueError(f"the heightfield table must be a contiguous float32 "
+                                 f"tensor on {dev}, got {table.dtype} on {table.device}")
+            hf_ptr = table.data_ptr()
         B = packed.shape[1]
         out = torch.empty(self.out_rows, B, device=dev, dtype=torch.float32)
         fn = load_library().fused_step_launch
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(mi_t.data_ptr(), mf_t.data_ptr(), packed.data_ptr(),
+            err = fn(mi_t.data_ptr(), mf_t.data_ptr(), hf_ptr, packed.data_ptr(),
                      out.data_ptr(), B, stream)
         if err != 0:
             raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
@@ -299,5 +357,6 @@ class FusedStep:
 def build_fused_step_fn(model: RobotModel, sim_params: SimParams, *,
                         ground=0.0, need_torque=True) -> FusedStep:
     """step(params, q, qd, ctrl, wrench) -> (q', qd', net), running
-    sim_params.substeps substeps in one kernel launch."""
+    sim_params.substeps substeps in one kernel launch; `ground` is a
+    constant height or a Heightfield."""
     return FusedStep(model, sim_params, ground=ground, need_torque=need_torque)

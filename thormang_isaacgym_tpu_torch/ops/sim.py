@@ -7,6 +7,11 @@ package and ``chip_smoke.py`` holds the kernel against on the card.
 :func:`build_step_fn` returns the fused kernel's wrapper
 (``ops/fused.py``): it launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors.
+
+The ground is a constant height or an ``engine.terrain.Heightfield``. Over a
+heightfield the op path samples the surface (height and gradient) at every
+substep, as the JAX op path does; the fused kernel and its plain twin
+freeze a local plane per contact candidate for the whole control step.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from thormang_isaacgym_tpu_torch.core import quat as Q
+from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield
 from thormang_isaacgym_tpu_torch.models.robot import ModelParams, RobotModel
 from thormang_isaacgym_tpu_torch.ops import contact as contact_mod
 from thormang_isaacgym_tpu_torch.ops import dynamics as dyn
@@ -55,23 +61,29 @@ def zero_controls(model: RobotModel, batch: int, device="cpu") -> Controls:
     return Controls(z, z, z)
 
 
-def check_supported(model: RobotModel, ground=0.0, attractors=None) -> float:
-    """Raise for what this slice does not port; return the ground height."""
+def check_supported(model: RobotModel, ground=0.0, attractors=None):
+    """Raise for what the port does not cover yet; return the ground: a
+    constant height (float) or a Heightfield."""
     if len({model.actors[g.body] for g in model.geoms}) > 1:
         raise NotImplementedError("actor-pair contact (ops/collide.py) is not ported yet")
     if attractors:
         raise NotImplementedError("rigid-body attractors are not ported yet")
     if getattr(model, "tendons", ()):
         raise NotImplementedError("fixed tendons are not ported yet")
+    if isinstance(ground, Heightfield):
+        return ground
     if ground is not None and not isinstance(ground, (int, float)):
-        raise NotImplementedError("heightfield and callable grounds are not ported yet")
+        raise NotImplementedError("callable grounds are not ported; pass a Heightfield")
     return float(ground or 0.0)
 
 
 def _substep(model: RobotModel, sp_: SimParams, params: ModelParams,
              q: torch.Tensor, qd: torch.Tensor, ctrl: Controls,
-             body_wrench_w: torch.Tensor, ground_z: float = 0.0):
-    """One physics substep for a batch of envs: (q', qd', net (B, nb, 6))."""
+             body_wrench_w: torch.Tensor, ground_z: float = 0.0,
+             ground_grad_fn=None, planes=None):
+    """One physics substep for a batch of envs: (q', qd', net (B, nb, 6)).
+    The ground: plane z = ground_z, or sloped (``ground_grad_fn`` sampled
+    here, or frozen per-candidate ``planes``; see ground_contact_forces)."""
     h = sp_.dt / sp_.substeps
     B = q.shape[0]
     _, _, joint_q = split_q(model, q)
@@ -83,7 +95,8 @@ def _substep(model: RobotModel, sp_: SimParams, params: ModelParams,
         stiffness=sp_.contact_stiffness, damping=sp_.contact_damping,
         friction_vel=sp_.friction_vel, plane_friction=sp_.plane_friction,
         ground_z=ground_z, dt=h,
-        max_depenetration_velocity=sp_.max_depenetration_velocity)
+        max_depenetration_velocity=sp_.max_depenetration_velocity,
+        ground_grad_fn=ground_grad_fn, planes=planes)
     net_tq = f_ext_w[..., 0:3]
     f_ext_w = f_ext_w + body_wrench_w
 
@@ -131,16 +144,25 @@ def _substep(model: RobotModel, sp_: SimParams, params: ModelParams,
 
 def build_plain_step_fn(model: RobotModel, sim_params: SimParams,
                         ground=0.0) -> Callable:
-    """The op path: step(params, q, qd, ctrl, wrench) -> (q', qd', net
-    (B, nb, 6) [force | torque] of the last substep). params batched (B, ...);
-    q (B, nq); qd (B, nv); ctrl leaves (B, nj); wrench (B, nb, 6) world."""
-    ground_z = check_supported(model, ground)
+    """The op path: step(params, q, qd, ctrl, wrench, planes=None) -> (q',
+    qd', net (B, nb, 6) [force | torque] of the last substep). params batched
+    (B, ...); q (B, nq); qd (B, nv); ctrl leaves (B, nj); wrench (B, nb, 6)
+    world. Over a Heightfield the surface is sampled at every substep, unless
+    ``planes`` (B, C, 3) gives each contact candidate a local plane to hold
+    for the whole step (the fused kernel's semantics)."""
+    ground = check_supported(model, ground)
+    hf = ground if isinstance(ground, Heightfield) else None
+    ground_z = 0.0 if hf is not None else ground
+    grad_fn = hf.height_and_grad_fn() if hf is not None else None
 
-    def step(params, q, qd, ctrl, wrench):
+    def step(params, q, qd, ctrl, wrench, planes=None):
+        if planes is not None and hf is None:
+            raise ValueError("ground planes given for a flat ground")
         net = None
         for _ in range(sim_params.substeps):
-            q, qd, net = _substep(model, sim_params, params, q, qd, ctrl,
-                                  wrench, ground_z)
+            q, qd, net = _substep(model, sim_params, params, q, qd, ctrl, wrench, ground_z,
+                                  ground_grad_fn=grad_fn if planes is None else None,
+                                  planes=planes)
         return q, qd, net
 
     return step
@@ -152,8 +174,10 @@ def build_step_fn(model: RobotModel, sim_params: SimParams,
     """step(params, q, qd, ctrl, wrench) -> (q', qd', net (B, nb, 6)).
 
     Returns the fused kernel's wrapper: CUDA tensors launch the kernel (or
-    raise for a model it does not cover), CPU tensors take the plain op
-    path. Torque columns of `net` are zero outside `need_torque`'s bodies."""
+    raise for a model it does not cover), CPU tensors take its plain twin.
+    `ground_height_fn` is None (plane z = 0), a constant height or a
+    Heightfield. Torque columns of `net` are zero outside `need_torque`'s
+    bodies."""
     from thormang_isaacgym_tpu_torch.ops import fused
     ground = check_supported(model, ground_height_fn, attractors)
     return fused.build_fused_step_fn(model, sim_params, ground=ground,

@@ -9,7 +9,11 @@ the JAX package:
   (in, out) -> ``nn.Linear.weight`` (out, in), ``bias``, ``log_std``);
 - :func:`rms_state` — ``RMSState`` (mean, var, count);
 - :func:`train_state` — a JAX PPO ``TrainState`` (params, optax Adam
-  moments and count, lr, normalizers, epoch) into a port TrainState.
+  moments and count, lr, normalizers, epoch) into a port TrainState;
+- :func:`heightfield` — an ``engine.terrain.Heightfield`` (heights, scales,
+  origin) -> the port's Heightfield on `device`;
+- :func:`anymal_terrain_task_state` — an ``AnymalTerrainTaskState`` -> the
+  port's (terrain level and type as int32).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield
 from thormang_isaacgym_tpu_torch.learn.networks import ActorCritic
 from thormang_isaacgym_tpu_torch.learn.normalize import RMSState
 from thormang_isaacgym_tpu_torch.models.robot import ModelParams
@@ -101,3 +106,21 @@ def train_state(ppo, jax_ts):
     ts.value_rms = rms_state(jax_ts.value_rms, dev)
     ts.epoch = int(np.array(jax_ts.epoch))
     return ts
+
+
+def heightfield(hf, device="cpu") -> Heightfield:
+    """hf: an object with the JAX Heightfield's fields (heights, h_scale,
+    v_scale, origin)."""
+    return Heightfield(np.asarray(hf.heights), hf.h_scale, hf.v_scale,
+                       tuple(np.asarray(hf.origin, np.float32)), device=device)
+
+
+def anymal_terrain_task_state(leaves, device="cpu"):
+    """leaves: a JAX AnymalTerrainTaskState (numpy leaves) or a dict of its
+    fields."""
+    from thormang_isaacgym_tpu_torch.tasks.anymal_terrain import AnymalTerrainTaskState
+    get = leaves.get if isinstance(leaves, dict) else (lambda k: getattr(leaves, k))
+    ints = ("terrain_level", "terrain_type")
+    return AnymalTerrainTaskState(**{
+        f.name: _leaf(get(f.name), device, torch.int32 if f.name in ints else torch.float32)
+        for f in dataclasses.fields(AnymalTerrainTaskState)})

@@ -14,6 +14,8 @@ import numpy as np
 TASK_MAP = {
     "Cartpole": ("thormang_isaacgym_tpu_torch.tasks.cartpole", "Cartpole"),
     "Ant": ("thormang_isaacgym_tpu_torch.tasks.ant", "Ant"),
+    "Anymal": ("thormang_isaacgym_tpu_torch.tasks.anymal", "Anymal"),
+    "AnymalTerrain": ("thormang_isaacgym_tpu_torch.tasks.anymal_terrain", "AnymalTerrain"),
 }
 
 
@@ -72,21 +74,25 @@ def apply_cfg_env(task, env_cfg: dict, *, warn_unknown: bool = True):
 
 def apply_cfg_sim(task, sim_cfg: dict):
     """Apply a task YAML's ``sim`` block (dt, substeps, gravity) to the task
-    before its env is built. The JAX package's ``make`` leaves the task's
-    own sim parameters in place; the port follows the YAML."""
+    before its env is built. The block is the physics step: the control step
+    is ``dt x task.decimation`` made of ``substeps x task.decimation``
+    substeps (AnymalTerrain: 0.005 x 4 = 0.02 s, 4 substeps), and the task
+    re-derives what depends on dt (``task.set_dt``). The JAX package's
+    ``make`` leaves the task's own sim parameters in place; the port follows
+    the YAML."""
     if not sim_cfg:
         return task
+    dec = int(getattr(task, "decimation", 1))
     kw = {}
     if "dt" in sim_cfg:
-        kw["dt"] = float(sim_cfg["dt"])
+        kw["dt"] = float(sim_cfg["dt"]) * dec
     if "substeps" in sim_cfg:
-        kw["substeps"] = int(sim_cfg["substeps"])
+        kw["substeps"] = int(sim_cfg["substeps"]) * dec
     if "gravity" in sim_cfg:
         kw["gravity"] = tuple(float(g) for g in sim_cfg["gravity"])
         task.model._defaults["gravity"] = np.asarray(kw["gravity"], np.float32)
     task.sim_params = dataclasses.replace(task.sim_params, **kw)
-    if hasattr(task, "dt"):
-        task.dt = task.sim_params.dt
+    task.set_dt(task.sim_params.dt)
     return task
 
 
@@ -97,7 +103,9 @@ def make(task_name: str, num_envs: int | None = None, seed: int = 42,
 
     `cfg` is a reference-shaped task config dict (cfg/task/<X>.yaml): its
     env block drives task parameters and its sim block dt/substeps/gravity.
-    Domain randomization (task.randomize) is not ported yet and raises."""
+    A task's ground (``task.ground_height_fn()``, e.g. AnymalTerrain's
+    heightfield) goes to the env. Domain randomization (task.randomize) is
+    not ported yet and raises."""
     from thormang_isaacgym_tpu_torch.engine.env import VecEnv, resolve_device
 
     device = resolve_device(device)
@@ -118,4 +126,5 @@ def make(task_name: str, num_envs: int | None = None, seed: int = 42,
     if env_cfg:
         apply_cfg_env(task, env_cfg)
     apply_cfg_sim(task, cfg.get("sim"))
-    return VecEnv(task, stagger_episodes=stagger)
+    ground = task.ground_height_fn() if hasattr(task, "ground_height_fn") else None
+    return VecEnv(task, ground_height_fn=ground, stagger_episodes=stagger)
