@@ -11,19 +11,24 @@ Phases, one line each (any failure raises and exits non-zero):
  2. compare: the fused kernel against its plain PyTorch version on the card,
     at 4096 envs from seeded numpy states, 1 and 5 control steps: Cartpole
     and Ant (flat ground), AnymalTerrain (heightfield mode, bases placed on
-    the terrain grid); max abs error of q, qd and net against TOL, beside
-    the largest |value| of each and the share of non-zero net rows
-    (AnymalTerrain also: the share of active contact candidates, the share
-    of those on sloped cells, the largest |gx x| of a ground plane).
- 3. time: kernel, plain version and whole wrapper, Ant and AnymalTerrain at
-    4096 envs (CUDA events after warm-up, ms per control step) beside the
-    kernel's bound.
+    the terrain grid), BallBalance (pair mode: actor pairs and attractors,
+    the ball resting in the tray or pressed into a leg) and the pair-capsule
+    scene of tests/test_fused.py (sphere-capsule and capsule-capsule pairs);
+    max abs error of q, qd and net against TOL, beside the largest |value|
+    of each and the share of non-zero net rows (AnymalTerrain also: the
+    share of active contact candidates, the share of those on sloped cells,
+    the largest |gx x| of a ground plane; the pair scenes: the share of
+    active pair candidates and the largest |dIA| entry).
+ 3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain and
+    BallBalance at 4096 envs (CUDA events after warm-up, ms per control
+    step) beside the kernel's bound.
  4. train: make(task, cfg=cfg/task/<task>.yaml) at 4096 envs,
     PPO(PPOConfig.from_rlgames(cfg/train/<task>PPO.yaml)), 3
-    train_iterations, for Ant (3 x 16 kernel launches) and AnymalTerrain
-    (3 x 24); every metric finite, obs finite of shape (4096, num_obs).
-Then a {"kernels": [...]} line (the kernel's flat and heightfield modes)
-and, last, the {"ok": true, "device": ...} line.
+    train_iterations, for Ant (3 x 16 kernel launches), AnymalTerrain
+    (3 x 24) and BallBalance (3 x 16); every metric finite, obs finite of
+    shape (4096, num_obs).
+Then a {"kernels": [...]} line (the kernel's flat, heightfield and pair
+modes) and, last, the {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -37,11 +42,17 @@ import numpy as np
 import torch
 import yaml
 
-from thormang_isaacgym_tpu_torch.ops import fused
+from thormang_isaacgym_tpu_torch.models import load_urdf
+from thormang_isaacgym_tpu_torch.models.scene import compose
+from thormang_isaacgym_tpu_torch.ops import collide, fused
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
-from thormang_isaacgym_tpu_torch.ops.sim import Controls
+from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the test scenes the CPU tests hold the kernel's source against: the
+# pair-capsule scene and the BallBalance contact states
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+from test_torch_fused import PAIR_POSES, PAIR_SP, ball_balance_q, pair_capsule_scene  # noqa: E402
 B = 4096
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
@@ -56,11 +67,29 @@ SEED = 0
 # planes c + gx x + gy y are computed in the same order in both versions
 # (the kernel is built with -fmad=false), so the cancellation between c and
 # gx x (|gx x| up to 233 on the full grid) rounds alike in both.
+# The pair mode keeps q and qd; its net atol is 0.1 N, 3x the worst error
+# measured on an H100 (0.032 N, the pair-capsule scene after one control
+# step, where the largest net entry is 416 N; BallBalance 2.5e-3 N after 5
+# free-running steps, largest entry 1.6 kN). The implicit pair reaction adds
+# h D = 5.6 kg along each contact normal to capsules of 0.4 kg (inertia 4e-4
+# kg m^2), so the ABA's solve amplifies last-bit differences (symmetric
+# against full 6x6 inertias) into qd 1e-3 and, through the damper D vn, into
+# net. The pair-capsule scene
+# stacks a ball and two capsules on a bar (82 % of its pair candidates in
+# contact, capsule A over the bar's end in every fourth env); free running,
+# its versions part like AnymalTerrain's (5 steps: 2 of 4096 envs outside
+# TOL, qd 0.025, net 0.18 N), so it is held step by step.
 TOL = dict(flat=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1e-2, 5e-3)),
-           heightfield=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.3, 5e-3)))
-# the TPU kernel's call and its heightfield block, which the two modes replace
+           heightfield=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.3, 5e-3)),
+           pairs=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.1, 5e-3)))
+# cases held against the plain version step by step (see phase_compare)
+STEPWISE = {"AnymalTerrain", "PairCapsule"}
+# the TPU kernel's call and the blocks the heightfield and pair modes replace
+# (the pair mode: the pair force block and the attractor block)
 REPLACES = dict(flat="thormang_isaacgym_tpu/ops/fused.py:1707",
-                heightfield="thormang_isaacgym_tpu/ops/fused.py:1154")
+                heightfield="thormang_isaacgym_tpu/ops/fused.py:1154",
+                pairs="thormang_isaacgym_tpu/ops/fused.py:1235")
+ALSO_REPLACES = dict(pairs=["thormang_isaacgym_tpu/ops/fused.py:1323"])
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -111,7 +140,14 @@ def random_inputs(task, rng: np.random.Generator, device):
     lo = m._defaults["dof_lower"]
     hi = m._defaults["dof_upper"]
     targets = None                        # drawn last, as before, off the terrain
-    if hasattr(task, "grid"):
+    if hasattr(task, "ball_body"):
+        # BallBalance: the ball resting in the tray or pressed into a leg
+        q = ball_balance_q(task, rng, B)
+        qd = rng.normal(size=(B, m.nv)) * 0.3
+        targets = np.zeros((B, nj))
+        targets[:, task.knees] = rng.uniform(-0.3, 0.3, (B, 3))
+        effort = np.zeros((B, nj))
+    elif hasattr(task, "grid"):
         # bases over tiles of every level and type, feet near the ground
         lev = rng.integers(0, task.num_levels, B)
         typ = rng.integers(0, task.num_types, B)
@@ -190,37 +226,82 @@ def _errors(got, want, tol: dict) -> dict:
     return dict(max_abs_err=errs, max_abs=size, env_share_within_tol=float(inside.float().mean()))
 
 
-def phase_compare(device) -> dict:
-    """Worst error of each kernel mode: {"flat": x, "heightfield": y}.
+class PairCapsule:
+    """The pair-capsule scene of tests/test_fused.py as a task-like case: a
+    ball and two capsules dropped on a fixed capsule bar, touching it."""
+    attractors = ()
 
-    Cartpole and Ant are held against the plain version after 1 and 5 free
-    running control steps. AnymalTerrain is held against it step by step:
-    at each of the 5 control steps both start from the plain version's
-    state. Its stiff contact over terrain amplifies last-bit differences 2-4x
-    per control step until a contact switches on in one version and not the
-    other (the damper makes the force jump at contact onset), so the free
-    running trajectories part after a few steps in some envs; their errors
-    and the share of envs still within TOL are printed, not gated."""
+    def __init__(self):
+        self.model = pair_capsule_scene(load_urdf, compose)
+        self.sim_params = SimParams(**PAIR_SP)
+
+
+def pair_capsule_inputs(model, rng: np.random.Generator, device):
+    q = np.tile(np.concatenate(PAIR_POSES[:3]), (B, 1))
+    q += rng.normal(size=q.shape) * 0.01 * np.tile([1, 1, 1, 0, 0, 0, 0], 3)
+    qd = rng.normal(size=(B, model.nv)) * 0.1
+    wrench = np.concatenate([rng.normal(size=(B, model.nb, 3)) * 0.02,
+                             rng.normal(size=(B, model.nb, 3)) * 0.2], axis=-1)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    z = t(np.zeros((B, 0)))
+    return model.default_params(device).batch(B), t(q), t(qd), Controls(z, z, z), t(wrench)
+
+
+def pair_stats(step, params, q, qd) -> dict:
+    """What the pair mode sees at (q, qd): the share of pair candidates in
+    contact and the largest |entry| of the added inertia dIA."""
+    m, sp = step.model, step.sim_params
+    frames = forward_kinematics(m, q, qd)
+    depth = torch.stack([c[5] for c in collide.candidates(m, frames)], -1)
+    _, dIA, _ = collide.pairwise_contact_forces(
+        m, params, frames, stiffness=sp.contact_stiffness, damping=sp.contact_damping,
+        friction_vel=sp.friction_vel, dt=sp.dt / sp.substeps,
+        max_depenetration_velocity=sp.max_depenetration_velocity)
+    return dict(active_pair_share=float((depth > 0).float().mean()),
+                max_abs_dIA=float(dIA.abs().max()))
+
+
+def phase_compare(device) -> dict:
+    """Worst error of each kernel mode: {"flat": x, "heightfield": y, "pairs": z}.
+
+    Cartpole, Ant and BallBalance are held against the plain version after 1
+    and 5 free running control steps. AnymalTerrain and the pair-capsule
+    scene are held against it step by step: at each of the 5 control steps
+    both start from the plain version's state. Their stiff contact (over
+    terrain; a stack of bodies on a bar) amplifies last-bit differences
+    several times per control step until a contact switches on in one
+    version and not the other (the damper makes the force jump at contact
+    onset), so the free running trajectories part after a few steps in some
+    envs; their errors and the share of envs still within TOL are printed,
+    not gated."""
     rng = np.random.default_rng(SEED)
-    worst = dict(flat=0.0, heightfield=0.0)
-    for name in ("Cartpole", "Ant", "AnymalTerrain"):
-        task = _task(name, device)
+    worst = dict(flat=0.0, heightfield=0.0, pairs=0.0)
+    for name in ("Cartpole", "Ant", "AnymalTerrain", "BallBalance", "PairCapsule"):
+        task = PairCapsule() if name == "PairCapsule" else _task(name, device)
         ground = task.ground_height_fn() if hasattr(task, "ground_height_fn") else 0.0
-        mode = "heightfield" if hasattr(task, "grid") else "flat"
         step = fused.build_fused_step_fn(task.model, task.sim_params, ground=ground,
+                                         attractors=getattr(task, "attractors", None),
                                          need_torque=True)
-        params, q0, qd0, ctrl, wrench = random_inputs(task, rng, device)
-        extra = ground_stats(step, q0) if mode == "heightfield" else {}
+        mode = "heightfield" if step.hf is not None else "pairs" if step.pair_mode else "flat"
+        if name == "PairCapsule":
+            params, q0, qd0, ctrl, wrench = pair_capsule_inputs(task.model, rng, device)
+        else:
+            params, q0, qd0, ctrl, wrench = random_inputs(task, rng, device)
+        extra = ground_stats(step, q0) if mode == "heightfield" else \
+            pair_stats(step, params, q0, qd0) if mode == "pairs" else {}
         for n_ctrl in (1, 5):
             qa, qda, qb, qdb = q0, qd0, q0, qd0
             stepwise = None
             for _ in range(n_ctrl):
-                if mode == "heightfield":
+                if name in STEPWISE:
                     # the kernel from the plain version's state of this step
                     k_out = step(params, qb, qdb, ctrl, wrench)
                 qa, qda, na = step(params, qa, qda, ctrl, wrench)
                 qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, wrench)
-                if mode == "heightfield":
+                if name in STEPWISE:
                     e = _errors(k_out, (qb, qdb, nb_), TOL[mode])
                     stepwise = e if stepwise is None else {
                         "max_abs_err": {k: max(v, stepwise["max_abs_err"][k])
@@ -245,7 +326,7 @@ def phase_compare(device) -> dict:
             if not ok:
                 raise AssertionError(f"fused kernel disagrees with the plain version: {name} "
                                      f"{gate['max_abs_err']}")
-        expected = 12 if mode == "heightfield" else 6
+        expected = 12 if name in STEPWISE else 6
         if step.launches != expected:
             raise AssertionError(f"compare launched the kernel {step.launches} times, "
                                  f"expected {expected}")
@@ -302,18 +383,49 @@ OPS = dict(
     # plane height 4, 1/|n| 6, n 2, depth +1; contact point +5, vn 5, vt 6,
     # |vt| +2, force along n +7
     hf_contact=4 + 6 + 2 + 1 + 5 + 5 + 6 + 2 + 7,
+    # pair mode, per pair and substep: the two geoms' world poses 122, then
+    # the narrowphase of its kind: sphere-sphere (d 3, |d| 7, n 3, depth 1,
+    # contact point 8), sphere-capsule (+ axis 30, projection 10, closest
+    # point 6), sphere-cylinder (local point 33, radial distance 4, clamp 6,
+    # outside distance 10, inside test 3, gaps 3, sign 2, normals 5, selects
+    # 6, rotation back 30, depth 2, contact point 6), capsule-capsule (axes
+    # 60, end points 24, differences 9, five dots 27, denominator 3, two
+    # clamped parameters 17, closest points 12, |d| 10, n 3, depth 1,
+    # contact point 8)
+    pair_pose=2 * (_QMUL + _QROT + _V3),
+    pair_kind={"sphere/0": 22, "sphere/1": 22 + _QROT + 10 + 6, "sphere/3": 110, "capcap": 176},
+    # per pair: arms 6, the two point velocities 144, relative velocity and
+    # vn 8, reduced mass and spring 9, normal force and cap 10, tangent
+    # velocity and |vt| 12, mu and the damper 5, force 12, two torques 18,
+    # sums 12; the implicit reaction: gate and weights 5, per side lever arm
+    # and normal in the link frame 63, u 9, U U^T term 33, rank-1 term 48
+    pair_force=6 + 2 * (2 * _QROT + _CROSS + _V3) + 8 + 9 + 10 + 12 + 5 + 12 + 2 * _CROSS + 12,
+    pair_inertia=5 + 2 * (3 + 2 * _QROT + _CROSS + 33 + 48),
+    # per pair body: wrench, net force and torque 12, added inertia into IA 21
+    pair_body=12 + 21,
+    # per attractor: world point 33, arm 3, point velocity 72, I_min and the
+    # effective mass 4, clamped gains 6, force 12, torque 9, sums 6
+    attractor=_QROT + _V3 + 3 + (2 * _QROT + _CROSS + _V3) + 4 + 6 + 12 + _CROSS + 6,
 )
 
 
-def kernel_ops_per_env(model, n_steps: int, heightfield: bool = False) -> float:
+def kernel_ops_per_env(model, n_steps: int, heightfield: bool = False,
+                       attractors=()) -> float:
     """fp32 operations of one env's physics step (n_steps substeps), from
     OPS: what the function needs, each contact candidate's geometry once;
     over a heightfield the plane sampling once per control step and the
-    tilted-normal terms every substep."""
+    tilted-normal terms every substep; in the pair mode each actor pair's
+    narrowphase, force and added inertia and each attractor every substep."""
     cand = fused.contact.candidates(model)
     nc = len(cand["geom"])
     jt = np.asarray(model.joint_type)
-    per_sub = (model.n_roots * OPS["root"]
+    pairs = collide.pairs(model)
+    pair_ops = sum(OPS["pair_pose"] + OPS["pair_force"] + OPS["pair_inertia"]
+                   + OPS["pair_kind"][k if k == "capcap" else f"{k}/{model.geoms[ib].gtype}"]
+                   for _, ib, k in pairs)
+    per_sub = (pair_ops + len(fused.pair_bodies(model)) * OPS["pair_body"]
+               + len(attractors) * OPS["attractor"]
+               + model.n_roots * OPS["root"]
                + sum(OPS["joint_local"][int(t == 1)] for t in jt)
                + model.nj * (OPS["joint_fk"] + OPS["joint_drive"] + OPS["joint_inward"]
                              + OPS["joint_outward"] + OPS["joint_euler"])
@@ -339,13 +451,15 @@ def _time_cuda(fn, iters: int, warmup: int) -> float:
 
 
 def phase_time(name: str, device) -> dict:
-    """The kernel on `name`'s training inputs (no torque rows, as VecEnv
-    builds it), ms per control step."""
+    """The kernel on `name`'s training inputs (torque rows of the task's
+    sensor bodies, as VecEnv builds it), ms per control step."""
     task = _task(name, device)
     m = task.model
     hf = task.ground_height_fn() if hasattr(task, "ground_height_fn") else None
+    attractors = getattr(task, "attractors", ())
     step = fused.build_fused_step_fn(m, task.sim_params, ground=hf if hf is not None else 0.0,
-                                     need_torque=False)
+                                     attractors=attractors,
+                                     need_torque=getattr(task, "net_torque_bodies", None) or False)
     params, q, qd, ctrl, wrench = random_inputs(task, np.random.default_rng(SEED + 1), device)
     packed = step.pack(params, q, qd, ctrl, wrench)
     kernel_ms = _time_cuda(lambda: step.launch(packed), iters=200, warmup=20)
@@ -355,7 +469,8 @@ def phase_time(name: str, device) -> dict:
     # heightfield the 4 table words each candidate's plane gathers
     nc = len(fused.contact.candidates(m)["geom"])
     nbytes = 4 * B * (step.rows["total"] + step.out_rows + (4 * nc if hf is not None else 0))
-    flops = B * kernel_ops_per_env(m, step.n_steps, heightfield=hf is not None)
+    flops = B * kernel_ops_per_env(m, step.n_steps, heightfield=hf is not None,
+                                   attractors=attractors)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / FP32_FLOP_PER_S * 1e3
     out = dict(ms=kernel_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
@@ -414,17 +529,17 @@ def main() -> None:
     device = torch.device("cuda")
     phase_build()
     max_err = phase_compare(device)
-    timing = {mode: phase_time(name, device)
-              for mode, name in (("flat", "Ant"), ("heightfield", "AnymalTerrain"))}
-    train = {mode: phase_train(name, device, dev_info["kind"])
-             for mode, name in (("flat", "Ant"), ("heightfield", "AnymalTerrain"))}
+    modes = (("flat", "Ant"), ("heightfield", "AnymalTerrain"), ("pairs", "BallBalance"))
+    timing = {mode: phase_time(name, device) for mode, name in modes}
+    train = {mode: phase_train(name, device, dev_info["kind"]) for mode, name in modes}
     kernels = [dict(
         name=f"fused_step[{mode}]", route="cuda",
         source="thormang_isaacgym_tpu_torch/csrc/fused_step.cu",
         replaces=REPLACES[mode], launches=train[mode]["launches"],
         max_abs_err=max_err[mode], ms=timing[mode]["ms"], plain_ms=timing[mode]["plain_ms"],
-        bound_ms=timing[mode]["bound_ms"], bound_by=timing[mode]["bound_by"], library_ms=None)
-        for mode in ("flat", "heightfield")]
+        bound_ms=timing[mode]["bound_ms"], bound_by=timing[mode]["bound_by"], library_ms=None,
+        **({"also_replaces": ALSO_REPLACES[mode]} if mode in ALSO_REPLACES else {}))
+        for mode, _ in modes]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_info["kind"],
                                              "count": dev_info["count"]}}), flush=True)

@@ -8,7 +8,11 @@ table layout and packing are checked without a GPU. On a machine with a card
 there is none). The heightfield mode is held against its plain twin (ground
 planes sampled at the step's input q, frozen across the substeps) on Anymal
 over a TerrainGrid and on a single cylinder over a slope, whose rim shift
-pins the sampling point (the candidate before the shift). Tolerances of
+pins the sampling point (the candidate before the shift). The pair mode
+(actor-pair contact and attractors) is held against its plain twin on
+BallBalance (the ball resting in the tray or pressed into a leg) and on the
+pair-capsule scene of tests/test_fused.py (sphere-capsule and capsule-capsule
+pairs against a fixed bar), and on a body held by two attractors. Tolerances of
 tests/test_fused.py: q atol=rtol 2e-3, qd atol=rtol 2e-2, net atol 1.0 /
 rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine
 without it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
@@ -23,8 +27,11 @@ import torch
 
 from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield, TerrainGrid
 from thormang_isaacgym_tpu_torch.models import load_urdf
+from thormang_isaacgym_tpu_torch.models.scene import compose
 from thormang_isaacgym_tpu_torch.ops import fused
+from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
+from thormang_isaacgym_tpu_torch.tasks import ball_balance as bb
 from thormang_isaacgym_tpu_torch.tasks.ant import Ant
 from thormang_isaacgym_tpu_torch.tasks.anymal import Anymal
 from thormang_isaacgym_tpu_torch.tasks.cartpole import Cartpole
@@ -59,6 +66,118 @@ CYL_URDF = """
     <collision><geometry><cylinder radius="0.1" length="0.08"/></geometry></collision>
   </link>
 </robot>"""
+# the pair-capsule scene of tests/test_fused.py: a ball and two capsules on a
+# fixed horizontal capsule bar (pairs of the kinds sphere-capsule and capcap)
+PAIR_BALL = """
+<robot name="ball"><link name="b"><inertial><mass value="0.3"/>
+  <inertia ixx="0.0005" iyy="0.0005" izz="0.0005" ixy="0" ixz="0" iyz="0"/>
+  </inertial>
+  <collision><geometry><sphere radius="0.05"/></geometry></collision>
+</link></robot>"""
+PAIR_CAP = """
+<robot name="cap"><link name="c"><inertial><mass value="0.4"/>
+  <inertia ixx="0.001" iyy="0.001" izz="0.0004" ixy="0" ixz="0" iyz="0"/>
+  </inertial>
+  <collision><geometry><capsule radius="0.04" length="0.2"/></geometry>
+  </collision>
+</link></robot>"""
+PAIR_BAR = """
+<robot name="bar"><link name="t"><inertial><mass value="10.0"/>
+  <inertia ixx="1" iyy="1" izz="1" ixy="0" ixz="0" iyz="0"/></inertial>
+  <collision><geometry><capsule radius="0.08" length="0.8"/></geometry>
+  </collision>
+</link></robot>"""
+PAIR_POSES = ((0.0, 0.02, 0.78, 1, 0, 0, 0), (-0.02, 0.05, 0.75, 0.9238795, 0, 0.3826834, 0),
+              (0.04, 0.03, 0.80, 1, 0, 0, 0), (0, 0, 0.6, 0.7071068, 0, 0.7071068, 0))
+PAIR_SP = dict(dt=1 / 60, substeps=2, contact_stiffness=2e4, contact_damping=500.0)
+# one free body held by two attractors: at an off-centre point (the gains below
+# their clamps to the point's effective mass I_min / |p|^2) and at its origin
+# (the body mass; the gains clamped), above the ground
+HELD_URDF = """
+<robot name="held"><link name="body"><inertial><mass value="1.0"/>
+  <inertia ixx="0.01" iyy="0.02" izz="0.015" ixy="0" ixz="0" iyz="0"/></inertial>
+  <collision><geometry><sphere radius="0.1"/></geometry></collision>
+</link></robot>"""
+HELD_ATTRACTORS = ((0, (0.1, 0.0, 0.05), (0.3, -0.2, 0.6), 500.0, 5.0),
+                   (0, (0.0, 0.0, 0.0), (0.2, -0.1, 0.4), 2.0e4, 100.0))
+
+
+class _Held:
+    attractors = HELD_ATTRACTORS
+
+
+def pair_capsule_q(rng, n):
+    """(n, 10 + 11) states of the pair-capsule scene: its poses with 1 cm of
+    noise; in every fourth env capsule A hangs over the bar's end, so the
+    closest point of the bar's axis is its end point and capsule A's is
+    found again from it (the capsule-capsule narrowphase's second pass)."""
+    q = np.tile(np.concatenate(PAIR_POSES[:3]), (n, 1))
+    q += rng.normal(size=q.shape) * 0.01 * np.tile([1, 1, 1, 0, 0, 0, 0], 3)
+    q[::4, 7:10] = [-0.45, 0.0, 0.68]
+    return q
+
+
+def pair_capsule_scene(load, compose_fn):
+    """The scene from either package's load_urdf and compose."""
+    return compose_fn([(load(PAIR_BALL), PAIR_POSES[0]), (load(PAIR_CAP), PAIR_POSES[1], "capA/"),
+                       (load(PAIR_CAP), PAIR_POSES[2], "capB/"),
+                       (load(PAIR_BAR, fix_base_link=True), PAIR_POSES[3])])
+
+
+def ball_balance_q(task, rng, n):
+    """(n, nq) BallBalance states with the pairs active: the tray near its
+    rest pose, the ball pressed by up to 1 cm into the tray top (every third
+    env from the first) or into a leg capsule (from the second), or its
+    centre inside the tray disk (from the third: nearer the face or nearer
+    the rim wall, alternately)."""
+    m = task.model
+    q = np.zeros((n, m.nq))
+    q[:, 2] = bb.TRAY_H + rng.uniform(-0.02, 0.02, n)
+    qr = rng.normal(size=(n, 4)) * 0.03 + [1.0, 0.0, 0.0, 0.0]
+    q[:, 3:7] = qr / np.linalg.norm(qr, axis=1, keepdims=True)
+    q[:, 10] = 1.0
+    q[:, 14:] = rng.uniform(-0.1, 0.1, (n, m.nj))
+    frames = forward_kinematics(m, torch.as_tensor(q, dtype=torch.float32),
+                                torch.zeros(n, m.nv))
+    pos, quat = frames.pos.double().numpy(), frames.quat.double().numpy()
+    press = rng.uniform(0.0, 0.01, n)
+    group = np.arange(n) % 3
+    # on the tray: a point of the top face, offset along the tray normal
+    xy = rng.uniform(-0.25, 0.25, (n, 2))
+    top = np.concatenate([xy, np.full((n, 1), 0.5 * bb.TRAY_THICK + bb.BALL_R)], 1)
+    top[:, 2] -= press
+    # inside the disk: the face nearer (|z| > 2 mm, r < 0.4) or the wall (r > 0.494)
+    wall = (np.arange(n) // 3) % 2 == 1
+    phi = rng.uniform(-np.pi, np.pi, n)
+    r = np.where(wall, rng.uniform(0.494, 0.499, n), rng.uniform(0.0, 0.4, n))
+    z = np.where(wall, rng.uniform(-0.003, 0.003, n),
+                 rng.choice([-1.0, 1.0], n) * rng.uniform(0.002, 0.008, n))
+    inside = np.stack([r * np.cos(phi), r * np.sin(phi), z], 1)
+    tb = task.tray_body
+    tray_pt = pos[:, tb] + _rot(quat[:, tb], np.where((group == 2)[:, None], inside, top))
+    # on a leg: the capsule axis point at a random fraction, offset sideways
+    legs = [g for g in m.geoms if m.actors[g.body] == 0 and g.gtype == 1]
+    gi = rng.integers(0, len(legs), n)
+    leg_pt = np.zeros((n, 3))
+    for i in range(n):
+        g = legs[gi[i]]
+        c = pos[i, g.body] + _rot(quat[i, g.body][None], np.asarray(g.pos)[None])[0]
+        axis = _rot(quat[i, g.body][None], np.array([[0, 0, 1.0]]))[0]
+        side = np.cross(axis, rng.normal(size=3))
+        side /= np.linalg.norm(side)
+        t = rng.uniform(-0.8, 0.8) * g.size[1]
+        leg_pt[i] = c + axis * t + side * (g.size[0] + bb.BALL_R - press[i])
+    q[:, 7:10] = np.where((group == 1)[:, None], leg_pt, tray_pt)
+    return q
+
+
+def _rot(qw, v):
+    """Rotate v (n, 3) by the wxyz quaternions qw (n, 4), numpy."""
+    w, u = qw[:, :1], qw[:, 1:]
+    t = 2.0 * np.cross(u, v)
+    return v + w * t + np.cross(u, t)
+
+
 _HOST_PRELUDE = """#include <algorithm>
 #include <cmath>
 #include <math.h>
@@ -74,15 +193,19 @@ static HostDim blockIdx, threadIdx, blockDim;
 """
 _HOST_LOOP = """
 extern "C" void host_launch(const int* mi, const float* mf, const float* hf, const float* in,
-                            float* out, int B) {
+                            float* out, int B, int pairs) {
   blockDim.x = 128;
   for (int b = 0; b < B; ++b) {
     blockIdx.x = b / 128;
     threadIdx.x = b % 128;
-    if (hf)
-      fused_step_kernel<true>(mi, mf, hf, in, out, B);
+    if (hf && pairs)
+      fused_step_kernel<true, true>(mi, mf, hf, in, out, B);
+    else if (hf)
+      fused_step_kernel<true, false>(mi, mf, hf, in, out, B);
+    else if (pairs)
+      fused_step_kernel<false, true>(mi, mf, hf, in, out, B);
     else
-      fused_step_kernel<false>(mi, mf, hf, in, out, B);
+      fused_step_kernel<false, false>(mi, mf, hf, in, out, B);
   }
 }
 """
@@ -101,13 +224,21 @@ def host_kernel(tmp_path_factory):
     subprocess.run([cxx, "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
                     "-o", str(so), str(cpp)], check=True)
     lib = ctypes.CDLL(str(so))
-    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
+    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
     lib.host_launch.restype = None
     return lib
 
 
 def _model(name):
     """(model, sim params, task or None, ground)."""
+    if name == "pair_capsule":
+        return pair_capsule_scene(load_urdf, compose), SimParams(**PAIR_SP), None, 0.0
+    if name == "held":
+        return load_urdf(HELD_URDF), SimParams(**PAIR_SP), _Held(), 0.0
+    if name == "ball_balance":
+        # the sim block of cfg/task/BallBalance.yaml: dt 0.01 s, 1 substep
+        task = bb.BallBalance(num_envs=B, device="cpu")
+        return task.model, dataclasses.replace(task.sim_params, dt=0.01, substeps=1), task, 0.0
     if name == "tiny":
         return load_urdf(TINY_URDF), SimParams(**TINY_SP), None, 0.0
     if name == "cylinder_slope":
@@ -134,7 +265,19 @@ def _ground(ground, device):
 def _inputs(name, model, task, device, ground=None):
     rng = np.random.default_rng(3)
     nj = model.nj
-    if name == "anymal_terrain":
+    if name == "ball_balance":
+        q = ball_balance_q(task, rng, B)
+        qd = rng.normal(size=(B, model.nv)) * 0.3
+    elif name == "pair_capsule":
+        q = pair_capsule_q(rng, B)
+        qd = rng.normal(size=(B, model.nv)) * 0.1
+    elif name == "held":
+        q = np.zeros((B, 7))
+        q[:, 0:3] = [0.2, -0.1, 0.5] + rng.normal(size=(B, 3)) * 0.1
+        qr = rng.normal(size=(B, 4)) * 0.3 + [1.0, 0.0, 0.0, 0.0]
+        q[:, 3:7] = qr / np.linalg.norm(qr, axis=1, keepdims=True)
+        qd = rng.normal(size=(B, model.nv))
+    elif name == "anymal_terrain":
         # bases over tile centres of every level and type, feet near the ground
         lev = rng.integers(0, ground.num_levels, B)
         typ = rng.integers(0, ground.num_types, B)
@@ -181,7 +324,7 @@ def _host_call(lib, step, params, q, qd, ctrl, wrench):
     hf = step.hf.table.data_ptr() if step.hf is not None else None
     out = torch.full((step.out_rows, q.shape[0]), float("nan"))
     lib.host_launch(mi.data_ptr(), mf.data_ptr(), hf, packed.data_ptr(), out.data_ptr(),
-                    q.shape[0])
+                    q.shape[0], int(step.pair_mode))
     return step.unpack(out, q.shape[0])
 
 
@@ -191,14 +334,20 @@ def _assert_close(a, b):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=atol, rtol=rtol)
 
 
-HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope"]
+HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
+              "ball_balance", "pair_capsule", "held"]
+
+
+def _step(model, sp, task, ground, device, need_torque=True):
+    return fused.build_fused_step_fn(model, sp, ground=_ground(ground, device),
+                                     attractors=getattr(task, "attractors", None),
+                                     need_torque=need_torque)
 
 
 @pytest.mark.parametrize("name", HOST_CASES)
 def test_kernel_source_on_host_matches_plain(host_kernel, name):
     model, sp, task, ground = _model(name)
-    step = fused.build_fused_step_fn(model, sp, ground=_ground(ground, "cpu"),
-                                     need_torque=(0,) if name == "ant" else True)
+    step = _step(model, sp, task, ground, "cpu", need_torque=(0,) if name == "ant" else True)
     params, q, qd, ctrl, w = _inputs(name, model, task, "cpu", ground)
     qa, qda, qb, qdb = q, qd, q, qd
     touched = 0.0
@@ -207,8 +356,8 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, w)
         _assert_close((qa, qda, na), (qb, qdb, nb_))
         touched = max(touched, float((nb_[..., :3].abs().amax(-1) > 0).float().mean()))
-    if name in ("anymal_terrain", "cylinder_slope"):
-        assert touched > 0.1                     # the ground is touched
+    if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule"):
+        assert touched > 0.1                     # the ground or a pair is touched
 
 
 def test_kernel_caps_raise():
@@ -236,7 +385,7 @@ def cuda_device():
 @pytest.mark.parametrize("name", HOST_CASES)
 def test_cuda_kernel_matches_plain(cuda_device, name):
     model, sp, task, ground = _model(name)
-    step = fused.build_fused_step_fn(model, sp, ground=_ground(ground, cuda_device))
+    step = _step(model, sp, task, ground, cuda_device)
     params, q, qd, ctrl, w = _inputs(name, model, task, cuda_device, ground)
     qa, qda, qb, qdb = q, qd, q, qd
     for _ in range(5):

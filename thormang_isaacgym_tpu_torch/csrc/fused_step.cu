@@ -1,16 +1,39 @@
 // Fused physics step for NVIDIA Hopper (sm_90a): the whole substep loop of a
-// tree articulation on flat ground or a heightfield, one thread per env.
+// tree articulation (or a forest of actors) on flat ground or a heightfield,
+// one thread per env.
 //
 // Replaces the TPU kernel `_make_kernel(...).kernel` launched by the
 // `pl.pallas_call` in `build_fused_step_fn` (thormang_isaacgym_tpu/ops/fused.py).
-// It computes what that kernel computes for feature blocks B1-B3 and B7:
+// It computes what that kernel computes for feature blocks B1-B5 and B7:
 // implicit joint drives, passive damping / dry friction / limit springs,
 // forward kinematics, penalty ground contact with stability-clamped
-// coefficients and tanh-regularised Coulomb friction, the three-sweep
-// Featherstone ABA with a 6x6 LDL^T solve per floating root, and
-// semi-implicit Euler with quaternion renormalisation, repeated n_steps times
-// inside the kernel. Tendons, attractors and actor pairs are not covered; the
-// Python wrapper refuses such models.
+// coefficients and tanh-regularised Coulomb friction, actor-pair contact of
+// the round kinds and world-point attractors, the three-sweep Featherstone
+// ABA with a 6x6 LDL^T solve per floating root, and semi-implicit Euler with
+// quaternion renormalisation, repeated n_steps times inside the kernel.
+// Fixed tendons (B4b) and the box kinds of the pair narrowphase (B6) are not
+// covered; the Python wrapper refuses such models.
+//
+// Actor pairs (B5, round kinds) and attractors (B4a). The pair table lists
+// each geom pair of different actors: sphere vs sphere / capsule / cylinder
+// (the TPU kernel's "sphere" kind without its box branch) and capsule vs
+// capsule ("capcap"). Each pair is one contact candidate, looped over and
+// applied at once, as the ground candidates are: nothing per pair is stored.
+// The explicit part (spring kn_eff depth with kn_eff = min(kn, 0.25 m_red /
+// h^2) and the depenetration bound, minus D vn with D = h kn + kd, plus the
+// regularised-Coulomb friction) sums into a per-pair-body wrench; the
+// implicit reaction to the new velocity sums into a per-pair-body added
+// inertia (M_n - M_t) u u^T + M_t U U^T (the TPU kernel's _symI_rank1_add and
+// _symI_G_add), which joins IA after the body's own inertia. Both sums are
+// kept apart and added once, so they round as the plain version's dIA and
+// f_pair do. Sphere vs cylinder computes both the inside normal (face or
+// wall, whichever is nearer) and the outside one, then selects. Attractors
+// pull a body point toward a world target with kp, kd clamped to the point's
+// effective mass (the body mass, or I_min / |p|^2 when smaller). The blocks
+// are the template parameter kPA: the instances without them are the flat
+// and heightfield kernels as they were (167 and 163 registers, 20,864- and
+// 22,400-byte stacks on sm_90a); the flat instance with them uses 241
+// registers and a 22,592-byte stack (ptxas -v).
 //
 // Heightfield ground (B7). The TPU kernel reads, per contact candidate, a
 // local ground plane z = c + gx x + gy y that a separate sampler computed at
@@ -53,8 +76,11 @@
 // 2 substeps: 1.86 us at 67 TFLOP/s). AnymalTerrain (474 input + 76 output
 // rows, 4 table words per candidate; 4 substeps of 21.9k operations plus 820
 // for the planes) is bound by operations: 5.41 us for 88.5k operations per
-// env against 3.08 us for 10.3 MB. Neither bound is close (0.12 and 0.39 ms
-// measured on an H100 at 700 W): this simple design is bound by latency. q, qd and the 21-float articulated inertias live in per-thread
+// env against 3.08 us for 10.3 MB. BallBalance in the pair instance (287
+// input + 71 output rows; 1 substep of 18.8k operations, 5.2k of them for the
+// 7 pairs) is bound by bytes: 1.75 us for 5.9 MB. No bound is close (0.12,
+// 0.37-0.39 and 0.097 ms measured on an H100 at 700 W): this simple design is
+// bound by latency. q, qd and the 21-float articulated inertias live in per-thread
 // local memory (spills are accepted), 4096 envs make only 32 blocks of 128
 // threads (32 of 132 SMs busy), and the per-env model parameters are re-read
 // from the input slab in every substep. What it leaves on the table: smaller
@@ -76,6 +102,10 @@ constexpr int kHeader = 48;     // ints / floats of header in the two tables
 constexpr int kMaxBodies = 64;  // MAX_BODIES in ops/fused.py
 constexpr int kMaxRoots = 8;    // MAX_ROOTS in ops/fused.py
 constexpr int kMaxCands = 128;  // MAX_CANDIDATES in ops/fused.py
+constexpr int kMaxPairBodies = 16;  // MAX_PAIR_BODIES in ops/fused.py
+constexpr int kPairInts = 6;    // per pair: geom a, geom b, body a, body b, kind, geom type of b
+constexpr int kPairFloats = 19; // per pair: sizes a (2), b (2), r_a + r_b, geom poses a, b (7 + 7)
+constexpr int kAttrFloats = 9;  // per attractor: local point, target, kp, kd, |p|^2 + 1e-6 or 0
 constexpr float kLockBig = 1e12f;
 constexpr float kJointFrictionVel = 0.05f;
 
@@ -193,6 +223,33 @@ __device__ __forceinline__ void symI_rank1_sub(SymI& I, const float* U, float in
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) I.B[3 * i + j] -= (U[i] * U[3 + j]) * invD;
 }
+// I += M u u^T (upper triangles of A and C, all of B)
+__device__ __forceinline__ void symI_rank1_add(SymI& I, const float* u, float M) {
+  const int si[6] = {0, 0, 0, 1, 1, 2}, sj[6] = {0, 1, 2, 1, 2, 2};
+  float Mu[6];
+  for (int k = 0; k < 6; ++k) Mu[k] = M * u[k];
+  for (int k = 0; k < 6; ++k) {
+    I.A[k] += Mu[si[k]] * u[sj[k]];
+    I.C[k] += Mu[3 + si[k]] * u[3 + sj[k]];
+  }
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) I.B[3 * i + j] += Mu[i] * u[3 + j];
+}
+// I += M U U^T with U = [skew(r); I3]:
+// [[M (|r|^2 I - r r^T), M skew(r)], [M skew(r)^T, M I]]
+__device__ __forceinline__ void symI_G_add(SymI& I, V3 r, float M) {
+  const float Mrr = M * dot(r, r);
+  const float Mr0 = M * r.x, Mr1 = M * r.y, Mr2 = M * r.z;
+  I.A[0] += Mrr - Mr0 * r.x; I.A[1] -= Mr0 * r.y; I.A[2] -= Mr0 * r.z;
+  I.A[3] += Mrr - Mr1 * r.y; I.A[4] -= Mr1 * r.z; I.A[5] += Mrr - Mr2 * r.z;
+  I.B[1] -= Mr2; I.B[2] += Mr1; I.B[3] += Mr2; I.B[5] -= Mr0; I.B[6] -= Mr1; I.B[7] += Mr0;
+  I.C[0] += M; I.C[3] += M; I.C[5] += M;
+}
+__device__ __forceinline__ void symI_add(SymI& I, const SymI& D) {
+  for (int k = 0; k < 6; ++k) { I.A[k] += D.A[k]; I.C[k] += D.C[k]; }
+  for (int k = 0; k < 9; ++k) I.B[k] += D.B[k];
+}
+
 // P += Y I Y^T with Y = [[R, skew(p) R], [0, R]] (child -> parent)
 __device__ void symI_add_to_parent(const float* R, V3 p, const SymI& I, SymI& P) {
   float SkR[9] = {p.y * R[6] - p.z * R[3], p.y * R[7] - p.z * R[4], p.y * R[8] - p.z * R[5],
@@ -275,8 +332,9 @@ __device__ __forceinline__ void hf_plane(const float* hf, int H, int W, float hs
   out[2] = gy;
 }
 
-// kHF: heightfield ground (the launcher picks it when it is given a table)
-template <bool kHF>
+// kHF: heightfield ground (the launcher picks it when it is given a table);
+// kPA: actor pairs and attractors (the launcher picks it on the wrapper's flag)
+template <bool kHF, bool kPA>
 __global__ void __launch_bounds__(128)
 fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
                   const float* __restrict__ hf, const float* __restrict__ in,
@@ -290,6 +348,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const int nb = mi[0], nj = mi[1], nr = mi[2], nf = mi[3], nq = mi[4], nv = mi[5];
   const int nc = mi[7], ntq = mi[8], n_steps = mi[9];
   const int hf_H = mi[37], hf_W = mi[38];
+  const int n_pairs = mi[39], n_attr = mi[40], n_pair_bodies = mi[41];
   Rows rw;
   {
     int* dst = reinterpret_cast<int*>(&rw);
@@ -302,12 +361,17 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const int* cand_geom = cand_body + nc;
   const int* cand_rim = cand_geom + nc;
   const int* tq_slot = cand_rim + nc;
+  const int* pair_i = tq_slot + nb;                  // kPairInts per pair
+  const int* pair_slot = pair_i + kPairInts * n_pairs;  // per body: accumulator slot or -1
+  const int* attr_body = pair_slot + nb;
 
   const float h = mf[0], h2 = mf[1], ground_z = mf[2], kn_max = mf[3], kd_max = mf[4];
   const float fric_vel = mf[5], plane_fric = mf[6], lim_k = mf[7], lim_d = mf[8];
   const float damp_l = mf[9], damp_a = mf[10], max_v = mf[11], max_dep_v = mf[12];
   const float lim_diag = mf[13];  // h^2 lim_k + h lim_d
   const float hf_hs = mf[14], hf_ox = mf[15], hf_oy = mf[16];
+  // pair contact: D = h kn + kd, D max_dep, h D, max_dep / 2
+  const float D_imp = mf[17], D_maxdep = mf[18], hD = mf[19], half_maxdep = mf[20];
   const float* jaxis = mf + kHeader;
   const float* jpos = jaxis + 3 * nj;
   const float* jquat = jpos + 3 * nj;
@@ -316,6 +380,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const float* cand_gquat = cand_gpos + 3 * nc;
   const float* cand_off = cand_gquat + 4 * nc;
   const float* cand_r = cand_off + 3 * nc;
+  const float* pair_f = cand_r + nc;                 // kPairFloats per pair
+  const float* attr_f = pair_f + kPairFloats * n_pairs;  // kAttrFloats per attractor
 
 #define RD(r) in[(size_t)(r) * B + b]
 
@@ -336,6 +402,9 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   V3 pl[MAXB];
   float U[MAXB][6], invD[MAXB], uj[MAXB], tau[MAXB], diag[MAXB];
   float gpl[kHF ? 3 * kMaxCands : 1];  // heightfield mode: (c, gx, gy) per candidate
+  // pair mode, per pair body: the pair wrench [torque, force] and added inertia
+  S6 pacc[kPA ? kMaxPairBodies : 1];
+  SymI dacc[kPA ? kMaxPairBodies : 1];
 
   for (int step = 0; step < n_steps; ++step) {
     const float* jq = q + 7 * nf;
@@ -479,6 +548,148 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       }
     }
 
+    if (kPA) {
+      // the world wrench joins here, before the pairs (the plain version's order)
+      for (int bi = 0; bi < nb; ++bi) {
+        pA[bi].a = {pA[bi].a.x + RD(rw.wrench + 6 * bi), pA[bi].a.y + RD(rw.wrench + 6 * bi + 1),
+                    pA[bi].a.z + RD(rw.wrench + 6 * bi + 2)};
+        pA[bi].b = {pA[bi].b.x + RD(rw.wrench + 6 * bi + 3), pA[bi].b.y + RD(rw.wrench + 6 * bi + 4),
+                    pA[bi].b.z + RD(rw.wrench + 6 * bi + 5)};
+      }
+      for (int s = 0; s < n_pair_bodies; ++s) {
+        pacc[s] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+        for (int k = 0; k < 6; ++k) { dacc[s].A[k] = 0.0f; dacc[s].C[k] = 0.0f; }
+        for (int k = 0; k < 9; ++k) dacc[s].B[k] = 0.0f;
+      }
+      // ---- actor pairs: narrowphase, explicit spring + friction, implicit reaction ----
+      for (int k = 0; k < n_pairs; ++k) {
+        const int* pi = pair_i + kPairInts * k;
+        const float* pf = pair_f + kPairFloats * k;
+        const int ga = pi[0], gb = pi[1], ba = pi[2], bb = pi[3];
+        const Q4 qa = qmul(quat_w[ba], {pf[8], pf[9], pf[10], pf[11]});
+        const V3 pa = add(pos_w[ba], qrot(quat_w[ba], {pf[5], pf[6], pf[7]}));
+        const Q4 qb = qmul(quat_w[bb], {pf[15], pf[16], pf[17], pf[18]});
+        const V3 pb = add(pos_w[bb], qrot(quat_w[bb], {pf[12], pf[13], pf[14]}));
+        V3 n, cp;
+        float depth;
+        if (pi[4] == 0 && pi[5] == 3) {
+          // sphere (a) vs cylinder (b), a flat disk: closest point in its frame;
+          // inside, the nearer of face and wall; both sides computed, then selected
+          const float ra = pf[0], R = pf[2], hw = pf[3];
+          const V3 l = qrotinv(qb, sub(pa, pb));
+          const float r_xy = sqrtf(l.x * l.x + l.y * l.y) + 1e-9f;
+          const float sc = fminf(R / r_xy, 1.0f);
+          const V3 cl = {l.x * sc, l.y * sc, clampf(l.z, -hw, hw)};
+          const V3 d_out = sub(l, cl);
+          const float dist_out = sqrtf(dot(d_out, d_out)) + 1e-9f;
+          const bool inside = (r_xy < R) && (fabsf(l.z) < hw);
+          const float face_gap = hw - fabsf(l.z), wall_gap = R - r_xy;
+          const float sgn = l.z > 0.0f ? 1.0f : (l.z < 0.0f ? -1.0f : 0.0f);
+          const V3 n_face = {0.0f, 0.0f, sgn};
+          const V3 n_wall = {l.x / r_xy, l.y / r_xy, 0.0f};
+          const V3 n_in = face_gap < wall_gap ? n_face : n_wall;
+          const V3 n_out = {d_out.x / dist_out, d_out.y / dist_out, d_out.z / dist_out};
+          const V3 o = qrot(qb, inside ? n_in : n_out);
+          depth = inside ? ra + fminf(face_gap, wall_gap) : ra - dist_out;
+          n = {-o.x, -o.y, -o.z};
+          cp = add(pa, scl(n, ra));
+        } else {
+          // sphere vs sphere / capsule, capsule vs capsule: closest points
+          V3 c1 = pa, c2 = pb;
+          if (pi[4] == 0 && pi[5] == 1) {
+            const float hl = pf[3];
+            const V3 axis = qrot(qb, {0.0f, 0.0f, 1.0f});
+            const float t = clampf(dot(sub(pa, pb), axis), -hl, hl);
+            c2 = add(pb, scl(axis, t));
+          } else if (pi[4] == 1) {
+            const float h1 = pf[1], h2c = pf[3];
+            const V3 a1 = qrot(qa, {0.0f, 0.0f, 1.0f}), a2 = qrot(qb, {0.0f, 0.0f, 1.0f});
+            const V3 P1 = sub(pa, scl(a1, h1)), Q1 = add(pa, scl(a1, h1));
+            const V3 P2 = sub(pb, scl(a2, h2c)), Q2 = add(pb, scl(a2, h2c));
+            const V3 d1 = sub(Q1, P1), d2 = sub(Q2, P2), r0 = sub(P1, P2);
+            const float a_ = dot(d1, d1) + 1e-9f, e_ = dot(d2, d2) + 1e-9f;
+            const float b_ = dot(d1, d2), c_ = dot(d1, r0), f_ = dot(d2, r0);
+            const float denom = a_ * e_ - b_ * b_;
+            const bool nz = fabsf(denom) > 1e-9f;
+            float s = nz ? clampf((b_ * f_ - c_ * e_) / denom, 0.0f, 1.0f) : 0.0f;
+            const float t = clampf((b_ * s + f_) / e_, 0.0f, 1.0f);
+            s = clampf((b_ * t - c_) / a_, 0.0f, 1.0f);
+            c1 = add(P1, scl(d1, s));
+            c2 = add(P2, scl(d2, t));
+          }
+          const V3 d = sub(c2, c1);
+          const float dist = sqrtf(dot(d, d)) + 1e-9f;
+          n = {d.x / dist, d.y / dist, d.z / dist};
+          depth = pf[4] - dist;
+          cp = add(c1, scl(n, pf[0] - depth * 0.5f));
+        }
+        const bool active = depth > 0.0f;
+        const float act = active ? 1.0f : 0.0f;
+        const V3 arm_a = sub(cp, pos_w[ba]), arm_b = sub(cp, pos_w[bb]);
+        const V3 va = add(qrot(quat_w[ba], v[ba].b), cross(qrot(quat_w[ba], v[ba].a), arm_a));
+        const V3 vb = add(qrot(quat_w[bb], v[bb].b), cross(qrot(quat_w[bb], v[bb].a), arm_b));
+        const V3 vrel = sub(vb, va);
+        const float vn = dot(vrel, n);
+        const float m_a = RD(rw.mass + ba), m_b = RD(rw.mass + bb);
+        const float m_red = m_a * m_b / (m_a + m_b);
+        const float kn_eff = fminf(0.25f * m_red / h2, kn_max);
+        const float spring = fminf(kn_eff * depth, D_maxdep);
+        const float fn = fmaxf(spring - D_imp * vn, 0.0f) * act;
+        const float cap = vn > 0.0f ? m_red * fmaxf(max_dep_v - vn, 0.0f) / h + D_maxdep : INFINITY;
+        const float fn_exp = fminf(fn, cap);
+        const V3 vt = sub(vrel, scl(n, vn));
+        const float vt_norm = sqrtf(dot(vt, vt));
+        const float mu = sqrtf(RD(rw.geom_fric + ga) * RD(rw.geom_fric + gb));
+        const float c_t = mu * fn_exp / fmaxf(vt_norm, fric_vel);
+        const V3 f_on_b = add(scl(n, fn_exp), scl(scl(vt, -c_t), act));
+        const int sa = pair_slot[ba], sb = pair_slot[bb];
+        pacc[sa].a = add(pacc[sa].a, cross(arm_a, {-f_on_b.x, -f_on_b.y, -f_on_b.z}));
+        pacc[sa].b = sub(pacc[sa].b, f_on_b);
+        pacc[sb].a = add(pacc[sb].a, cross(arm_b, f_on_b));
+        pacc[sb].b = add(pacc[sb].b, f_on_b);
+        // implicit velocity reaction, gated off while separating fast
+        const float gate = (active && vn < half_maxdep) ? 1.0f : 0.0f;
+        const float M_n = hD * gate, M_t = h * c_t * act;
+        for (int side = 0; side < 2; ++side) {
+          const int body = side ? bb : ba;
+          const V3 r_l = qrotinv(quat_w[body], sub(cp, pos_w[body]));
+          const V3 n_l = qrotinv(quat_w[body], n);
+          const V3 rn = cross(r_l, n_l);
+          const float u[6] = {rn.x, rn.y, rn.z, n_l.x, n_l.y, n_l.z};
+          SymI& D = dacc[pair_slot[body]];
+          symI_G_add(D, r_l, M_t);
+          symI_rank1_add(D, u, M_n - M_t);
+        }
+      }
+      for (int bi = 0; bi < nb; ++bi) {
+        const int s = pair_slot[bi];
+        if (s < 0) continue;
+        pA[bi] = add6(pA[bi], pacc[s]);
+        net_f[bi] = add(net_f[bi], pacc[s].b);
+        net_t[bi] = add(net_t[bi], pacc[s].a);
+      }
+      // ---- attractors: world-point springs, gains clamped to the point's
+      // effective mass; they enter neither net force nor net torque ----
+      for (int k = 0; k < n_attr; ++k) {
+        const int ab = attr_body[k];
+        const float* af = attr_f + kAttrFloats * k;
+        const Q4 bq = quat_w[ab];
+        const V3 arm = qrot(bq, {af[0], af[1], af[2]});
+        const V3 wp = add(pos_w[ab], arm);
+        const V3 arm_w = sub(wp, pos_w[ab]);
+        const V3 vp = add(qrot(bq, v[ab].b), cross(qrot(bq, v[ab].a), arm_w));
+        const float m_lin = RD(rw.mass + ab);
+        const float I_min = fminf(fminf(RD(rw.inertia + 6 * ab), RD(rw.inertia + 6 * ab + 3)),
+                                  RD(rw.inertia + 6 * ab + 5));
+        const float m_eff = af[8] > 0.0f ? fminf(m_lin, I_min / af[8]) : m_lin;
+        const float kp_c = fminf(0.25f * m_eff / h2, af[6]);
+        const float kd_c = fminf(0.5f * m_eff / h, af[7]);
+        const V3 F = sub(scl(sub({af[3], af[4], af[5]}, wp), kp_c), scl(vp, kd_c));
+        pA[ab].a = add(pA[ab].a, cross(arm_w, F));
+        pA[ab].b = add(pA[ab].b, F);
+      }
+    }
+
     // ---- drives + passive joint forces (implicit form) ----
     for (int j = 0; j < nj; ++j) {
       const float x = jq[j], xd = jqd[j];
@@ -511,12 +722,16 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       for (int k = 0; k < 6; ++k) I6[k] = RD(rw.inertia + 6 * bi + k);
       inertia_body(m, com, I6, IA[bi]);
       const S6 Iv = symI_mul(IA[bi], v[bi]);
+      if (kPA && pair_slot[bi] >= 0) symI_add(IA[bi], dacc[pair_slot[bi]]);
       const V3 gl = scl(qrotinv(quat_w[bi], gvec), RD(rw.gscale + bi));
       const V3 mg = scl(gl, m);
-      const V3 w_ang = {pA[bi].a.x + RD(rw.wrench + 6 * bi), pA[bi].a.y + RD(rw.wrench + 6 * bi + 1),
-                        pA[bi].a.z + RD(rw.wrench + 6 * bi + 2)};
-      const V3 w_lin = {pA[bi].b.x + RD(rw.wrench + 6 * bi + 3), pA[bi].b.y + RD(rw.wrench + 6 * bi + 4),
-                        pA[bi].b.z + RD(rw.wrench + 6 * bi + 5)};
+      // pair mode: pA already holds contact + wrench + pairs + attractors
+      const V3 w_ang = kPA ? pA[bi].a
+                           : V3{pA[bi].a.x + RD(rw.wrench + 6 * bi), pA[bi].a.y + RD(rw.wrench + 6 * bi + 1),
+                                pA[bi].a.z + RD(rw.wrench + 6 * bi + 2)};
+      const V3 w_lin = kPA ? pA[bi].b
+                           : V3{pA[bi].b.x + RD(rw.wrench + 6 * bi + 3), pA[bi].b.y + RD(rw.wrench + 6 * bi + 4),
+                                pA[bi].b.z + RD(rw.wrench + 6 * bi + 5)};
       const S6 cf = cross_force(v[bi], Iv);
       pA[bi] = {sub(sub(cf.a, qrotinv(quat_w[bi], w_ang)), cross(com, mg)),
                 sub(sub(cf.b, qrotinv(quat_w[bi], w_lin)), mg)};
@@ -643,9 +858,10 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 
 // Plain C entry point for ctypes. Returns cudaGetLastError() after the
 // launch (0 = success); the launch is asynchronous on `stream`.
-// `hf` is the heightfield table in heightfield mode, else null.
+// `hf` is the heightfield table in heightfield mode, else null; `pairs` != 0
+// picks the instance with the actor-pair and attractor blocks.
 extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
-                                 const void* in, void* out, int B, void* stream) {
+                                 const void* in, void* out, int B, int pairs, void* stream) {
   if (B <= 0) return 0;
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
@@ -655,9 +871,13 @@ extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
   const float* hf_ = static_cast<const float*>(hf);
   const float* in_ = static_cast<const float*>(in);
   float* out_ = static_cast<float*>(out);
-  if (hf_)
-    fused_step_kernel<true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+  if (hf_ && pairs)
+    fused_step_kernel<true, true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+  else if (hf_)
+    fused_step_kernel<true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+  else if (pairs)
+    fused_step_kernel<false, true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
   else
-    fused_step_kernel<false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+    fused_step_kernel<false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
   return static_cast<int>(cudaGetLastError());
 }

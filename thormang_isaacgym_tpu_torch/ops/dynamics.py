@@ -28,13 +28,17 @@ _LOCK_BIG = 1e12
 def aba(model: RobotModel, params: ModelParams, q: torch.Tensor,
         qd: torch.Tensor, tau: torch.Tensor, f_ext: torch.Tensor,
         gravity: torch.Tensor, precomputed=None,
-        extra_diag: torch.Tensor | None = None) -> torch.Tensor:
+        extra_diag: torch.Tensor | None = None,
+        extra_body_inertia: torch.Tensor | None = None) -> torch.Tensor:
     """qdd (B, nv) = [root accelerations, joint qdd].
 
     tau (B, nj) joint forces; f_ext (B, nb, 6) link-frame spatial forces about
     the link origin; gravity (B, 3); params batched (B, ...);
     precomputed = (pos_local, quat_local, quat_w) shares work with FK;
-    extra_diag (B, nj) joins the joint-space diagonal D.
+    extra_diag (B, nj) joins the joint-space diagonal D;
+    extra_body_inertia (B, nb, 6, 6) link frame joins each body's spatial
+    inertia before the inward sweep (the implicit pair-contact reaction,
+    ops/collide.py).
     """
     c = consts(model, q.device)
     S_all = c["S"]
@@ -69,6 +73,8 @@ def aba(model: RobotModel, params: ModelParams, q: torch.Tensor,
     # ---- body spatial inertias + bias forces ----
     mass, com, I_com = params.body_mass, params.body_com, params.body_inertia
     IA_full = sp.inertia_matrix(mass, com, I_com)       # (B, nb, 6, 6)
+    if extra_body_inertia is not None:
+        IA_full = IA_full + extra_body_inertia
     Iv = sp.inertia_mul(mass, com, I_com, v)
     g_local = Q.rotate_inv(quat_w, gravity[:, None, :].expand(B, nb, 3))
     g_local = g_local * params.body_gravity_scale[..., None]

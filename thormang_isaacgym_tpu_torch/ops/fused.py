@@ -13,6 +13,13 @@ candidates, torque-body slots, sim constants) goes in as two small device
 tables, one int32 and one float32, so one compiled kernel serves every model
 under the caps below.
 
+Multi-actor scenes add the actor-pair blocks (B5 of the TPU kernel, round
+kinds: sphere vs sphere / capsule / cylinder, capsule vs capsule) and world-point
+attractors (B4): a pair table and an attractor table follow the contact
+candidates in the two tables, and the kernel's pair instance loops over them
+(nothing per pair is stored per thread; the pair wrench and the added inertia
+are summed per pair body). Box kinds and fixed tendons raise.
+
 The ground is a constant height or a ``Heightfield`` (block B7 of the TPU
 kernel). Over a heightfield the kernel samples, at the step's input q, a
 local plane z = c + gx x + gy y under each contact candidate and holds it
@@ -44,7 +51,7 @@ import torch
 
 from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield
 from thormang_isaacgym_tpu_torch.models.robot import RobotModel
-from thormang_isaacgym_tpu_torch.ops import contact
+from thormang_isaacgym_tpu_torch.ops import collide, contact
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import SimParams, build_plain_step_fn, check_supported
 
@@ -54,12 +61,18 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
-# caps of the generic kernel (kMaxBodies, kMaxRoots in csrc/fused_step.cu;
-# the contact candidates are looped over, not stored per thread)
+# caps of the generic kernel (kMaxBodies, kMaxRoots, kMaxCands,
+# kMaxPairBodies in csrc/fused_step.cu; contact and pair candidates and
+# attractors are looped over, not stored per thread)
 MAX_BODIES = 64
 MAX_ROOTS = 8
 MAX_CANDIDATES = 128
+MAX_PAIR_BODIES = 16
+# the JAX package's runaway guard on the pair narrowphase (_MAX_PAIR_CANDIDATES)
+MAX_PAIR_CANDIDATES = 1024
+MAX_ATTRACTORS = 64
 _HEADER = 48
+_KIND = {"sphere": 0, "capcap": 1}
 
 _ROW_NAMES = ("q", "qd", "tp", "tv", "eff", "mass", "com", "inertia", "gscale",
               "armature", "damping", "friction", "lower", "upper", "vel_limit",
@@ -116,7 +129,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     lib = ctypes.CDLL(build_library().path)
     fn = lib.fused_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -167,21 +180,39 @@ def norm_torque_bodies(need_torque, nb: int) -> tuple:
     return tuple(sorted({int(b) for b in need_torque}))
 
 
-def check_caps(model: RobotModel) -> None:
+def pair_bodies(model: RobotModel) -> tuple:
+    """Sorted bodies that carry a geom of an actor pair."""
+    return tuple(sorted({model.geoms[i].body for ia, ib, _ in collide.pairs(model)
+                         for i in (ia, ib)}))
+
+
+def check_caps(model: RobotModel, attractors=()) -> None:
     """Raise NotImplementedError for a model above the kernel's caps."""
     nc = len(contact.candidates(model)["geom"])
-    if model.n_roots > MAX_ROOTS or nc > MAX_CANDIDATES or model.nb > MAX_BODIES:
+    npc = collide.pair_candidate_count(model)
+    npb, na = len(pair_bodies(model)), len(attractors or ())
+    if model.n_roots > MAX_ROOTS or nc > MAX_CANDIDATES or model.nb > MAX_BODIES \
+            or npc > MAX_PAIR_CANDIDATES or npb > MAX_PAIR_BODIES or na > MAX_ATTRACTORS:
         raise NotImplementedError(
             f"model {model.name!r} exceeds the fused kernel's caps "
             f"({model.nb} bodies / {MAX_BODIES}, {model.n_roots} roots / {MAX_ROOTS}, "
-            f"{nc} contact candidates / {MAX_CANDIDATES})")
+            f"{nc} contact candidates / {MAX_CANDIDATES}, {npc} pair candidates / "
+            f"{MAX_PAIR_CANDIDATES}, {npb} pair bodies / {MAX_PAIR_BODIES}, "
+            f"{na} attractors / {MAX_ATTRACTORS})")
 
 
 def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
-                  ground, tq_bodies: tuple):
+                  ground, tq_bodies: tuple, attractors=()):
     """The kernel's static model data: (int32 table, float32 table).
     `ground`: a constant height or a Heightfield (header ints 37-38: H, W;
-    floats 14-16: horizontal scale, origin x, y)."""
+    floats 14-16: horizontal scale, origin x, y). Actor pairs and
+    attractors: header ints 39-41 (pairs, attractors, pair bodies), floats
+    17-20 (D = h kn + kd, D max_dep, h D, max_dep / 2); after the candidate
+    rows, per pair (geom a, geom b, body a, body b, kind 0 sphere / 1
+    capcap, geom type of b) and (sizes of a and b, r_a + r_b, geom poses of
+    a and b in their bodies), a per-body pair-accumulator slot, and per
+    attractor (body) and (local point, target, kp, kd, |p|^2 + 1e-6, or 0
+    when |p|^2 <= 1e-6)."""
     cand = contact.candidates(model)
     nc = len(cand["geom"])
     nb, nj, nr = model.nb, model.nj, model.n_roots
@@ -189,18 +220,29 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
     hf = ground if isinstance(ground, Heightfield) else None
     ground_z = 0.0 if hf is not None else float(ground)
     H, W = hf.shape if hf is not None else (0, 0)
+    pairs = collide.pairs(model)
+    attractors = tuple(attractors or ())
+    pbodies = pair_bodies(model)
     head = [nb, nj, nr, model.n_floating, model.nq, model.nv, model.ng, nc,
             len(tq_bodies), n_steps] + [rows[n] for n in _ROW_NAMES] + [rows["total"]] \
-        + [H, W]
+        + [H, W, len(pairs), len(attractors), len(pbodies)]
     slot = np.full(nb, -1, np.int64)
     slot[list(tq_bodies)] = np.arange(len(tq_bodies))
+    pslot = np.full(nb, -1, np.int64)
+    pslot[list(pbodies)] = np.arange(len(pbodies))
+    g = model.geoms
+    pair_i = [[ia, ib, g[ia].body, g[ib].body, _KIND[kind], g[ib].gtype]
+              for ia, ib, kind in pairs]
     mi = np.concatenate([
         np.array(head + [0] * (_HEADER - len(head))),
         np.array(model.parent), np.array(model.joint_type),
         np.array(model.roots_floating, np.int64),
         cand["body"], cand["geom"], cand["rim"].astype(np.int64), slot,
+        np.array(pair_i, np.int64).reshape(-1), pslot,
+        np.array([a[0] for a in attractors], np.int64),
     ]).astype(np.int32)
     h = sp.dt / sp.substeps
+    D_imp = h * sp.contact_stiffness + sp.contact_damping
     fhead = [h, h * h, ground_z, sp.contact_stiffness, sp.contact_damping,
              sp.friction_vel, sp.plane_friction, sp.joint_limit_stiffness,
              sp.joint_limit_damping, 1.0 - sp.root_linear_damping * h,
@@ -209,9 +251,20 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
              h * h * sp.joint_limit_stiffness + h * sp.joint_limit_damping,
              hf.h_scale if hf is not None else 0.0,
              float(hf.origin[0]) if hf is not None else 0.0,
-             float(hf.origin[1]) if hf is not None else 0.0]
+             float(hf.origin[1]) if hf is not None else 0.0,
+             D_imp, D_imp * sp.max_depenetration_velocity, h * D_imp,
+             0.5 * sp.max_depenetration_velocity]
     base = np.array(model.root_base_pose if model.root_base_pose is not None
                     else [(0, 0, 0, 1, 0, 0, 0)] * nr, np.float64)
+    pair_f = []
+    for ia, ib, _ in pairs:
+        sa, sb = (tuple(float(x) for x in g[i].size) + (0.0,) for i in (ia, ib))
+        pair_f.append([sa[0], sa[1], sb[0], sb[1], sa[0] + sb[0],
+                       *g[ia].pos, *g[ia].quat, *g[ib].pos, *g[ib].quat])
+    attr_f = []
+    for _, local_p, target, kp, kd in attractors:
+        r2 = float(np.dot(np.asarray(local_p, np.float64), np.asarray(local_p, np.float64)))
+        attr_f.append([*local_p, *target, kp, kd, r2 + 1e-6 if r2 > 1e-6 else 0.0])
     mf = np.concatenate([
         np.array(fhead + [0.0] * (_HEADER - len(fhead))),
         np.array(model.joint_axis, np.float64).reshape(-1),
@@ -220,6 +273,8 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
         base.reshape(-1),
         cand["gpos"].reshape(-1), cand["gquat"].reshape(-1),
         cand["off"].reshape(-1), cand["r"],
+        np.array(pair_f, np.float64).reshape(-1),
+        np.array(attr_f, np.float64).reshape(-1),
     ]).astype(np.float32)
     return mi, mf
 
@@ -231,25 +286,29 @@ class FusedStep:
     wrench (B, nb, 6) world frame. net = [force | torque] of the last
     substep, torque zero outside the torque-sensor bodies. ``ground``: a
     constant height or a Heightfield, whose table must lie on the device
-    of the tensors the step is given. ``launches`` counts kernel launches
-    (CPU calls run the plain version and do not count)."""
+    of the tensors the step is given. ``attractors``: (body, local_p,
+    target, kp, kd) tuples. ``launches`` counts kernel launches (CPU calls
+    run the plain version and do not count)."""
 
     def __init__(self, model: RobotModel, sim_params: SimParams, *,
-                 ground=0.0, need_torque=True):
+                 ground=0.0, attractors=None, need_torque=True):
         self.model = model
         self.sim_params = sim_params
         self.n_steps = int(sim_params.substeps)
-        ground = check_supported(model, ground)
-        check_caps(model)
+        self.attractors = tuple(attractors or ())
+        ground = check_supported(model, ground, self.attractors)
+        check_caps(model, self.attractors)
+        # the kernel instance with the pair and attractor blocks
+        self.pair_mode = collide.has_pairs(model) or bool(self.attractors)
         self.hf = ground if isinstance(ground, Heightfield) else None
         self.tq_bodies = norm_torque_bodies(need_torque, model.nb)
         self.rows = make_rows(model)
         self.out_rows = model.nq + model.nv + 3 * model.nb + 3 * len(self.tq_bodies)
         self._tables = kernel_tables(model, sim_params, self.n_steps, ground,
-                                     self.tq_bodies)
+                                     self.tq_bodies, self.attractors)
         self._dev_tables = {}
         self._tq_idx = torch.tensor(self.tq_bodies, dtype=torch.long)
-        self._plain = build_plain_step_fn(model, sim_params, ground)
+        self._plain = build_plain_step_fn(model, sim_params, ground, self.attractors)
         self.sampler = ground_plane_sampler(model, self.hf) if self.hf is not None else None
         self.launches = 0
 
@@ -340,7 +399,7 @@ class FusedStep:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(mi_t.data_ptr(), mf_t.data_ptr(), hf_ptr, packed.data_ptr(),
-                     out.data_ptr(), B, stream)
+                     out.data_ptr(), B, int(self.pair_mode), stream)
         if err != 0:
             raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -355,8 +414,10 @@ class FusedStep:
 
 
 def build_fused_step_fn(model: RobotModel, sim_params: SimParams, *,
-                        ground=0.0, need_torque=True) -> FusedStep:
+                        ground=0.0, attractors=None, need_torque=True) -> FusedStep:
     """step(params, q, qd, ctrl, wrench) -> (q', qd', net), running
     sim_params.substeps substeps in one kernel launch; `ground` is a
-    constant height or a Heightfield."""
-    return FusedStep(model, sim_params, ground=ground, need_torque=need_torque)
+    constant height or a Heightfield; `attractors` (body, local_p, target,
+    kp, kd) tuples."""
+    return FusedStep(model, sim_params, ground=ground, attractors=attractors,
+                     need_torque=need_torque)

@@ -12,6 +12,12 @@ The ground is a constant height or an ``engine.terrain.Heightfield``. Over a
 heightfield the op path samples the surface (height and gradient) at every
 substep, as the JAX op path does; the fused kernel and its plain twin
 freeze a local plane per contact candidate for the whole control step.
+
+Multi-actor scenes (``models/scene.py``) collide between actors through
+``ops/collide.py`` (the round kinds: sphere vs sphere / capsule / cylinder,
+capsule vs capsule), whose implicit reaction joins the articulated inertia;
+world-point attractors pull body points toward fixed targets. The box kinds
+of the pair narrowphase and fixed tendons are not ported and raise.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 from thormang_isaacgym_tpu_torch.core import quat as Q
 from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield
 from thormang_isaacgym_tpu_torch.models.robot import ModelParams, RobotModel
+from thormang_isaacgym_tpu_torch.ops import collide as collide_mod
 from thormang_isaacgym_tpu_torch.ops import contact as contact_mod
 from thormang_isaacgym_tpu_torch.ops import dynamics as dyn
 from thormang_isaacgym_tpu_torch.ops.kinematics import (
@@ -62,12 +69,13 @@ def zero_controls(model: RobotModel, batch: int, device="cpu") -> Controls:
 
 
 def check_supported(model: RobotModel, ground=0.0, attractors=None):
-    """Raise for what the port does not cover yet; return the ground: a
-    constant height (float) or a Heightfield."""
-    if len({model.actors[g.body] for g in model.geoms}) > 1:
-        raise NotImplementedError("actor-pair contact (ops/collide.py) is not ported yet")
-    if attractors:
-        raise NotImplementedError("rigid-body attractors are not ported yet")
+    """Raise for what the port does not cover yet (actor pairs of a box
+    kind, fixed tendons, a callable ground); return the ground: a constant
+    height (float) or a Heightfield."""
+    collide_mod.check_round(model)
+    for a in attractors or ():
+        if len(a) != 5 or not 0 <= int(a[0]) < model.nb:
+            raise ValueError(f"attractor {a!r}: expected (body, local_p, target, kp, kd)")
     if getattr(model, "tendons", ()):
         raise NotImplementedError("fixed tendons are not ported yet")
     if isinstance(ground, Heightfield):
@@ -80,10 +88,12 @@ def check_supported(model: RobotModel, ground=0.0, attractors=None):
 def _substep(model: RobotModel, sp_: SimParams, params: ModelParams,
              q: torch.Tensor, qd: torch.Tensor, ctrl: Controls,
              body_wrench_w: torch.Tensor, ground_z: float = 0.0,
-             ground_grad_fn=None, planes=None):
+             ground_grad_fn=None, planes=None, attractors=None):
     """One physics substep for a batch of envs: (q', qd', net (B, nb, 6)).
     The ground: plane z = ground_z, or sloped (``ground_grad_fn`` sampled
-    here, or frozen per-candidate ``planes``; see ground_contact_forces)."""
+    here, or frozen per-candidate ``planes``; see ground_contact_forces).
+    net = [force | torque]: ground and actor-pair contact; the torque about
+    each body origin, without the wrench and the attractors."""
     h = sp_.dt / sp_.substeps
     B = q.shape[0]
     _, _, joint_q = split_q(model, q)
@@ -100,6 +110,22 @@ def _substep(model: RobotModel, sp_: SimParams, params: ModelParams,
     net_tq = f_ext_w[..., 0:3]
     f_ext_w = f_ext_w + body_wrench_w
 
+    # actor-vs-actor contact: explicit spring + friction join the wrench,
+    # the implicit velocity reaction joins the articulated inertia (dIA)
+    dIA = None
+    if collide_mod.has_pairs(model):
+        f_pair, dIA, net_pair = collide_mod.pairwise_contact_forces(
+            model, params, frames,
+            stiffness=sp_.contact_stiffness, damping=sp_.contact_damping,
+            friction_vel=sp_.friction_vel, dt=h,
+            max_depenetration_velocity=sp_.max_depenetration_velocity)
+        f_ext_w = f_ext_w + f_pair
+        net = net + net_pair
+        net_tq = net_tq + f_pair[..., 0:3]
+    # world-point attractors: enter neither net nor net_tq
+    if attractors:
+        f_ext_w = f_ext_w + collide_mod.attractor_forces(model, params, frames, attractors, h)
+
     # world wrench -> link-frame spatial force
     f_ext = torch.cat([Q.rotate_inv(frames.quat, f_ext_w[..., 0:3]),
                        Q.rotate_inv(frames.quat, f_ext_w[..., 3:6])], dim=-1)
@@ -110,7 +136,7 @@ def _substep(model: RobotModel, sp_: SimParams, params: ModelParams,
                                        limit_damping=sp_.joint_limit_damping)
     qdd = dyn.aba(model, params, q, qd, tau_d + tau_p, f_ext, params.gravity,
                   precomputed=(local[0], local[1], frames.quat),
-                  extra_diag=diag_d + diag_p)
+                  extra_diag=diag_d + diag_p, extra_body_inertia=dIA)
 
     # ---- semi-implicit Euler ----
     nf = model.n_floating
@@ -143,14 +169,16 @@ def _substep(model: RobotModel, sp_: SimParams, params: ModelParams,
 
 
 def build_plain_step_fn(model: RobotModel, sim_params: SimParams,
-                        ground=0.0) -> Callable:
+                        ground=0.0, attractors=None) -> Callable:
     """The op path: step(params, q, qd, ctrl, wrench, planes=None) -> (q',
     qd', net (B, nb, 6) [force | torque] of the last substep). params batched
     (B, ...); q (B, nq); qd (B, nv); ctrl leaves (B, nj); wrench (B, nb, 6)
     world. Over a Heightfield the surface is sampled at every substep, unless
     ``planes`` (B, C, 3) gives each contact candidate a local plane to hold
-    for the whole step (the fused kernel's semantics)."""
-    ground = check_supported(model, ground)
+    for the whole step (the fused kernel's semantics). ``attractors``:
+    (body, local_p, target, kp, kd) tuples."""
+    ground = check_supported(model, ground, attractors)
+    attractors = tuple(attractors or ())
     hf = ground if isinstance(ground, Heightfield) else None
     ground_z = 0.0 if hf is not None else ground
     grad_fn = hf.height_and_grad_fn() if hf is not None else None
@@ -162,7 +190,7 @@ def build_plain_step_fn(model: RobotModel, sim_params: SimParams,
         for _ in range(sim_params.substeps):
             q, qd, net = _substep(model, sim_params, params, q, qd, ctrl, wrench, ground_z,
                                   ground_grad_fn=grad_fn if planes is None else None,
-                                  planes=planes)
+                                  planes=planes, attractors=attractors)
         return q, qd, net
 
     return step
@@ -176,9 +204,9 @@ def build_step_fn(model: RobotModel, sim_params: SimParams,
     Returns the fused kernel's wrapper: CUDA tensors launch the kernel (or
     raise for a model it does not cover), CPU tensors take its plain twin.
     `ground_height_fn` is None (plane z = 0), a constant height or a
-    Heightfield. Torque columns of `net` are zero outside `need_torque`'s
-    bodies."""
+    Heightfield; `attractors` (body, local_p, target, kp, kd) tuples. Torque
+    columns of `net` are zero outside `need_torque`'s bodies."""
     from thormang_isaacgym_tpu_torch.ops import fused
     ground = check_supported(model, ground_height_fn, attractors)
     return fused.build_fused_step_fn(model, sim_params, ground=ground,
-                                     need_torque=need_torque)
+                                     attractors=attractors, need_torque=need_torque)

@@ -16,6 +16,7 @@ TASK_MAP = {
     "Ant": ("thormang_isaacgym_tpu_torch.tasks.ant", "Ant"),
     "Anymal": ("thormang_isaacgym_tpu_torch.tasks.anymal", "Anymal"),
     "AnymalTerrain": ("thormang_isaacgym_tpu_torch.tasks.anymal_terrain", "AnymalTerrain"),
+    "BallBalance": ("thormang_isaacgym_tpu_torch.tasks.ball_balance", "BallBalance"),
 }
 
 
@@ -28,7 +29,8 @@ def get_task_class(name: str):
 
 # reference env-block keys -> Task attribute names that don't follow plain
 # camelCase -> snake_case (only the keys of the registered tasks' YAMLs; the
-# JAX registry's AMP / ShadowHand keys come with the slices that port them)
+# JAX registry's AMP / ShadowHand keys come with the slices that port them).
+# BallBalance's actionSpeedScale needs none: it maps to action_speed_scale.
 _ATTR_ALIASES = {
     "episodeLength": "max_episode_length",
     "clipObservations": "clip_obs",
