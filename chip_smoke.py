@@ -9,29 +9,36 @@ Phases, one line each (any failure raises and exits non-zero):
  1. build: compiles csrc/fused_step.cu with nvcc for sm_90a (build seconds,
     registers and spills as ptxas reports them).
  2. compare: the fused kernel against its plain PyTorch version on the card,
-    at 4096 envs from seeded numpy states, 1 and 5 control steps: Cartpole
-    and Ant (flat ground), AnymalTerrain (heightfield mode, bases placed on
-    the terrain grid), BallBalance (pair mode: actor pairs and attractors,
-    the ball resting in the tray or pressed into a leg) and the pair-capsule
-    scene of tests/test_fused.py (sphere-capsule and capsule-capsule pairs);
-    max abs error of q, qd and net against TOL, beside the largest |value|
-    of each and the share of non-zero net rows (AnymalTerrain also: the
-    share of active contact candidates, the share of those on sloped cells,
-    the largest |gx x| of a ground plane; the pair scenes: the share of
-    active pair candidates and the largest |dIA| entry).
+    at 4096 envs (AllegroHand 16384) from seeded numpy states, 1 and 5
+    control steps: Cartpole and Ant (flat ground), AnymalTerrain
+    (heightfield mode, bases placed on the terrain grid), BallBalance (pair
+    mode: actor pairs and attractors, the ball resting in the tray or pressed
+    into a leg), the pair-capsule scene of tests/test_fused.py
+    (sphere-capsule and capsule-capsule pairs), and in the box mode (block
+    B6) the box-box and capsule-box scenes of tests/test_fused.py, a ball on
+    a cube, and AllegroHand (the cube on the palm and among the fingers, or
+    pressed into the palm's edge); max abs error of q, qd and net against
+    TOL, beside the largest |value| of each and the share of non-zero net
+    rows (AnymalTerrain also: the share of active contact candidates, the
+    share of those on sloped cells, the largest |gx x| of a ground plane; the
+    pair and box scenes: the share of active pair candidates, per kind in the
+    box mode with the envs whose box-box edge-edge candidate is active, and
+    the largest |dIA| entry).
  3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain and
-    BallBalance at 4096 envs (CUDA events after warm-up, ms per control
-    step) beside the kernel's bound.
- 4. train: make(task, cfg=cfg/task/<task>.yaml) at 4096 envs,
+    BallBalance at 4096 envs and AllegroHand at 16384 (CUDA events after
+    warm-up, ms per control step) beside the kernel's bound.
+ 4. train: make(task, cfg=cfg/task/<task>.yaml) at the YAML's numEnvs,
     PPO(PPOConfig.from_rlgames(cfg/train/<task>PPO.yaml)), 3
-    train_iterations, for Ant (3 x 16 kernel launches), AnymalTerrain
-    (3 x 24) and BallBalance (3 x 16); every metric finite, obs finite of
-    shape (4096, num_obs).
-Then a {"kernels": [...]} line (the kernel's flat, heightfield and pair
-modes) and, last, the {"ok": true, "device": ...} line.
+    train_iterations, for Ant (4096 envs, 3 x 16 kernel launches),
+    AnymalTerrain (4096, 3 x 24), BallBalance (4096, 3 x 16) and
+    AllegroHand (16384, 3 x 8 x 2); every metric finite, obs finite of shape
+    (envs, num_obs).
+Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
+box modes) and, last, the {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 import yaml
 
+from thormang_isaacgym_tpu_torch.core import quat as Q
 from thormang_isaacgym_tpu_torch.models import load_urdf
 from thormang_isaacgym_tpu_torch.models.scene import compose
 from thormang_isaacgym_tpu_torch.ops import collide, fused
@@ -52,8 +60,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the test scenes the CPU tests hold the kernel's source against: the
 # pair-capsule scene and the BallBalance contact states
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-from test_torch_fused import PAIR_POSES, PAIR_SP, ball_balance_q, pair_capsule_scene  # noqa: E402
+from test_torch_fused import (  # noqa: E402
+    BOX_POSES, BOX_SP, PAIR_POSES, PAIR_SP, allegro_contact_q, ball_balance_q, box_pair_scene,
+    pair_capsule_scene,
+)
 B = 4096
+# tasks whose published width is not B (cfg/task/<task>.yaml numEnvs)
+ENVS = {"AllegroHand": 16384}
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
 # (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
@@ -79,17 +92,36 @@ SEED = 0
 # contact, capsule A over the bar's end in every fourth env); free running,
 # its versions part like AnymalTerrain's (5 steps: 2 of 4096 envs outside
 # TOL, qd 0.025, net 0.18 N), so it is held step by step.
+# The box mode (B6: sphere vs box, capsule vs box, box vs box) keeps q and
+# qd; its net atol is 1.0 N, the bound of JAX's own check of its kernel
+# against its op path on the box kinds (tests/test_fused.py). AllegroHand's
+# contacts are ill-conditioned (a 0.108 kg cube of inertia 7.6e-5 kg m^2
+# under 617 N s/m of contact damping; fingertip spheres whose centres sit
+# within a millimetre of the cube's edges, where the normal turns fast), so
+# one substep from the same state differs by up to 0.53 N (net) and 0.056
+# (qd) over 16384 envs, measured on an H100 and reproduced bit for bit by the
+# host-C++ build of the kernel on the CPU. An env outside the tolerance must
+# sit at a tie of a narrowphase branch (box_ties): 1-2 of 16384 per substep.
 TOL = dict(flat=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1e-2, 5e-3)),
            heightfield=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.3, 5e-3)),
-           pairs=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.1, 5e-3)))
+           pairs=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.1, 5e-3)),
+           boxes=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1.0, 5e-3)))
 # cases held against the plain version step by step (see phase_compare)
-STEPWISE = {"AnymalTerrain", "PairCapsule"}
-# the TPU kernel's call and the blocks the heightfield and pair modes replace
-# (the pair mode: the pair force block and the attractor block)
+STEPWISE = {"AnymalTerrain", "PairCapsule", "BoxBox", "AllegroHand"}
+# cases held substep by substep (a one-substep build of the kernel; see phase_compare)
+SUBSTEPWISE = {"AllegroHand"}
+# the TPU kernel's call and the blocks the heightfield, pair and box modes
+# replace (the pair modes: the pair force block and the attractor block; the
+# box mode also the box narrowphase: sphere-box, capsule-box, box-box)
 REPLACES = dict(flat="thormang_isaacgym_tpu/ops/fused.py:1707",
                 heightfield="thormang_isaacgym_tpu/ops/fused.py:1154",
-                pairs="thormang_isaacgym_tpu/ops/fused.py:1235")
-ALSO_REPLACES = dict(pairs=["thormang_isaacgym_tpu/ops/fused.py:1323"])
+                pairs="thormang_isaacgym_tpu/ops/fused.py:1235",
+                boxes="thormang_isaacgym_tpu/ops/fused.py:640")
+ALSO_REPLACES = dict(pairs=["thormang_isaacgym_tpu/ops/fused.py:1323"],
+                     boxes=["thormang_isaacgym_tpu/ops/fused.py:477",
+                            "thormang_isaacgym_tpu/ops/fused.py:597",
+                            "thormang_isaacgym_tpu/ops/fused.py:1235",
+                            "thormang_isaacgym_tpu/ops/fused.py:1323"])
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -125,9 +157,10 @@ def phase_build() -> fused.BuildInfo:
 
 
 def _task(name: str, device):
-    """The port's task at B envs with its cfg/task YAML's sim block."""
+    """The port's task at its width (ENVS, else B) with its cfg/task YAML's
+    sim block."""
     from thormang_isaacgym_tpu_torch.tasks import apply_cfg_sim, get_task_class
-    task = get_task_class(name)(num_envs=B, device=device)
+    task = get_task_class(name)(num_envs=ENVS.get(name, B), device=device)
     with open(os.path.join(ROOT, "cfg", "task", f"{name}.yaml")) as f:
         apply_cfg_sim(task, yaml.safe_load(f)["sim"])
     return task
@@ -137,10 +170,20 @@ def random_inputs(task, rng: np.random.Generator, device):
     """Valid seeded states, controls and wrenches for `task`'s model."""
     m = task.model
     nj, nb = m.nj, m.nb
+    B = task.num_envs
     lo = m._defaults["dof_lower"]
     hi = m._defaults["dof_upper"]
     targets = None                        # drawn last, as before, off the terrain
-    if hasattr(task, "ball_body"):
+    zero_wrench = False
+    if hasattr(task, "fingertip_ids"):
+        # AllegroHand: the cube in contact with the palm and fingers, targets
+        # inside the joint ranges, no wrench (forceScale 0, as in training)
+        q = allegro_contact_q(m, rng, B)
+        qd = np.concatenate([rng.normal(size=(B, 6)) * 0.1, rng.uniform(-0.1, 0.1, (B, nj))], 1)
+        targets = lo + (hi - lo) * rng.uniform(0.2, 0.8, (B, nj))
+        effort = np.zeros((B, nj))
+        zero_wrench = True
+    elif hasattr(task, "ball_body"):
         # BallBalance: the ball resting in the tray or pressed into a leg
         q = ball_balance_q(task, rng, B)
         qd = rng.normal(size=(B, m.nv)) * 0.3
@@ -181,6 +224,8 @@ def random_inputs(task, rng: np.random.Generator, device):
         effort = np.stack([rng.uniform(-400.0, 400.0, B), np.zeros(B)], axis=1)
     wrench = np.concatenate([rng.normal(size=(B, nb, 3)) * 0.2,
                              rng.normal(size=(B, nb, 3)) * 2.0], axis=-1)
+    if zero_wrench:
+        wrench = np.zeros_like(wrench)
 
     def t(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
@@ -211,19 +256,23 @@ def ground_stats(step, q) -> dict:
                                                  (gy * p[..., 1]).abs()).max()))
 
 
-def _errors(got, want, tol: dict) -> dict:
+def _errors(got, want, tol: dict, rows=None) -> dict:
     """Max abs error of (q, qd, net) `got` against `want`, the largest
-    |value| of each, and the share of envs whose every entry is within `tol`
-    (a non-finite entry is out)."""
+    |value| of each, the share of envs whose every entry is within `tol` (a
+    non-finite entry is out) and that mask; over the envs `rows` (a bool
+    mask) if given."""
+    if rows is not None:
+        got, want = [x[rows] for x in got], [x[rows] for x in want]
     errs, size = {}, {}
     inside = torch.ones(want[0].shape[0], dtype=torch.bool, device=want[0].device)
     for key, a, b in zip(("q", "qd", "net"), got, want):
         atol, rtol = tol[key]
         d = (a - b).abs()
-        errs[key] = float(d.max())
-        size[key] = float(b.abs().max())
+        errs[key] = float(d.max()) if d.numel() else 0.0
+        size[key] = float(b.abs().max()) if b.numel() else 0.0
         inside &= (torch.isfinite(a) & (d <= atol + rtol * b.abs())).reshape(a.shape[0], -1).all(1)
-    return dict(max_abs_err=errs, max_abs=size, env_share_within_tol=float(inside.float().mean()))
+    return dict(max_abs_err=errs, max_abs=size, env_share_within_tol=float(inside.float().mean()),
+                inside=inside)
 
 
 class PairCapsule:
@@ -250,9 +299,169 @@ def pair_capsule_inputs(model, rng: np.random.Generator, device):
     return model.default_params(device).batch(B), t(q), t(qd), Controls(z, z, z), t(wrench)
 
 
+class BoxPair:
+    """A two-actor scene of the box mode as a task-like case: one body on a
+    fixed cube (tests/test_fused.py's box-box and capsule-box checks, and a
+    ball), spawned 2 mm apart at altitude."""
+    attractors = ()
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self.model, self.pose = box_pair_scene(kind, load_urdf, compose)
+        self.sim_params = SimParams(**BOX_SP)
+
+
+def box_pair_inputs(case, rng: np.random.Generator, device):
+    """The scene's pose with 1 mm of noise in position and 0.02 in the
+    quaternion, seeded velocities and small wrenches."""
+    m = case.model
+    q = np.tile(case.pose, (B, 1)) + np.concatenate(
+        [rng.normal(size=(B, 3)) * 0.001, rng.normal(size=(B, 4)) * 0.02], 1)
+    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    qd = rng.normal(size=(B, m.nv)) * 0.05
+    wrench = np.concatenate([rng.normal(size=(B, m.nb, 3)) * 0.02,
+                             rng.normal(size=(B, m.nb, 3)) * 0.2], axis=-1)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    z = t(np.zeros((B, 0)))
+    return m.default_params(device).batch(B), t(q), t(qd), Controls(z, z, z), t(wrench)
+
+
+def _candidate_kinds(model) -> list:
+    """The kind of each pair candidate in collide.candidates order: sphere,
+    capcap, sphere_box, capbox, boxbox_corner, boxbox_edge."""
+    out = []
+    for _, ib, k in collide.pairs(model):
+        if k == "boxbox":
+            out += ["boxbox_corner"] * 16 + ["boxbox_edge"]
+        elif k == "sphere" and model.geoms[ib].gtype == 2:
+            out.append("sphere_box")
+        else:
+            out += [k] * collide.CANDIDATES_PER_KIND[k]
+    return out
+
+
+# a branch of the box narrowphase within TIE_LEN of its threshold is a tie:
+# the kernel (closed forms) and the plain version (direct forms) may round it
+# either way (4 float32 ulps at the box scenes' 5 m altitude); the capsule's
+# ternary-search point is a tie within TIE_T of its mask's thresholds, and
+# where the segment's distance to the box stays within TIE_FLAT of its
+# minimum over a stretch of the axis along which the point's sphere turns its
+# normal by more than TIE_TURN (the search stops anywhere on that stretch)
+TIE_LEN = 2e-6
+TIE_T = 1e-3
+TIE_FLAT = 1e-7
+TIE_TURN = 1e-3
+
+
+def _sphere_box_ties(center, r, pb, qb, half):
+    """Envs where a sphere inside the box has two faces of least gap within
+    TIE_LEN (its normal jumps between them), and the sphere's depth."""
+    h = torch.tensor([float(x) for x in half], dtype=center.dtype, device=center.device)
+    local = Q.rotate_inv(qb, center - pb)
+    gap = (h - local.abs()).sort(-1).values
+    inside = (local.abs() < h).all(-1)
+    dist = (local - torch.clamp(local, -h, h)).norm(dim=-1)
+    depth = torch.where(inside, r + gap[:, 0], r - dist)
+    return inside & (gap[:, 1] - gap[:, 0] < TIE_LEN), depth
+
+
+def box_ties(model, q, qd) -> torch.Tensor:
+    """(n,) envs at (q, qd) where a discontinuous branch of the pair
+    narrowphase is a tie: a candidate's contact onset (|depth| < TIE_LEN);
+    box-box: a face or cross-axis overlap at 0, the edge-edge activation
+    (least edge overlap against 0.99 of the least face overlap), the choice
+    of the least face overlap while a corner is in contact, the choice of the
+    least edge overlap while the edge-edge candidate is, a corner on the other
+    box's surface; a sphere in a box between two faces; the capsule's
+    ternary-search point at its mask's thresholds, or on a flat minimum along
+    which its sphere's normal turns, while in contact.
+    Evaluated in float64 on the float32 frames."""
+    f = forward_kinematics(model, q, qd)
+    f = type(f)(*(x.double() for x in f))
+    tie = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+    cands = collide.candidates(model, f)
+    for c in cands:
+        tie |= c[5].abs() < TIE_LEN
+    z = f.pos.new_tensor([0.0, 0.0, 1.0])
+
+    def gpose(i):
+        g = model.geoms[i]
+        bq = f.quat[:, g.body]
+        return (f.pos[:, g.body] + Q.rotate(bq, f.pos.new_tensor(g.pos)),
+                Q.mul(bq, f.pos.new_tensor(g.quat)))
+
+    k = 0
+    for ia, ib, kind in collide.pairs(model):
+        ga, gb = model.geoms[ia], model.geoms[ib]
+        depth = torch.stack([c[5] for c in cands[k:k + collide.CANDIDATES_PER_KIND[kind]]], -1)
+        k += collide.CANDIDATES_PER_KIND[kind]
+        if gb.gtype != 2:
+            continue
+        (pa, qa), (pb, qb) = gpose(ia), gpose(ib)
+        if kind == "sphere":
+            tie |= _sphere_box_ties(pa, float(ga.size[0]), pb, qb, gb.size)[0]
+        elif kind == "capbox":
+            r1, h1 = float(ga.size[0]), float(ga.size[1])
+            axis = Q.rotate(qa, z)
+            t = torch.linspace(0.0, 1.0, 100001, dtype=f.pos.dtype, device=q.device)
+            hh = f.pos.new_tensor([float(x) for x in gb.size])
+            p = Q.rotate_inv(qb[:, None], pa[:, None] + axis[:, None] * (h1 * (2 * t - 1))[None, :, None]
+                             - pb[:, None])
+            dist = (p - torch.clamp(p, -hh, hh)).norm(dim=-1)
+            t_opt = t[dist.argmin(-1)]
+            at_mask = ((t_opt - 0.02).abs() < TIE_T) | ((t_opt - 0.98).abs() < TIE_T) \
+                | (((t_opt - 0.5).abs() - 0.02).abs() < TIE_T)
+            face, d_opt = _sphere_box_ties(pa + axis * (h1 * (2 * t_opt - 1))[:, None], r1, pb, qb,
+                                           gb.size)
+            tie |= face | (at_mask & (d_opt > -TIE_LEN))
+            # the ends of the flat stretch around the minimum, and the sphere's
+            # normal there (outside the box: from the box's closest point)
+            flat = dist <= dist.min(-1, keepdim=True).values + TIE_FLAT
+            big = torch.where(flat, t, torch.full_like(t, 2.0)).amin(-1)
+            small = torch.where(flat, t, torch.full_like(t, -1.0)).amax(-1)
+            ends = [Q.rotate_inv(qb, pa + axis * (h1 * (2 * te - 1))[:, None] - pb) for te in (big, small)]
+            normals = [(e - torch.clamp(e, -hh, hh)) / ((e - torch.clamp(e, -hh, hh)).norm(dim=-1,
+                       keepdim=True) + 1e-12) for e in ends]
+            tie |= ((normals[0] - normals[1]).norm(dim=-1) > TIE_TURN) & (d_opt > -TIE_LEN)
+            for tp in (0.0, 0.5, 1.0):
+                tie |= _sphere_box_ties(pa + axis * (h1 * (2 * tp - 1)), r1, pb, qb, gb.size)[0]
+        else:
+            A, Bx = collide._axes(qa), collide._axes(qb)
+            d = pb - pa
+            ha, hb = ga.size, gb.size
+            ax6 = torch.cat([A, Bx], -2)
+            ov6 = (collide._abs_proj(ax6, A, ha) + collide._abs_proj(ax6, Bx, hb)) \
+                - collide._dot(ax6, d[:, None]).abs()
+            cross = collide._cross(A[:, :, None], Bx[:, None]).reshape(-1, 9, 3)
+            nrm = cross.norm(dim=-1)
+            L = cross / nrm.clamp(min=1e-6)[..., None]
+            ove = (collide._abs_proj(L, A, ha) + collide._abs_proj(L, Bx, hb)) \
+                - collide._dot(L, d[:, None]).abs()
+            ove = torch.where(nrm < 1e-6, torch.full_like(ove, float("inf")), ove)
+            sf, se = ov6.sort(-1).values, ove.sort(-1).values
+            activation = (se[:, 0] - 0.99 * sf[:, 0]).abs() < TIE_LEN
+            tie |= (ov6.abs() < TIE_LEN).any(-1) | (ove.abs() < TIE_LEN).any(-1) | activation
+            tie |= (sf[:, 1] - sf[:, 0] < TIE_LEN) & (depth[:, :16] > 0).any(-1)
+            tie |= (se[:, 1] - se[:, 0] < TIE_LEN) & ((depth[:, 16] > 0) | activation)
+            for (pp, qq, hx), (po, qo, ho) in (((pa, qa, ha), (pb, qb, hb)),
+                                               ((pb, qb, hb), (pa, qa, ha))):
+                hh = f.pos.new_tensor([float(x) for x in ho])
+                for s3 in [(x, y, w) for x in (-1, 1) for y in (-1, 1) for w in (-1, 1)]:
+                    v = f.pos.new_tensor([sg * float(hv) for sg, hv in zip(s3, hx)])
+                    local = Q.rotate_inv(qo, pp + Q.rotate(qq, v) - po)
+                    on = (hh - local.abs()).abs() < TIE_LEN
+                    tie |= (on & (hh - local.abs() > -TIE_LEN).all(-1, keepdim=True)).any(-1)
+    return tie
+
+
 def pair_stats(step, params, q, qd) -> dict:
-    """What the pair mode sees at (q, qd): the share of pair candidates in
-    contact and the largest |entry| of the added inertia dIA."""
+    """What the pair and box modes see at (q, qd): the share of pair
+    candidates in contact (in the box mode per kind, with the envs whose
+    box-box edge-edge candidate is active) and the largest |entry| of the
+    added inertia dIA."""
     m, sp = step.model, step.sim_params
     frames = forward_kinematics(m, q, qd)
     depth = torch.stack([c[5] for c in collide.candidates(m, frames)], -1)
@@ -260,49 +469,98 @@ def pair_stats(step, params, q, qd) -> dict:
         m, params, frames, stiffness=sp.contact_stiffness, damping=sp.contact_damping,
         friction_vel=sp.friction_vel, dt=sp.dt / sp.substeps,
         max_depenetration_velocity=sp.max_depenetration_velocity)
-    return dict(active_pair_share=float((depth > 0).float().mean()),
-                max_abs_dIA=float(dIA.abs().max()))
+    out = dict(active_pair_share=float((depth > 0).float().mean()),
+               max_abs_dIA=float(dIA.abs().max()))
+    if step.pair_mode == 2:
+        kinds = np.array(_candidate_kinds(m))
+        out["active_share_by_kind"] = {
+            k: float((depth[:, torch.as_tensor(np.flatnonzero(kinds == k), device=q.device)] > 0)
+                     .float().mean()) for k in sorted(set(kinds))}
+        if "boxbox_edge" in kinds:
+            edge = torch.as_tensor(np.flatnonzero(kinds == "boxbox_edge"), device=q.device)
+            out["edge_edge_active_envs"] = int((depth[:, edge] > 0).any(-1).sum())
+    return out
 
 
 def phase_compare(device) -> dict:
-    """Worst error of each kernel mode: {"flat": x, "heightfield": y, "pairs": z}.
+    """Worst error of each kernel mode: {"flat": x, "heightfield": y,
+    "pairs": z, "boxes": w}.
 
-    Cartpole, Ant and BallBalance are held against the plain version after 1
-    and 5 free running control steps. AnymalTerrain and the pair-capsule
-    scene are held against it step by step: at each of the 5 control steps
-    both start from the plain version's state. Their stiff contact (over
-    terrain; a stack of bodies on a bar) amplifies last-bit differences
-    several times per control step until a contact switches on in one
-    version and not the other (the damper makes the force jump at contact
-    onset), so the free running trajectories part after a few steps in some
-    envs; their errors and the share of envs still within TOL are printed,
-    not gated."""
+    Cartpole, Ant, BallBalance and the capsule-box and sphere-box scenes are
+    held against the plain version after 1 and 5 free running control steps.
+    AnymalTerrain, the pair-capsule scene, the box-box scene and AllegroHand
+    are held against it step by step: at each of the 5 steps both start from
+    the plain version's state. Their stiff contact (over terrain; a stack of
+    bodies on a bar; a cube on a cube, turned 5 degrees: its edge-edge
+    candidate sits near the 0.99 activation threshold) amplifies last-bit
+    differences several times per control step until a contact switches on
+    in one version and not the other (the damper makes the force jump at
+    contact onset), so the free running trajectories part after a few steps
+    in some envs; their errors and the share of envs still within TOL are
+    printed, not gated. AllegroHand is held substep by substep, through a
+    one-substep build of the same kernel: a 1.6e-4 m/s difference after one
+    substep grows ~1500x in the next (the cube's 7.6e-5 kg m^2 against 617 N
+    s/m of contact damping at 3 cm lever arms). In the box mode an env outside
+    TOL must sit at a tie of a narrowphase branch (``box_ties``), and every
+    kind (sphere-box, capsule-box, box-box corners and edge-edge) must be in
+    contact somewhere."""
     rng = np.random.default_rng(SEED)
-    worst = dict(flat=0.0, heightfield=0.0, pairs=0.0)
-    for name in ("Cartpole", "Ant", "AnymalTerrain", "BallBalance", "PairCapsule"):
-        task = PairCapsule() if name == "PairCapsule" else _task(name, device)
+    worst = dict(flat=0.0, heightfield=0.0, pairs=0.0, boxes=0.0)
+    box_active = {}
+    for name in ("Cartpole", "Ant", "AnymalTerrain", "BallBalance", "PairCapsule",
+                 "BoxBox", "CapBox", "SphereBox", "AllegroHand"):
+        if name == "PairCapsule":
+            task = PairCapsule()
+        elif name in ("BoxBox", "CapBox", "SphereBox"):
+            task = BoxPair(name.lower())
+        else:
+            task = _task(name, device)
         ground = task.ground_height_fn() if hasattr(task, "ground_height_fn") else 0.0
-        step = fused.build_fused_step_fn(task.model, task.sim_params, ground=ground,
+        sp = task.sim_params
+        if name in SUBSTEPWISE:
+            # one substep per launch: the same kernel and tables with n_steps 1
+            sp = dataclasses.replace(sp, dt=sp.dt / sp.substeps, substeps=1)
+        step = fused.build_fused_step_fn(task.model, sp, ground=ground,
                                          attractors=getattr(task, "attractors", None),
                                          need_torque=True)
-        mode = "heightfield" if step.hf is not None else "pairs" if step.pair_mode else "flat"
+        mode = "heightfield" if step.hf is not None else \
+            ("flat", "pairs", "boxes")[step.pair_mode]
+        if mode == "boxes" and step.n_steps != 1:
+            raise AssertionError("the box mode's tie analysis takes one substep per launch")
         if name == "PairCapsule":
             params, q0, qd0, ctrl, wrench = pair_capsule_inputs(task.model, rng, device)
+        elif isinstance(task, BoxPair):
+            params, q0, qd0, ctrl, wrench = box_pair_inputs(task, rng, device)
         else:
             params, q0, qd0, ctrl, wrench = random_inputs(task, rng, device)
+        envs = q0.shape[0]
         extra = ground_stats(step, q0) if mode == "heightfield" else \
-            pair_stats(step, params, q0, qd0) if mode == "pairs" else {}
+            pair_stats(step, params, q0, qd0) if mode in ("pairs", "boxes") else {}
+        for k, v in extra.get("active_share_by_kind", {}).items():
+            box_active[k] = max(box_active.get(k, 0.0), v)
+        if extra.get("edge_edge_active_envs", 0) > 0:
+            box_active["edge_edge_envs"] = box_active.get("edge_edge_envs", 0) + \
+                extra["edge_edge_active_envs"]
         for n_ctrl in (1, 5):
             qa, qda, qb, qdb = q0, qd0, q0, qd0
             stepwise = None
+            outside = at_tie = 0
             for _ in range(n_ctrl):
                 if name in STEPWISE:
                     # the kernel from the plain version's state of this step
                     k_out = step(params, qb, qdb, ctrl, wrench)
                 qa, qda, na = step(params, qa, qda, ctrl, wrench)
+                q_in, qd_in = qb, qdb
                 qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, wrench)
                 if name in STEPWISE:
                     e = _errors(k_out, (qb, qdb, nb_), TOL[mode])
+                    out = ~e["inside"]
+                    if mode == "boxes" and bool(out.any()):
+                        # an env outside TOL must sit at a tie of a branch (the
+                        # box cases run one substep per launch)
+                        outside += int(out.sum())
+                        at_tie += int(box_ties(task.model, q_in[out], qd_in[out]).sum())
+                        e = _errors(k_out, (qb, qdb, nb_), TOL[mode], rows=~out)
                     stepwise = e if stepwise is None else {
                         "max_abs_err": {k: max(v, stepwise["max_abs_err"][k])
                                         for k, v in e["max_abs_err"].items()},
@@ -311,25 +569,33 @@ def phase_compare(device) -> dict:
             torch.cuda.synchronize()
             free = _errors((qa, qda, na), (qb, qdb, nb_), TOL[mode])
             gate = free if stepwise is None else stepwise
-            ok = gate["env_share_within_tol"] == 1.0
+            ok = gate["env_share_within_tol"] == 1.0 and outside == at_tie
             worst[mode] = max([worst[mode], *gate["max_abs_err"].values()])
             nonzero = float((nb_.abs().amax(-1) > 0).float().mean())
             extra_n = {} if stepwise is None else dict(
-                stepwise=stepwise, free_running=dict(
+                stepwise=dict(max_abs_err=stepwise["max_abs_err"],
+                              env_share_within_tol=stepwise["env_share_within_tol"]),
+                free_running=dict(
                     max_abs_err=free["max_abs_err"],
                     env_share_within_tol=free["env_share_within_tol"]))
-            log("compare", model=name, mode=mode, envs=B, substeps=step.n_steps,
+            if mode == "boxes":
+                extra_n.update(outside_tol_env_steps=outside, of_them_at_a_tie=at_tie)
+            log("compare", model=name, mode=mode, envs=envs, substeps=step.n_steps,
                 control_steps=n_ctrl, max_abs_err=gate["max_abs_err"], max_abs=free["max_abs"],
                 net_nonzero_row_share=nonzero,
                 tol={k: {"atol": v[0], "rtol": v[1]} for k, v in TOL[mode].items()},
                 within_tol=ok, **extra, **extra_n)
             if not ok:
                 raise AssertionError(f"fused kernel disagrees with the plain version: {name} "
-                                     f"{gate['max_abs_err']}")
+                                     f"{gate['max_abs_err']}, {outside - at_tie} envs off a tie")
         expected = 12 if name in STEPWISE else 6
         if step.launches != expected:
             raise AssertionError(f"compare launched the kernel {step.launches} times, "
                                  f"expected {expected}")
+    missing = [k for k in ("sphere_box", "capbox", "boxbox_corner", "boxbox_edge", "edge_edge_envs")
+               if not box_active.get(k, 0) > 0]
+    if missing:
+        raise AssertionError(f"the box mode's compare touched no candidate of {missing}")
     return worst
 
 
@@ -403,6 +669,26 @@ OPS = dict(
     pair_inertia=5 + 2 * (3 + 2 * _QROT + _CROSS + 33 + 48),
     # per pair body: wrench, net force and torque 12, added inertia into IA 21
     pair_body=12 + 21,
+    # the box kinds (block B6). sphere vs box: local point 33, clamp 6,
+    # inside test 3, d_out 3, |d_out| 7, face gaps 3, first-minimum choice 5,
+    # inside normal 9, outside normal 3 and select 3, rotation back 30, depth
+    # 2, contact point 6
+    sphere_box=33 + 6 + 3 + 3 + 7 + 3 + 5 + 9 + 6 + _QROT + 2 + 6,
+    # capsule vs box, besides its 4 sphere-box candidates: axis 30, the two
+    # end points in the box frame 78, segment 3; 18 ternary steps of two
+    # thirds 5, two segment distances (point 6, clamp 6, difference 3, norm
+    # 6) and the choice 3; t_opt and its mask 6; per candidate its centre 9
+    # and mask 1
+    capbox=_QROT + 2 * (2 * _V3 + _QROT + 3) + 3 + 18 * (5 + 2 * 21 + 3) + 6 + 4 * 10,
+    # box vs box: two rotation matrices 60, d 3, R 45, d on both boxes' axes
+    # 30, scaled R 18, projections 30, the 6 face overlaps 12, the face
+    # choice 5, its sign and tables 19, scaled axes 18; per corner (16) the
+    # point 18, the inside test 21, its depth 8; least face overlap 11; per
+    # cross axis (9) its overlap, signs and choice 34; the chosen edge's
+    # normal, support edges and closest points 76 (once: the count depends
+    # on the data, so the bound takes the fewest); activation 3
+    boxbox=60 + 3 + 45 + 30 + 18 + 30 + 12 + 5 + 19 + 18 + 16 * (18 + 21 + 8) + 11 + 9 * 34
+    + 76 + 3,
     # per attractor: world point 33, arm 3, point velocity 72, I_min and the
     # effective mass 4, clamped gains 6, force 12, torque 9, sums 6
     attractor=_QROT + _V3 + 3 + (2 * _QROT + _CROSS + _V3) + 4 + 6 + 12 + _CROSS + 6,
@@ -414,15 +700,24 @@ def kernel_ops_per_env(model, n_steps: int, heightfield: bool = False,
     """fp32 operations of one env's physics step (n_steps substeps), from
     OPS: what the function needs, each contact candidate's geometry once;
     over a heightfield the plane sampling once per control step and the
-    tilted-normal terms every substep; in the pair mode each actor pair's
-    narrowphase, force and added inertia and each attractor every substep."""
+    tilted-normal terms every substep; in the pair and box modes each actor
+    pair's narrowphase, each of its candidates' force and added inertia and
+    each attractor every substep."""
     cand = fused.contact.candidates(model)
     nc = len(cand["geom"])
     jt = np.asarray(model.joint_type)
     pairs = collide.pairs(model)
-    pair_ops = sum(OPS["pair_pose"] + OPS["pair_force"] + OPS["pair_inertia"]
-                   + OPS["pair_kind"][k if k == "capcap" else f"{k}/{model.geoms[ib].gtype}"]
-                   for _, ib, k in pairs)
+    pair_ops = 0
+    for _, ib, k in pairs:
+        # each candidate's force and added inertia, then its kind's narrowphase
+        n_cand = collide.CANDIDATES_PER_KIND[k]
+        pair_ops += OPS["pair_pose"] + n_cand * (OPS["pair_force"] + OPS["pair_inertia"])
+        if k in ("capbox", "boxbox"):
+            pair_ops += OPS[k] + (4 * OPS["sphere_box"] if k == "capbox" else 0)
+        elif k == "sphere" and model.geoms[ib].gtype == 2:
+            pair_ops += OPS["sphere_box"]
+        else:
+            pair_ops += OPS["pair_kind"][k if k == "capcap" else f"{k}/{model.geoms[ib].gtype}"]
     per_sub = (pair_ops + len(fused.pair_bodies(model)) * OPS["pair_body"]
                + len(attractors) * OPS["attractor"]
                + model.n_roots * OPS["root"]
@@ -461,6 +756,7 @@ def phase_time(name: str, device) -> dict:
                                      attractors=attractors,
                                      need_torque=getattr(task, "net_torque_bodies", None) or False)
     params, q, qd, ctrl, wrench = random_inputs(task, np.random.default_rng(SEED + 1), device)
+    envs = q.shape[0]
     packed = step.pack(params, q, qd, ctrl, wrench)
     kernel_ms = _time_cuda(lambda: step.launch(packed), iters=200, warmup=20)
     wrapper_ms = _time_cuda(lambda: step(params, q, qd, ctrl, wrench), iters=100, warmup=10)
@@ -468,8 +764,8 @@ def phase_time(name: str, device) -> dict:
     # each input row read once, each output row written once, and over a
     # heightfield the 4 table words each candidate's plane gathers
     nc = len(fused.contact.candidates(m)["geom"])
-    nbytes = 4 * B * (step.rows["total"] + step.out_rows + (4 * nc if hf is not None else 0))
-    flops = B * kernel_ops_per_env(m, step.n_steps, heightfield=hf is not None,
+    nbytes = 4 * envs * (step.rows["total"] + step.out_rows + (4 * nc if hf is not None else 0))
+    flops = envs * kernel_ops_per_env(m, step.n_steps, heightfield=hf is not None,
                                    attractors=attractors)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / FP32_FLOP_PER_S * 1e3
@@ -477,7 +773,7 @@ def phase_time(name: str, device) -> dict:
                bound_ms=max(bytes_ms, flops_ms),
                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                bytes=nbytes, bytes_ms=bytes_ms, flops=flops, flops_ms=flops_ms)
-    log("time", model=name, envs=B, substeps=step.n_steps, **out)
+    log("time", model=name, envs=envs, substeps=step.n_steps, **out)
     return out
 
 
@@ -489,7 +785,8 @@ def phase_train(name: str, device, card: str) -> dict:
         task_cfg = yaml.safe_load(f)
     with open(os.path.join(ROOT, "cfg", "train", f"{name}PPO.yaml")) as f:
         train_cfg = yaml.safe_load(f)
-    env = tgt.make(name, num_envs=B, seed=SEED, cfg=task_cfg, device=device)
+    envs = int(task_cfg["env"]["numEnvs"])
+    env = tgt.make(name, num_envs=envs, seed=SEED, cfg=task_cfg, device=device)
     cfg = PPOConfig.from_rlgames(train_cfg)
     ppo = PPO(env, cfg, device=device)
     ts = ppo.init(SEED)
@@ -511,13 +808,15 @@ def phase_train(name: str, device, card: str) -> dict:
     expected = iters * cfg.horizon_length * env.task.control_freq_inv
     if launches != expected:
         raise AssertionError(f"fused kernel launched {launches} times, expected {expected}")
-    if tuple(env_state.obs.shape) != (B, env.num_obs) or not bool(torch.isfinite(env_state.obs).all()):
+    if tuple(env_state.obs.shape) != (envs, env.num_obs) or \
+            not bool(torch.isfinite(env_state.obs).all()):
         raise AssertionError("observations are not finite of shape (B, num_obs)")
     steady = times[1:]
     out = dict(launches=launches, expected_launches=expected,
-               s_per_iter=times, env_steps_per_s=B * cfg.horizon_length / (sum(steady) / len(steady)),
+               s_per_iter=times,
+               env_steps_per_s=envs * cfg.horizon_length / (sum(steady) / len(steady)),
                card=card, metrics=metrics)
-    log("train", task=name, envs=B, dt=env.task.sim_params.dt,
+    log("train", task=name, envs=envs, dt=env.task.sim_params.dt,
         substeps=env.task.sim_params.substeps, horizon=cfg.horizon_length,
         minibatch=cfg.minibatch_size, mini_epochs=cfg.mini_epochs,
         mixed_precision=cfg.mixed_precision, **out)
@@ -529,7 +828,8 @@ def main() -> None:
     device = torch.device("cuda")
     phase_build()
     max_err = phase_compare(device)
-    modes = (("flat", "Ant"), ("heightfield", "AnymalTerrain"), ("pairs", "BallBalance"))
+    modes = (("flat", "Ant"), ("heightfield", "AnymalTerrain"), ("pairs", "BallBalance"),
+             ("boxes", "AllegroHand"))
     timing = {mode: phase_time(name, device) for mode, name in modes}
     train = {mode: phase_train(name, device, dev_info["kind"]) for mode, name in modes}
     kernels = [dict(

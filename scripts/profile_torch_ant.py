@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where one PPO train iteration of the PyTorch/CUDA port spends its time:
-a task at 4096 envs, cfg/task/<task>.yaml + cfg/train/<task>PPO.yaml (Ant by
-default), on one GPU.
+a task at its YAML's width (numEnvs: 4096, AllegroHand 16384),
+cfg/task/<task>.yaml + cfg/train/<task>PPO.yaml (Ant by default), on one GPU.
 
-Run from the repository root:  python3 scripts/profile_torch_ant.py [--task AnymalTerrain]
+Run from the repository root:
+  python3 scripts/profile_torch_ant.py [--task AnymalTerrain|BallBalance|AllegroHand]
 
 Prints JSON lines: the card (nvidia-smi name and power limit); host-clock
 times, each closed by torch.cuda.synchronize(), of one rollout (horizon x
@@ -31,8 +32,6 @@ sys.path.insert(0, ROOT)
 import thormang_isaacgym_tpu_torch as tgt  # noqa: E402
 from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig  # noqa: E402
 
-B = 4096
-
 
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -47,6 +46,7 @@ def main() -> None:
         task_cfg = yaml.safe_load(f)
     with open(os.path.join(ROOT, "cfg", "train", f"{task}PPO.yaml")) as f:
         cfg = PPOConfig.from_rlgames(yaml.safe_load(f))
+    B = int(task_cfg["env"]["numEnvs"])
     env = tgt.make(task, num_envs=B, seed=0, cfg=task_cfg, device="cuda")
     ppo = PPO(env, cfg, device="cuda")
     ts = ppo.init(0)

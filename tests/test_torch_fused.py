@@ -12,7 +12,11 @@ pins the sampling point (the candidate before the shift). The pair mode
 (actor-pair contact and attractors) is held against its plain twin on
 BallBalance (the ball resting in the tray or pressed into a leg) and on the
 pair-capsule scene of tests/test_fused.py (sphere-capsule and capsule-capsule
-pairs against a fixed bar), and on a body held by two attractors. Tolerances of
+pairs against a fixed bar), and on a body held by two attractors. The box
+instance (block B6: sphere vs box, capsule vs box, box vs box) is held on the
+two-actor scenes of tests/test_fused.py's box-kind checks and a ball on a
+cube, and on AllegroHand (the cube on the palm and among the fingers, or
+pressed into the palm's edge), step by step (``STEPWISE``). Tolerances of
 tests/test_fused.py: q atol=rtol 2e-3, qd atol=rtol 2e-2, net atol 1.0 /
 rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine
 without it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
@@ -32,6 +36,7 @@ from thormang_isaacgym_tpu_torch.ops import fused
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
 from thormang_isaacgym_tpu_torch.tasks import ball_balance as bb
+from thormang_isaacgym_tpu_torch.tasks.allegro_hand import AllegroHand
 from thormang_isaacgym_tpu_torch.tasks.ant import Ant
 from thormang_isaacgym_tpu_torch.tasks.anymal import Anymal
 from thormang_isaacgym_tpu_torch.tasks.cartpole import Cartpole
@@ -100,6 +105,30 @@ HELD_URDF = """
 </link></robot>"""
 HELD_ATTRACTORS = ((0, (0.1, 0.0, 0.05), (0.3, -0.2, 0.6), 500.0, 5.0),
                    (0, (0.0, 0.0, 0.0), (0.2, -0.1, 0.4), 2.0e4, 100.0))
+
+
+# the two-actor scenes of tests/test_fused.py's box-kind checks, at altitude
+# (no ground contact): a cube 2 mm into a fixed cube (turned 5 degrees about
+# z: box vs box), a horizontal capsule 2 mm onto it (capsule vs box), and a
+# ball 2 mm onto it (sphere vs box)
+BOX_CUBE = """
+<robot name="cube"><link name="k"><inertial><mass value="0.5"/>
+  <inertia ixx="0.0008" iyy="0.0008" izz="0.0008" ixy="0" ixz="0" iyz="0"/>
+  </inertial>
+  <collision><geometry><box size="0.12 0.12 0.12"/></geometry></collision>
+</link></robot>"""
+BOX_POSES = dict(boxbox=(BOX_CUBE, (0.02, 0.01, 5.122, 0.9990482, 0.0, 0.0, 0.0436194)),
+                 capbox=(PAIR_CAP, (0.0, 0.0, 5.102, 0.7071068, 0, 0.7071068, 0)),
+                 spherebox=(PAIR_BALL, (0.01, -0.02, 5.108, 1, 0, 0, 0)))
+BOX_SP = dict(dt=1 / 60, substeps=1, contact_stiffness=2e4, contact_damping=500.0)
+
+
+def box_pair_scene(kind, load, compose_fn):
+    """One floating actor on a fixed cube, from either package's load_urdf
+    and compose: (scene, the floating root's pose)."""
+    urdf, pose = BOX_POSES[kind]
+    return compose_fn([(load(urdf), pose, "A/"),
+                       (load(BOX_CUBE, fix_base_link=True), (0.0, 0.0, 5.0, 1, 0, 0, 0), "B/")]), pose
 
 
 class _Held:
@@ -171,6 +200,43 @@ def ball_balance_q(task, rng, n):
     return q
 
 
+ALLEGRO_PALM_TOP = 0.54      # the Allegro palm box's top face, world z (hand base at z 0.5)
+ALLEGRO_PALM_EDGE = (-0.075, 0.54)   # its front top edge (along x): y, z
+
+
+def allegro_contact_q(model, rng, n):
+    """(n, nq) AllegroHand states with the cube in contact with the palm and
+    fingers, the fingers at 30 to 70 % of their joint ranges. The cube turned
+    at random; in three envs of four it lies on the palm top, its lowest
+    corner 0 to 6 mm in; in every fourth it presses 0 to 4 mm into the palm's
+    front top edge from the front and above, where an edge of the cube often
+    crosses that edge (the box-box edge-edge candidate)."""
+    q = np.zeros((n, model.nq), np.float32)
+    qr = rng.normal(size=(n, 4))
+    qr /= np.linalg.norm(qr, axis=1, keepdims=True)
+    w, x, y, z = qr.T
+    R = np.stack([np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+                  np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+                  np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1)],
+                 -2)
+    # the direction from the contact to the cube's centre, and the cube's
+    # half extent along it: 0.0325 sum_j |R[:, j] . u|
+    edge = np.arange(n) % 4 == 3
+    phi = rng.uniform(np.radians(15), np.radians(75), n)
+    u = np.where(edge[:, None], np.stack([np.zeros(n), -np.cos(phi), np.sin(phi)], 1), [0.0, 0.0, 1.0])
+    h = 0.0325 * np.abs(np.einsum("nij,ni->nj", R, u)).sum(-1)
+    p0 = np.where(edge[:, None], np.stack([rng.uniform(-0.03, 0.03, n), np.full(n, ALLEGRO_PALM_EDGE[0]),
+                                           np.full(n, ALLEGRO_PALM_EDGE[1])], 1),
+                  np.stack([rng.uniform(-0.02, 0.02, n), -0.04 + rng.uniform(-0.03, 0.03, n),
+                            np.full(n, ALLEGRO_PALM_TOP)], 1))
+    pen = np.where(edge, rng.uniform(0.0, 0.004, n), rng.uniform(0.0, 0.006, n))
+    q[:, 0:3] = p0 + u * (h - pen)[:, None]
+    q[:, 3:7] = qr
+    lo, hi = model._defaults["dof_lower"], model._defaults["dof_upper"]
+    q[:, 7:] = lo + (hi - lo) * rng.uniform(0.3, 0.7, (n, model.nj))
+    return q
+
+
 def _rot(qw, v):
     """Rotate v (n, 3) by the wxyz quaternions qw (n, 4), numpy."""
     w, u = qw[:, :1], qw[:, 1:]
@@ -198,14 +264,18 @@ extern "C" void host_launch(const int* mi, const float* mf, const float* hf, con
   for (int b = 0; b < B; ++b) {
     blockIdx.x = b / 128;
     threadIdx.x = b % 128;
-    if (hf && pairs)
-      fused_step_kernel<true, true>(mi, mf, hf, in, out, B);
+    if (hf && pairs == 2)
+      fused_step_kernel<true, true, true>(mi, mf, hf, in, out, B);
+    else if (hf && pairs == 1)
+      fused_step_kernel<true, true, false>(mi, mf, hf, in, out, B);
     else if (hf)
-      fused_step_kernel<true, false>(mi, mf, hf, in, out, B);
-    else if (pairs)
-      fused_step_kernel<false, true>(mi, mf, hf, in, out, B);
+      fused_step_kernel<true, false, false>(mi, mf, hf, in, out, B);
+    else if (pairs == 2)
+      fused_step_kernel<false, true, true>(mi, mf, hf, in, out, B);
+    else if (pairs == 1)
+      fused_step_kernel<false, true, false>(mi, mf, hf, in, out, B);
     else
-      fused_step_kernel<false, false>(mi, mf, hf, in, out, B);
+      fused_step_kernel<false, false, false>(mi, mf, hf, in, out, B);
   }
 }
 """
@@ -235,6 +305,12 @@ def _model(name):
         return pair_capsule_scene(load_urdf, compose), SimParams(**PAIR_SP), None, 0.0
     if name == "held":
         return load_urdf(HELD_URDF), SimParams(**PAIR_SP), _Held(), 0.0
+    if name in BOX_POSES:
+        return box_pair_scene(name, load_urdf, compose)[0], SimParams(**BOX_SP), None, 0.0
+    if name == "allegro_hand":
+        # the sim block of cfg/task/AllegroHand.yaml: dt 0.01667 s, 2 substeps
+        task = AllegroHand(num_envs=B, device="cpu")
+        return task.model, dataclasses.replace(task.sim_params, dt=0.01667), task, 0.0
     if name == "ball_balance":
         # the sim block of cfg/task/BallBalance.yaml: dt 0.01 s, 1 substep
         task = bb.BallBalance(num_envs=B, device="cpu")
@@ -271,6 +347,19 @@ def _inputs(name, model, task, device, ground=None):
     elif name == "pair_capsule":
         q = pair_capsule_q(rng, B)
         qd = rng.normal(size=(B, model.nv)) * 0.1
+    elif name == "allegro_hand":
+        q = allegro_contact_q(model, rng, B)
+        qd = rng.normal(size=(B, model.nv)) * 0.1
+    elif name in BOX_POSES:
+        # the scene's pose with 1 mm of noise in position and 0.02 in the quaternion
+        q = np.tile(BOX_POSES[name][1], (B, 1)) + np.concatenate(
+            [rng.normal(size=(B, 3)) * 0.001, rng.normal(size=(B, 4)) * 0.02], 1)
+        q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+        qd = rng.normal(size=(B, model.nv)) * 0.05
+        if name == "spherebox":
+            # the ball's centre inside the cube, at the same gap (exactly) from
+            # its +x and +y faces: the first face of least gap (x) wins
+            q[0] = [0.03, 0.03, 5.0, 1.0, 0.0, 0.0, 0.0]
     elif name == "held":
         q = np.zeros((B, 7))
         q[:, 0:3] = [0.2, -0.1, 0.5] + rng.normal(size=(B, 3)) * 0.1
@@ -334,8 +423,15 @@ def _assert_close(a, b):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=atol, rtol=rtol)
 
 
+# held step by step: AllegroHand's contacts are stiff against light links (a
+# 0.108 kg cube of inertia 7.6e-5 kg m^2 under added inertias up to
+# h c_t ~ 80 kg, friction_vel 0.01 m/s), so the last-bit differences of the
+# two versions' articulated solves grow several-fold per step; free running,
+# the versions part within 3 steps (qd 0.02, net 1.9 N of 1.5 kN)
+STEPWISE = {"allegro_hand"}
 HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
-              "ball_balance", "pair_capsule", "held"]
+              "ball_balance", "pair_capsule", "held", "boxbox", "capbox", "spherebox",
+              "allegro_hand"]
 
 
 def _step(model, sp, task, ground, device, need_torque=True):
@@ -352,11 +448,17 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
     qa, qda, qb, qdb = q, qd, q, qd
     touched = 0.0
     for _ in range(5):
+        if name in STEPWISE:
+            qa, qda = qb, qdb                    # each step from the plain version's state
         qa, qda, na = _host_call(host_kernel, step, params, qa, qda, ctrl, w)
         qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, w)
         _assert_close((qa, qda, na), (qb, qdb, nb_))
-        touched = max(touched, float((nb_[..., :3].abs().amax(-1) > 0).float().mean()))
-    if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule"):
+        rows = nb_[..., :3].abs().amax(-1) > 0
+        if name == "allegro_hand":               # the share of envs whose cube is touched
+            rows = rows[:, task.object_body]
+        touched = max(touched, float(rows.float().mean()))
+    if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
+                *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
 
 
@@ -389,8 +491,12 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
     params, q, qd, ctrl, w = _inputs(name, model, task, cuda_device, ground)
     qa, qda, qb, qdb = q, qd, q, qd
     for _ in range(5):
+        if name in STEPWISE:
+            qa, qda = qb, qdb                    # each step from the plain version's state
         qa, qda, na = step(params, qa, qda, ctrl, w)
         qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, w)
+        if name in STEPWISE:
+            _assert_close((qa, qda, na), (qb, qdb, nb_))
     torch.cuda.synchronize()
     _assert_close((qa, qda, na), (qb, qdb, nb_))
     assert step.launches == 5

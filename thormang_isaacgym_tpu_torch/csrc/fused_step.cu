@@ -4,36 +4,41 @@
 //
 // Replaces the TPU kernel `_make_kernel(...).kernel` launched by the
 // `pl.pallas_call` in `build_fused_step_fn` (thormang_isaacgym_tpu/ops/fused.py).
-// It computes what that kernel computes for feature blocks B1-B5 and B7:
+// It computes what that kernel computes for feature blocks B1-B7 but B4b:
 // implicit joint drives, passive damping / dry friction / limit springs,
 // forward kinematics, penalty ground contact with stability-clamped
 // coefficients and tanh-regularised Coulomb friction, actor-pair contact of
-// the round kinds and world-point attractors, the three-sweep Featherstone
+// every kind and world-point attractors, the three-sweep Featherstone
 // ABA with a 6x6 LDL^T solve per floating root, and semi-implicit Euler with
 // quaternion renormalisation, repeated n_steps times inside the kernel.
-// Fixed tendons (B4b) and the box kinds of the pair narrowphase (B6) are not
-// covered; the Python wrapper refuses such models.
+// Fixed tendons (B4b) are not covered; the Python wrapper refuses such models.
 //
-// Actor pairs (B5, round kinds) and attractors (B4a). The pair table lists
-// each geom pair of different actors: sphere vs sphere / capsule / cylinder
-// (the TPU kernel's "sphere" kind without its box branch) and capsule vs
-// capsule ("capcap"). Each pair is one contact candidate, looped over and
-// applied at once, as the ground candidates are: nothing per pair is stored.
-// The explicit part (spring kn_eff depth with kn_eff = min(kn, 0.25 m_red /
-// h^2) and the depenetration bound, minus D vn with D = h kn + kd, plus the
-// regularised-Coulomb friction) sums into a per-pair-body wrench; the
-// implicit reaction to the new velocity sums into a per-pair-body added
-// inertia (M_n - M_t) u u^T + M_t U U^T (the TPU kernel's _symI_rank1_add and
-// _symI_G_add), which joins IA after the body's own inertia. Both sums are
-// kept apart and added once, so they round as the plain version's dIA and
-// f_pair do. Sphere vs cylinder computes both the inside normal (face or
-// wall, whichever is nearer) and the outside one, then selects. Attractors
+// Actor pairs (B5, B6) and attractors (B4a). The pair table lists each geom
+// pair of different actors: sphere vs sphere / capsule / cylinder / box (the
+// TPU kernel's "sphere" kind), capsule vs capsule ("capcap"), capsule vs box
+// ("capbox", 4 candidates) and box vs box ("boxbox", 17 candidates). Each
+// candidate is applied at once, as the ground candidates are: nothing per
+// pair or candidate is stored. The explicit part (spring kn_eff depth with
+// kn_eff = min(kn, 0.25 m_red / h^2) and the depenetration bound, minus D vn
+// with D = h kn + kd, plus the regularised-Coulomb friction) sums into a
+// per-pair-body wrench; the implicit reaction to the new velocity sums into a
+// per-pair-body added inertia (M_n - M_t) u u^T + M_t U U^T (the TPU kernel's
+// _symI_rank1_add and _symI_G_add), which joins IA after the body's own
+// inertia. Both sums are kept apart and added once, so they round as the
+// plain version's dIA and f_pair do. Sphere vs cylinder computes both the
+// inside normal (face or wall, whichever is nearer) and the outside one, then
+// selects. The box kinds (B6) follow the TPU kernel: the capsule's closest
+// axis point by the same 18-step ternary search, and box vs box in its closed
+// forms over R = A^T B (the plain version, like the JAX op path, uses the
+// direct vector forms; both choose the first minimum on ties). Attractors
 // pull a body point toward a world target with kp, kd clamped to the point's
 // effective mass (the body mass, or I_min / |p|^2 when smaller). The blocks
-// are the template parameter kPA: the instances without them are the flat
-// and heightfield kernels as they were (167 and 163 registers, 20,864- and
-// 22,400-byte stacks on sm_90a); the flat instance with them uses 241
-// registers and a 22,592-byte stack (ptxas -v).
+// are the template parameters kPA (pairs and attractors) and kBX (the box
+// kinds): the instances without them are the flat and heightfield kernels as
+// they were (167 and 163 registers, 20,864- and 22,400-byte stacks on
+// sm_90a); the flat instance with pairs uses 241 registers and a 22,592-byte
+// stack, as it did before the box kinds, and the box instance 232 registers
+// and a 22,896-byte stack (ptxas -v, CUDA 12.8).
 //
 // Heightfield ground (B7). The TPU kernel reads, per contact candidate, a
 // local ground plane z = c + gx x + gy y that a separate sampler computed at
@@ -78,9 +83,11 @@
 // for the planes) is bound by operations: 5.41 us for 88.5k operations per
 // env against 3.08 us for 10.3 MB. BallBalance in the pair instance (287
 // input + 71 output rows; 1 substep of 18.8k operations, 5.2k of them for the
-// 7 pairs) is bound by bytes: 1.75 us for 5.9 MB. No bound is close (0.12,
-// 0.37-0.39 and 0.097 ms measured on an H100 at 700 W): this simple design is
-// bound by latency. q, qd and the 21-float articulated inertias live in per-thread
+// 7 pairs) is bound by bytes: 1.75 us for 5.9 MB. AllegroHand in the box
+// instance at 16384 envs (640 input + 111 output rows; 2 substeps of 88.6k
+// operations, 65 pair candidates) is bound by operations: 43 us for 2.9
+// GFLOP. No bound is close (0.12, 0.37-0.40, 0.097 and 1.0 ms measured on an
+// H100 at 700 W): this simple design is bound by latency. q, qd and the 21-float articulated inertias live in per-thread
 // local memory (spills are accepted), 4096 envs make only 32 blocks of 128
 // threads (32 of 132 SMs busy), and the per-env model parameters are re-read
 // from the input slab in every substep. What it leaves on the table: smaller
@@ -104,7 +111,7 @@ constexpr int kMaxRoots = 8;    // MAX_ROOTS in ops/fused.py
 constexpr int kMaxCands = 128;  // MAX_CANDIDATES in ops/fused.py
 constexpr int kMaxPairBodies = 16;  // MAX_PAIR_BODIES in ops/fused.py
 constexpr int kPairInts = 6;    // per pair: geom a, geom b, body a, body b, kind, geom type of b
-constexpr int kPairFloats = 19; // per pair: sizes a (2), b (2), r_a + r_b, geom poses a, b (7 + 7)
+constexpr int kPairFloats = 21; // per pair: sizes a (3), b (3), r_a + r_b, geom poses a, b (7 + 7)
 constexpr int kAttrFloats = 9;  // per attractor: local point, target, kp, kd, |p|^2 + 1e-6 or 0
 constexpr float kLockBig = 1e12f;
 constexpr float kJointFrictionVel = 0.05f;
@@ -332,9 +339,223 @@ __device__ __forceinline__ void hf_plane(const float* hf, int H, int W, float hs
   out[2] = gy;
 }
 
+__device__ __forceinline__ float sgnf(float x) { return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f); }
+
+// ---- B6: the box kinds of the pair narrowphase. Each candidate goes to
+// `emit(n, depth, cp)` (n from a toward b) at once; none is stored. ----
+
+// sphere (center, r) vs box (pb, qb, half extents h): outside along the box's
+// closest point, inside out of the face of least gap (the first on ties)
+__device__ __forceinline__ void sphere_box(V3 center, float r, V3 pb, Q4 qb, V3 h, V3& n,
+                                           float& depth, V3& cp) {
+  const V3 l = qrotinv(qb, sub(center, pb));
+  const V3 cl = {clampf(l.x, -h.x, h.x), clampf(l.y, -h.y, h.y), clampf(l.z, -h.z, h.z)};
+  const bool inside = fabsf(l.x) < h.x && fabsf(l.y) < h.y && fabsf(l.z) < h.z;
+  const V3 d_out = sub(l, cl);
+  const float dist_out = sqrtf(dot(d_out, d_out)) + 1e-9f;
+  const float g0 = h.x - fabsf(l.x), g1 = h.y - fabsf(l.y), g2 = h.z - fabsf(l.z);
+  const bool k0 = g0 <= g1 && g0 <= g2, k1 = !(g0 <= g1) && g1 <= g2;
+  const float gap = k0 ? g0 : (k1 ? g1 : g2);
+  const V3 o_in = {sgnf(l.x) * (k0 ? 1.0f : 0.0f), sgnf(l.y) * (k1 ? 1.0f : 0.0f),
+                   sgnf(l.z) * (k0 || k1 ? 0.0f : 1.0f)};
+  const V3 o = qrot(qb, inside ? o_in : V3{d_out.x / dist_out, d_out.y / dist_out, d_out.z / dist_out});
+  depth = inside ? r + gap : r - dist_out;
+  n = {-o.x, -o.y, -o.z};
+  cp = add(center, scl(n, r));
+}
+
+// capsule a (radius r1, half length h1) vs box b: spheres at the axis points
+// t = 0, t_opt, 1/2, 1 (the TPU kernel's "capbox", fused.py:597-631). t_opt
+// minimises the segment's distance to the box by an 18-step ternary search,
+// step for step as the TPU kernel; it is masked off within 2 % of an end or
+// of the middle.
+template <class Emit>
+__device__ void capsule_box(V3 pa, Q4 qa, float r1, float h1, V3 pb, Q4 qb, V3 h, Emit& emit) {
+  const V3 axis = qrot(qa, {0.0f, 0.0f, 1.0f});
+  const V3 p0 = qrotinv(qb, sub(sub(pa, scl(axis, h1)), pb));
+  const V3 p1 = qrotinv(qb, sub(add(pa, scl(axis, h1)), pb));
+  const V3 dp = sub(p1, p0);
+  auto seg_dist = [&](float t) {
+    const V3 p = add(p0, scl(dp, t));
+    const V3 d = sub(p, {clampf(p.x, -h.x, h.x), clampf(p.y, -h.y, h.y), clampf(p.z, -h.z, h.z)});
+    return sqrtf(dot(d, d));
+  };
+  float lo = 0.0f, hi = 1.0f;
+  for (int it = 0; it < 18; ++it) {
+    const float span = hi - lo;
+    const float m1 = lo + span * 0.33333334f, m2 = hi - span * 0.33333334f;
+    const bool left = seg_dist(m1) < seg_dist(m2);
+    lo = left ? lo : m1;
+    hi = left ? m2 : hi;
+  }
+  const float t_opt = (lo + hi) * 0.5f;
+  const bool interior = t_opt > 0.02f && t_opt < 0.98f && fabsf(t_opt - 0.5f) > 0.02f;
+  const float ts[4] = {0.0f, t_opt, 0.5f, 1.0f};
+  for (int c = 0; c < 4; ++c) {
+    V3 n, cp;
+    float depth;
+    sphere_box(add(pa, scl(axis, h1 * (2.0f * ts[c] - 1.0f))), r1, pb, qb, h, n, depth, cp);
+    emit(n, (c != 1 || interior) ? depth : -1.0f, cp);
+  }
+}
+
+// box a vs box b (half extents ha, hb): the TPU kernel's _s_box_box
+// (fused.py:640-838), Gottschalk's OBB separating-axis test in closed form
+// over R[i][j] = A_i . B_j and the centre offset d on each box's axes. The
+// face axis of least overlap (A's three, then B's, first minimum) is the
+// normal of 8 + 8 corner candidates: A's corners inside B, then B's inside A;
+// then the edge-edge candidate of the least-overlap cross axis A_i x B_j
+// (a degenerate one never wins), active when all 15 axes overlap and it beats
+// the least face overlap by 1 %.
+template <class Emit>
+__device__ void box_box(V3 pa, Q4 qa, const float* ha, V3 pb, Q4 qb, const float* hb, Emit& emit) {
+  float Ma[9], Mb[9];
+  qtomat(qa, Ma);
+  qtomat(qb, Mb);
+  V3 A[3], Bv[3];
+  for (int j = 0; j < 3; ++j) {
+    A[j] = {Ma[j], Ma[3 + j], Ma[6 + j]};
+    Bv[j] = {Mb[j], Mb[3 + j], Mb[6 + j]};
+  }
+  const V3 d = sub(pb, pa);
+  float R[3][3], aR[3][3], haR[3][3], hbR[3][3], dA[3], dB[3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      R[i][j] = dot(A[i], Bv[j]);
+      aR[i][j] = fabsf(R[i][j]);
+    }
+  for (int i = 0; i < 3; ++i) {
+    dA[i] = dot(d, A[i]);
+    dB[i] = dot(d, Bv[i]);
+  }
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      haR[i][j] = ha[i] * R[i][j];
+      hbR[i][j] = hb[j] * R[i][j];
+    }
+  float projB_on_A[3], projA_on_B[3], ovf[6];
+  for (int i = 0; i < 3; ++i) {
+    projB_on_A[i] = aR[i][0] * hb[0] + aR[i][1] * hb[1] + aR[i][2] * hb[2];
+    projA_on_B[i] = aR[0][i] * ha[0] + aR[1][i] * ha[1] + aR[2][i] * ha[2];
+  }
+  for (int i = 0; i < 3; ++i) {
+    ovf[i] = (ha[i] + projB_on_A[i]) - fabsf(dA[i]);
+    ovf[3 + i] = (projA_on_B[i] + hb[i]) - fabsf(dB[i]);
+  }
+  // the face axis of least overlap: its direction, d along it, both boxes'
+  // half extents along it, and its coordinates on A's and B's axes
+  int kf = 0;
+  for (int k = 1; k < 6; ++k)
+    if (ovf[k] < ovf[kf]) kf = k;
+  V3 n_raw;
+  float dn, hA_n, hB_n, nA[3], nB[3];
+  if (kf < 3) {
+    n_raw = A[kf];
+    dn = dA[kf];
+    hA_n = ha[kf];
+    hB_n = projB_on_A[kf];
+    for (int i = 0; i < 3; ++i) {
+      nA[i] = i == kf ? 1.0f : 0.0f;
+      nB[i] = R[kf][i];
+    }
+  } else {
+    const int j = kf - 3;
+    n_raw = Bv[j];
+    dn = dB[j];
+    hA_n = projA_on_B[j];
+    hB_n = hb[j];
+    for (int i = 0; i < 3; ++i) {
+      nA[i] = R[i][j];
+      nB[i] = i == j ? 1.0f : 0.0f;
+    }
+  }
+  const float s_n = sgnf(dn + 1e-12f);
+  const V3 n = scl(n_raw, s_n);
+  const float dn_s = dn * s_n;
+  float ha_nA[3], hb_nB[3];
+  for (int i = 0; i < 3; ++i) {
+    ha_nA[i] = ha[i] * (nA[i] * s_n);
+    hb_nB[i] = hb[i] * (nB[i] * s_n);
+  }
+  V3 hA_vec[3], hB_vec[3];
+  for (int i = 0; i < 3; ++i) {
+    hA_vec[i] = scl(A[i], ha[i]);
+    hB_vec[i] = scl(Bv[i], hb[i]);
+  }
+  // corners of A inside B: depth (pv - pb) . n + hB_n, from the tables
+  for (int c = 0; c < 8; ++c) {
+    const float s0 = (c & 4) ? 1.0f : -1.0f, s1 = (c & 2) ? 1.0f : -1.0f, s2 = (c & 1) ? 1.0f : -1.0f;
+    const V3 pv = add(add(add(pa, scl(hA_vec[0], s0)), scl(hA_vec[1], s1)), scl(hA_vec[2], s2));
+    bool inside = true;
+    for (int k = 0; k < 3; ++k) {
+      const float l = ((-dB[k] + s0 * haR[0][k]) + s1 * haR[1][k]) + s2 * haR[2][k];
+      inside = inside && fabsf(l) < hb[k];
+    }
+    const float dv_n = ((-dn_s + s0 * ha_nA[0]) + s1 * ha_nA[1]) + s2 * ha_nA[2];
+    emit(n, inside ? dv_n + hB_n : -1.0f, pv);
+  }
+  // corners of B inside A: depth hA_n - (pv - pa) . n
+  for (int c = 0; c < 8; ++c) {
+    const float s0 = (c & 4) ? 1.0f : -1.0f, s1 = (c & 2) ? 1.0f : -1.0f, s2 = (c & 1) ? 1.0f : -1.0f;
+    const V3 pv = add(add(add(pb, scl(hB_vec[0], s0)), scl(hB_vec[1], s1)), scl(hB_vec[2], s2));
+    bool inside = true;
+    for (int k = 0; k < 3; ++k) {
+      const float l = ((dA[k] + s0 * hbR[k][0]) + s1 * hbR[k][1]) + s2 * hbR[k][2];
+      inside = inside && fabsf(l) < ha[k];
+    }
+    const float dv_n = ((dn_s + s0 * hb_nB[0]) + s1 * hb_nB[1]) + s2 * hb_nB[2];
+    emit(n, inside ? hA_n - dv_n : -1.0f, pv);
+  }
+  float min_f = ovf[0];
+  bool all_f = ovf[0] > 0.0f;
+  for (int k = 1; k < 6; ++k) {
+    min_f = fminf(min_f, ovf[k]);
+    all_f = all_f && ovf[k] > 0.0f;
+  }
+  // the edge-edge candidate. L = A_i x B_j: |L|^2 = 1 - R[i][j]^2,
+  // A_(i+1).L = -R[i+2][j], A_(i+2).L = R[i+1][j], B_(j+1).L = R[i][j+2],
+  // B_(j+2).L = -R[i][j+1], d.L = dA[i+2] R[i+1][j] - dA[i+1] R[i+2][j]
+  float best_e = 0.0f;
+  V3 n_e = {0.0f, 0.0f, 0.0f}, cp_e = {0.0f, 0.0f, 0.0f};
+  bool all_e = true;
+  for (int i = 0; i < 3; ++i) {
+    const int i1 = (i + 1) % 3, i2 = (i + 2) % 3;
+    for (int j = 0; j < 3; ++j) {
+      const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
+      const float len2 = 1.0f - R[i][j] * R[i][j];
+      const float nrm = sqrtf(fmaxf(len2, 1e-12f));
+      const float inv_n = 1.0f / fmaxf(nrm, 1e-6f);
+      const float dLd = dA[i2] * R[i1][j] - dA[i1] * R[i2][j];
+      const float proj_a = ha[i1] * aR[i2][j] + ha[i2] * aR[i1][j];
+      const float proj_b = hb[j1] * aR[i][j2] + hb[j2] * aR[i][j1];
+      const float ov = nrm < 1e-6f ? INFINITY : ((proj_a + proj_b) - fabsf(dLd)) * inv_n;
+      const float s_L = sgnf(dLd);
+      const float sa1 = sgnf(-R[i2][j] * s_L), sa2 = sgnf(R[i1][j] * s_L);
+      const float sb1 = sgnf(R[i][j2] * s_L), sb2 = sgnf(-R[i][j1] * s_L);
+      all_e = all_e && ov > 0.0f;
+      if (i == 0 && j == 0 ? false : !(ov < best_e)) continue;
+      best_e = ov;
+      n_e = scl(cross(A[i], Bv[j]), inv_n * s_L);
+      const V3 ca = add(pa, add(scl(hA_vec[i1], sa1), scl(hA_vec[i2], sa2)));
+      const V3 cb = sub(pb, add(scl(hB_vec[j1], sb1), scl(hB_vec[j2], sb2)));
+      // closest points of the two support edges, from the tables
+      const float b_ = R[i][j];
+      const float denom = fmaxf(1.0f - b_ * b_, 1e-6f);
+      const float ear0 = (dA[i] - sb1 * hbR[i][j1]) - sb2 * hbR[i][j2];
+      const float ebr0 = (dB[j] - sa1 * haR[i1][j]) - sa2 * haR[i2][j];
+      const float s = clampf((ear0 - b_ * ebr0) / denom, -ha[i], ha[i]);
+      const float t = clampf((b_ * ear0 - ebr0) / denom, -hb[j], hb[j]);
+      cp_e = scl(add(add(ca, scl(A[i], s)), add(cb, scl(Bv[j], t))), 0.5f);
+    }
+  }
+  const bool active = all_e && all_f && best_e < min_f * 0.99f;
+  emit(n_e, active ? best_e : -1.0f, cp_e);
+}
+
 // kHF: heightfield ground (the launcher picks it when it is given a table);
-// kPA: actor pairs and attractors (the launcher picks it on the wrapper's flag)
-template <bool kHF, bool kPA>
+// kPA: actor pairs and attractors, kBX: with the box kinds of the pair
+// narrowphase (the launcher picks both on the wrapper's flag)
+template <bool kHF, bool kPA, bool kBX>
 __global__ void __launch_bounds__(128)
 fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
                   const float* __restrict__ hf, const float* __restrict__ in,
@@ -562,67 +783,10 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
         for (int k = 0; k < 9; ++k) dacc[s].B[k] = 0.0f;
       }
       // ---- actor pairs: narrowphase, explicit spring + friction, implicit reaction ----
-      for (int k = 0; k < n_pairs; ++k) {
-        const int* pi = pair_i + kPairInts * k;
-        const float* pf = pair_f + kPairFloats * k;
-        const int ga = pi[0], gb = pi[1], ba = pi[2], bb = pi[3];
-        const Q4 qa = qmul(quat_w[ba], {pf[8], pf[9], pf[10], pf[11]});
-        const V3 pa = add(pos_w[ba], qrot(quat_w[ba], {pf[5], pf[6], pf[7]}));
-        const Q4 qb = qmul(quat_w[bb], {pf[15], pf[16], pf[17], pf[18]});
-        const V3 pb = add(pos_w[bb], qrot(quat_w[bb], {pf[12], pf[13], pf[14]}));
-        V3 n, cp;
-        float depth;
-        if (pi[4] == 0 && pi[5] == 3) {
-          // sphere (a) vs cylinder (b), a flat disk: closest point in its frame;
-          // inside, the nearer of face and wall; both sides computed, then selected
-          const float ra = pf[0], R = pf[2], hw = pf[3];
-          const V3 l = qrotinv(qb, sub(pa, pb));
-          const float r_xy = sqrtf(l.x * l.x + l.y * l.y) + 1e-9f;
-          const float sc = fminf(R / r_xy, 1.0f);
-          const V3 cl = {l.x * sc, l.y * sc, clampf(l.z, -hw, hw)};
-          const V3 d_out = sub(l, cl);
-          const float dist_out = sqrtf(dot(d_out, d_out)) + 1e-9f;
-          const bool inside = (r_xy < R) && (fabsf(l.z) < hw);
-          const float face_gap = hw - fabsf(l.z), wall_gap = R - r_xy;
-          const float sgn = l.z > 0.0f ? 1.0f : (l.z < 0.0f ? -1.0f : 0.0f);
-          const V3 n_face = {0.0f, 0.0f, sgn};
-          const V3 n_wall = {l.x / r_xy, l.y / r_xy, 0.0f};
-          const V3 n_in = face_gap < wall_gap ? n_face : n_wall;
-          const V3 n_out = {d_out.x / dist_out, d_out.y / dist_out, d_out.z / dist_out};
-          const V3 o = qrot(qb, inside ? n_in : n_out);
-          depth = inside ? ra + fminf(face_gap, wall_gap) : ra - dist_out;
-          n = {-o.x, -o.y, -o.z};
-          cp = add(pa, scl(n, ra));
-        } else {
-          // sphere vs sphere / capsule, capsule vs capsule: closest points
-          V3 c1 = pa, c2 = pb;
-          if (pi[4] == 0 && pi[5] == 1) {
-            const float hl = pf[3];
-            const V3 axis = qrot(qb, {0.0f, 0.0f, 1.0f});
-            const float t = clampf(dot(sub(pa, pb), axis), -hl, hl);
-            c2 = add(pb, scl(axis, t));
-          } else if (pi[4] == 1) {
-            const float h1 = pf[1], h2c = pf[3];
-            const V3 a1 = qrot(qa, {0.0f, 0.0f, 1.0f}), a2 = qrot(qb, {0.0f, 0.0f, 1.0f});
-            const V3 P1 = sub(pa, scl(a1, h1)), Q1 = add(pa, scl(a1, h1));
-            const V3 P2 = sub(pb, scl(a2, h2c)), Q2 = add(pb, scl(a2, h2c));
-            const V3 d1 = sub(Q1, P1), d2 = sub(Q2, P2), r0 = sub(P1, P2);
-            const float a_ = dot(d1, d1) + 1e-9f, e_ = dot(d2, d2) + 1e-9f;
-            const float b_ = dot(d1, d2), c_ = dot(d1, r0), f_ = dot(d2, r0);
-            const float denom = a_ * e_ - b_ * b_;
-            const bool nz = fabsf(denom) > 1e-9f;
-            float s = nz ? clampf((b_ * f_ - c_ * e_) / denom, 0.0f, 1.0f) : 0.0f;
-            const float t = clampf((b_ * s + f_) / e_, 0.0f, 1.0f);
-            s = clampf((b_ * t - c_) / a_, 0.0f, 1.0f);
-            c1 = add(P1, scl(d1, s));
-            c2 = add(P2, scl(d2, t));
-          }
-          const V3 d = sub(c2, c1);
-          const float dist = sqrtf(dot(d, d)) + 1e-9f;
-          n = {d.x / dist, d.y / dist, d.z / dist};
-          depth = pf[4] - dist;
-          cp = add(c1, scl(n, pf[0] - depth * 0.5f));
-        }
+      // one contact candidate of the pair (geoms ga, gb on bodies ba, bb), applied
+      // at once: the explicit force into pacc, the implicit reaction into dacc
+      int ga = 0, gb = 0, ba = 0, bb = 0;
+      auto contact = [&](V3 n, float depth, V3 cp) {
         const bool active = depth > 0.0f;
         const float act = active ? 1.0f : 0.0f;
         const V3 arm_a = sub(cp, pos_w[ba]), arm_b = sub(cp, pos_w[bb]);
@@ -660,6 +824,78 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
           symI_G_add(D, r_l, M_t);
           symI_rank1_add(D, u, M_n - M_t);
         }
+      };
+      for (int k = 0; k < n_pairs; ++k) {
+        const int* pi = pair_i + kPairInts * k;
+        const float* pf = pair_f + kPairFloats * k;
+        ga = pi[0], gb = pi[1], ba = pi[2], bb = pi[3];
+        const Q4 qa = qmul(quat_w[ba], {pf[10], pf[11], pf[12], pf[13]});
+        const V3 pa = add(pos_w[ba], qrot(quat_w[ba], {pf[7], pf[8], pf[9]}));
+        const Q4 qb = qmul(quat_w[bb], {pf[17], pf[18], pf[19], pf[20]});
+        const V3 pb = add(pos_w[bb], qrot(quat_w[bb], {pf[14], pf[15], pf[16]}));
+        if (kBX && pi[4] == 2) {                      // capsule vs box: 4 candidates
+          capsule_box(pa, qa, pf[0], pf[1], pb, qb, {pf[3], pf[4], pf[5]}, contact);
+          continue;
+        }
+        if (kBX && pi[4] == 3) {                      // box vs box: 17 candidates
+          box_box(pa, qa, pf, pb, qb, pf + 3, contact);
+          continue;
+        }
+        V3 n, cp;
+        float depth;
+        if (kBX && pi[4] == 0 && pi[5] == 2) {
+          sphere_box(pa, pf[0], pb, qb, {pf[3], pf[4], pf[5]}, n, depth, cp);
+        } else if (pi[4] == 0 && pi[5] == 3) {
+          // sphere (a) vs cylinder (b), a flat disk: closest point in its frame;
+          // inside, the nearer of face and wall; both sides computed, then selected
+          const float ra = pf[0], R = pf[3], hw = pf[4];
+          const V3 l = qrotinv(qb, sub(pa, pb));
+          const float r_xy = sqrtf(l.x * l.x + l.y * l.y) + 1e-9f;
+          const float sc = fminf(R / r_xy, 1.0f);
+          const V3 cl = {l.x * sc, l.y * sc, clampf(l.z, -hw, hw)};
+          const V3 d_out = sub(l, cl);
+          const float dist_out = sqrtf(dot(d_out, d_out)) + 1e-9f;
+          const bool inside = (r_xy < R) && (fabsf(l.z) < hw);
+          const float face_gap = hw - fabsf(l.z), wall_gap = R - r_xy;
+          const V3 n_face = {0.0f, 0.0f, sgnf(l.z)};
+          const V3 n_wall = {l.x / r_xy, l.y / r_xy, 0.0f};
+          const V3 n_in = face_gap < wall_gap ? n_face : n_wall;
+          const V3 n_out = {d_out.x / dist_out, d_out.y / dist_out, d_out.z / dist_out};
+          const V3 o = qrot(qb, inside ? n_in : n_out);
+          depth = inside ? ra + fminf(face_gap, wall_gap) : ra - dist_out;
+          n = {-o.x, -o.y, -o.z};
+          cp = add(pa, scl(n, ra));
+        } else {
+          // sphere vs sphere / capsule, capsule vs capsule: closest points
+          V3 c1 = pa, c2 = pb;
+          if (pi[4] == 0 && pi[5] == 1) {
+            const float hl = pf[4];
+            const V3 axis = qrot(qb, {0.0f, 0.0f, 1.0f});
+            const float t = clampf(dot(sub(pa, pb), axis), -hl, hl);
+            c2 = add(pb, scl(axis, t));
+          } else if (pi[4] == 1) {
+            const float h1 = pf[1], h2c = pf[4];
+            const V3 a1 = qrot(qa, {0.0f, 0.0f, 1.0f}), a2 = qrot(qb, {0.0f, 0.0f, 1.0f});
+            const V3 P1 = sub(pa, scl(a1, h1)), Q1 = add(pa, scl(a1, h1));
+            const V3 P2 = sub(pb, scl(a2, h2c)), Q2 = add(pb, scl(a2, h2c));
+            const V3 d1 = sub(Q1, P1), d2 = sub(Q2, P2), r0 = sub(P1, P2);
+            const float a_ = dot(d1, d1) + 1e-9f, e_ = dot(d2, d2) + 1e-9f;
+            const float b_ = dot(d1, d2), c_ = dot(d1, r0), f_ = dot(d2, r0);
+            const float denom = a_ * e_ - b_ * b_;
+            const bool nz = fabsf(denom) > 1e-9f;
+            float s = nz ? clampf((b_ * f_ - c_ * e_) / denom, 0.0f, 1.0f) : 0.0f;
+            const float t = clampf((b_ * s + f_) / e_, 0.0f, 1.0f);
+            s = clampf((b_ * t - c_) / a_, 0.0f, 1.0f);
+            c1 = add(P1, scl(d1, s));
+            c2 = add(P2, scl(d2, t));
+          }
+          const V3 d = sub(c2, c1);
+          const float dist = sqrtf(dot(d, d)) + 1e-9f;
+          n = {d.x / dist, d.y / dist, d.z / dist};
+          depth = pf[6] - dist;
+          cp = add(c1, scl(n, pf[0] - depth * 0.5f));
+        }
+        contact(n, depth, cp);
       }
       for (int bi = 0; bi < nb; ++bi) {
         const int s = pair_slot[bi];
@@ -858,8 +1094,9 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 
 // Plain C entry point for ctypes. Returns cudaGetLastError() after the
 // launch (0 = success); the launch is asynchronous on `stream`.
-// `hf` is the heightfield table in heightfield mode, else null; `pairs` != 0
-// picks the instance with the actor-pair and attractor blocks.
+// `hf` is the heightfield table in heightfield mode, else null; `pairs` picks
+// the instance: 0 without the actor-pair and attractor blocks, 1 with them
+// (the round kinds), 2 with the box kinds too.
 extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
                                  const void* in, void* out, int B, int pairs, void* stream) {
   if (B <= 0) return 0;
@@ -871,13 +1108,20 @@ extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
   const float* hf_ = static_cast<const float*>(hf);
   const float* in_ = static_cast<const float*>(in);
   float* out_ = static_cast<float*>(out);
-  if (hf_ && pairs)
-    fused_step_kernel<true, true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
-  else if (hf_)
-    fused_step_kernel<true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
-  else if (pairs)
-    fused_step_kernel<false, true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
-  else
-    fused_step_kernel<false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+  if (hf_) {
+    if (pairs == 2)
+      fused_step_kernel<true, true, true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+    else if (pairs == 1)
+      fused_step_kernel<true, true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+    else
+      fused_step_kernel<true, false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+  } else {
+    if (pairs == 2)
+      fused_step_kernel<false, true, true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+    else if (pairs == 1)
+      fused_step_kernel<false, true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+    else
+      fused_step_kernel<false, false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,24 @@
 """Actor-vs-actor narrowphase with an implicit normal solve, batched over envs.
 
-Port of ``thormang_isaacgym_tpu/ops/collide.py`` for the ROUND kinds:
+Port of ``thormang_isaacgym_tpu/ops/collide.py`` (the JAX op path), every
+kind:
 
-  "sphere"  sphere vs sphere / capsule / cylinder  -> 1 point
-  "capcap"  capsule vs capsule (segment-segment)   -> 1 point
+  "sphere"  sphere vs sphere / capsule / cylinder / box  -> 1 point
+  "capcap"  capsule vs capsule (segment-segment)         -> 1 point
+  "capbox"  capsule vs box                               -> 4 points
+  "boxbox"  box vs box                                   -> 17 points
 
 Pairs are enumerated once per model between geoms of DIFFERENT actors (no
 self-collision within an actor); every candidate is evaluated for every env
-and masked by penetration. The box kinds (sphere vs box, "capbox",
-"boxbox") are not ported: a model that has one raises NotImplementedError
-(:func:`check_round`).
+and masked by penetration. Capsule vs box tests spheres at the two axis end
+points, the axis midpoint and the closest axis point to the box, which an
+18-step ternary search finds (masked off near an end or the middle). Box vs
+box shares the pair's minimum-overlap face axis (SAT over the 6 face axes,
+first minimum) among 8 + 8 corner-inside candidates, plus the edge-edge
+candidate of the minimum-overlap cross axis, active only when all 15 axes
+overlap and that edge axis beats every face axis by 1 %. This is the plain
+version of the fused kernel's block B6; the kernel computes box vs box in
+the TPU kernel's closed forms (``csrc/fused_step.cu``), the same function.
 
 Contact model: a backward-Euler normal, f_n(t+h) = kn depth - D vn(t+h)
 with D = h kn + kd. The spring (clamped to kn <= 0.25 m_red / h^2 for the
@@ -73,19 +82,14 @@ def has_pairs(model: RobotModel) -> bool:
     return len(pairs(model)) > 0
 
 
+def has_box_pairs(model: RobotModel) -> bool:
+    """A pair of a box kind: sphere vs box, capsule vs box, box vs box."""
+    return any(k in ("capbox", "boxbox") or model.geoms[ib].gtype == GEOM_BOX
+               for _, ib, k in pairs(model))
+
+
 def pair_candidate_count(model: RobotModel) -> int:
     return sum(CANDIDATES_PER_KIND[k] for (_, _, k) in pairs(model))
-
-
-def check_round(model: RobotModel) -> None:
-    """Raise NotImplementedError for a pair of a box kind (not ported)."""
-    for ia, ib, kind in pairs(model):
-        if kind not in ("sphere", "capcap") or model.geoms[ib].gtype == GEOM_BOX:
-            ga, gb = model.geoms[ia], model.geoms[ib]
-            raise NotImplementedError(
-                f"actor-pair contact of a box kind ({kind}: {ga.name!r} vs {gb.name!r}) "
-                f"is not ported; the round kinds are (sphere vs sphere / capsule / "
-                f"cylinder, capsule vs capsule)")
 
 
 def _dot(a, b):
@@ -100,7 +104,6 @@ def _cross(a, b):
 def candidates(model: RobotModel, frames: BodyFrames) -> list:
     """Every contact candidate: [(geom_a, geom_b, body_a, body_b, n (B, 3)
     unit normal a -> b, depth (B,), cp (B, 3) world contact point)]."""
-    check_round(model)
     dev, f32 = frames.pos.device, frames.pos.dtype
     zhat = torch.tensor([0.0, 0.0, 1.0], device=dev, dtype=f32)
 
@@ -131,6 +134,8 @@ def candidates(model: RobotModel, frames: BodyFrames) -> list:
                 n = d / dist[..., None]
                 depth = (ra + float(gb.size[0])) - dist
                 cp = pa + n * (ra - depth * 0.5)[..., None]
+            elif gb.gtype == GEOM_BOX:
+                n, depth, cp = _sphere_box_point(pa, ra, pb, qb, gb.size)
             else:  # cylinder: a flat disk (the tray), closest point in its frame
                 R_cyl, hw = float(gb.size[0]), float(gb.size[1])
                 local = Q.rotate_inv(qb, pa - pb)
@@ -152,6 +157,14 @@ def candidates(model: RobotModel, frames: BodyFrames) -> list:
                                     ra - dist_out)
                 n = -Q.rotate(qb, out_local)
                 cp = pa + n * ra
+        elif kind == "capbox":
+            out.extend((ia, ib, ga.body, gb.body) + c
+                       for c in _capsule_box_candidates(pa, qa, ga.size, pb, qb, gb.size))
+            continue
+        elif kind == "boxbox":
+            out.extend((ia, ib, ga.body, gb.body) + c
+                       for c in _box_box_candidates(pa, qa, ga.size, pb, qb, gb.size))
+            continue
         else:  # capcap: closest points of the two axis segments
             r1, h1 = float(ga.size[0]), float(ga.size[1])
             r2, h2 = float(gb.size[0]), float(gb.size[1])
@@ -181,6 +194,168 @@ def candidates(model: RobotModel, frames: BodyFrames) -> list:
             cp = c1 + n * (r1 - depth * 0.5)[..., None]
         out.append((ia, ib, ga.body, gb.body, n, depth, cp))
     return out
+
+
+def _sphere_box_point(center, r, box_pos, box_quat, half):
+    """Sphere (center (B, 3), radius r) vs box (half extents `half`): (n
+    a -> b, depth, cp). Outside, along the box's closest point; inside, out
+    of the face of least gap (the first on ties)."""
+    h = torch.tensor([float(x) for x in half], dtype=center.dtype, device=center.device)
+    local = Q.rotate_inv(box_quat, center - box_pos)
+    clamped = torch.clamp(local, -h, h)
+    inside = (torch.abs(local) < h).all(-1)
+    d_out = local - clamped
+    dist_out = torch.sqrt(_dot(d_out, d_out)) + 1e-9
+    face_gap = h - torch.abs(local)
+    k = torch.argmin(face_gap, dim=-1, keepdim=True)
+    onehot = torch.zeros_like(local).scatter_(-1, k, 1.0)
+    out_local = torch.where(inside[..., None], torch.sign(local) * onehot,
+                            d_out / dist_out[..., None])
+    depth = torch.where(inside, float(r) + face_gap.gather(-1, k)[..., 0], float(r) - dist_out)
+    n = -Q.rotate(box_quat, out_local)
+    return n, depth, center + n * float(r)
+
+
+def _capsule_box_candidates(pa, qa, size_a, pb, qb, half):
+    """Capsule a (radius, half length) vs box b: [(n, depth, cp)] x 4,
+    spheres at the axis points t = 0, t_opt, 1/2, 1. t_opt minimises the
+    axis segment's distance to the box (convex along the segment) by an
+    18-step ternary search; it is masked off within 2 % of an end or of the
+    middle, where it would double a sphere's stiffness."""
+    r1, h1 = float(size_a[0]), float(size_a[1])
+    h = torch.tensor([float(x) for x in half], dtype=pa.dtype, device=pa.device)
+    axis = Q.rotate(qa, torch.tensor([0.0, 0.0, 1.0], dtype=pa.dtype, device=pa.device))
+    p0 = Q.rotate_inv(qb, (pa - axis * h1) - pb)
+    p1 = Q.rotate_inv(qb, (pa + axis * h1) - pb)
+    dp = p1 - p0
+
+    def seg_dist(t):
+        p = p0 + dp * t[..., None]
+        d = p - torch.clamp(p, -h, h)
+        return torch.sqrt(_dot(d, d))
+
+    lo = torch.zeros_like(pa[..., 0])
+    hi = torch.ones_like(lo)
+    third = float(np.float32(1.0 / 3.0))
+    for _ in range(18):
+        span = hi - lo
+        m1 = lo + span * third
+        m2 = hi - span * third
+        left = seg_dist(m1) < seg_dist(m2)
+        lo, hi = torch.where(left, lo, m1), torch.where(left, m2, hi)
+    t_opt = (lo + hi) * 0.5
+    eps = 0.02
+    interior = (t_opt > eps) & (t_opt < 1.0 - eps) & (torch.abs(t_opt - 0.5) > eps)
+    out = []
+    for i, tpar in enumerate((torch.zeros_like(t_opt), t_opt, torch.full_like(t_opt, 0.5),
+                              torch.ones_like(t_opt))):
+        n, depth, cp = _sphere_box_point(pa + axis * (h1 * (2.0 * tpar - 1.0))[..., None], r1,
+                                         pb, qb, half)
+        if i == 1:
+            depth = torch.where(interior, depth, torch.full_like(depth, -1.0))
+        out.append((n, depth, cp))
+    return out
+
+
+def _axes(q):
+    """(B, 3, 3): row i is the world direction of the frame's axis i."""
+    return Q.to_matrix(q).transpose(-1, -2)
+
+
+def _abs_proj(L, axes, half):
+    """sum_i |L . axes_i| half_i for each row of L (B, k, 3): (B, k)."""
+    d = torch.abs(_dot(L[..., :, None, :], axes[..., None, :, :]))
+    return (d[..., 0] * float(half[0]) + d[..., 1] * float(half[1])) + d[..., 2] * float(half[2])
+
+
+def _box_box_candidates(pa, qa, half_a, pb, qb, half_b):
+    """Box a vs box b: [(n, depth, cp)] x 17. Corners of a inside b, then
+    corners of b inside a, all along the pair's minimum-overlap face axis n
+    (a -> b): a's corner depth is (pv - pb) . n + h_b(n), b's is h_a(n) -
+    (pv - pa) . n, with h(n) a box's half extent along n. Then the
+    edge-edge candidate (:func:`_box_box_edge_candidate`)."""
+    dev, f32 = pa.device, pa.dtype
+    A, Bx = _axes(qa), _axes(qb)
+    d = pb - pa
+    axes6 = torch.cat([A, Bx], dim=-2)                       # (B, 6, 3)
+    overlap6 = (_abs_proj(axes6, A, half_a) + _abs_proj(axes6, Bx, half_b)) \
+        - torch.abs(_dot(axes6, d[..., None, :]))
+    kf = torch.argmin(overlap6, dim=-1)
+    n_raw = torch.gather(axes6, 1, kf[:, None, None].expand(-1, 1, 3))[:, 0]
+    n = n_raw * torch.sign(_dot(n_raw, d) + 1e-12)[..., None]
+    hB_n = _abs_proj(n[:, None], Bx, half_b)[:, 0]
+    hA_n = _abs_proj(n[:, None], A, half_a)[:, 0]
+    ha = torch.tensor([float(x) for x in half_a], dtype=f32, device=dev)
+    hb = torch.tensor([float(x) for x in half_b], dtype=f32, device=dev)
+    corners = [(sx, sy, sz) for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)]
+    out = []
+    for s3 in corners:
+        pv = pa + Q.rotate(qa, torch.tensor(s3, dtype=f32, device=dev) * ha)
+        local = Q.rotate_inv(qb, pv - pb)
+        inside = (hb - torch.abs(local) > 0).all(-1)
+        depth = torch.where(inside, _dot(pv - pb, n) + hB_n, torch.full_like(hB_n, -1.0))
+        out.append((n, depth, pv))
+    for s3 in corners:
+        pv = pb + Q.rotate(qb, torch.tensor(s3, dtype=f32, device=dev) * hb)
+        local = Q.rotate_inv(qa, pv - pa)
+        inside = (ha - torch.abs(local) > 0).all(-1)
+        depth = torch.where(inside, hA_n - _dot(pv - pa, n), torch.full_like(hA_n, -1.0))
+        out.append((n, depth, pv))
+    out.append(_box_box_edge_candidate(pa, A, half_a, pb, Bx, half_b))
+    return out
+
+
+def _box_box_edge_candidate(pa, A, half_a, pb, Bx, half_b):
+    """The edge-edge candidate of a box pair (rows A, Bx of world axes):
+    over the 9 cross axes a_i x b_j (a degenerate one, |a_i x b_j| < 1e-6,
+    never wins), the one of least overlap (the first on ties); active when
+    every face and cross axis overlaps and its overlap is below 0.99 times
+    the least face overlap. Its point is the midpoint of the closest points
+    of the two support edges (clamped to the edges). (n (B, 3) a -> b,
+    depth (B,), -1 when inactive, cp (B, 3))."""
+    B_ = pa.shape[0]
+    d = pb - pa
+    cross = _cross(A[:, :, None, :], Bx[:, None, :, :]).reshape(B_, 9, 3)
+    norm = torch.sqrt(_dot(cross, cross))
+    degenerate = norm < 1e-6
+    L = cross / torch.clamp(norm, min=1e-6)[..., None]
+    overlap_e = (_abs_proj(L, A, half_a) + _abs_proj(L, Bx, half_b)) \
+        - torch.abs(_dot(L, d[:, None]))
+    overlap_e = torch.where(degenerate, torch.full_like(overlap_e, float("inf")), overlap_e)
+    overlap_f = torch.cat([
+        (_abs_proj(ax, A, half_a) + _abs_proj(ax, Bx, half_b)) - torch.abs(_dot(ax, d[:, None]))
+        for ax in (A, Bx)], dim=-1)
+    all_overlap = (overlap_e > 0).all(-1) & (overlap_f > 0).all(-1)
+    k = torch.argmin(overlap_e, dim=-1)
+    depth = overlap_e.gather(-1, k[:, None])[:, 0]
+    Lk = torch.gather(L, 1, k[:, None, None].expand(-1, 1, 3))[:, 0]
+    n = Lk * torch.sign(_dot(Lk, d))[:, None]
+    active = all_overlap & (depth < overlap_f.amin(-1) * 0.99)
+    i_, j_ = k // 3, k % 3
+    ha = torch.tensor([float(x) for x in half_a], dtype=pa.dtype, device=pa.device)
+    hb = torch.tensor([float(x) for x in half_b], dtype=pa.dtype, device=pa.device)
+    sa = torch.sign(_dot(A, n[:, None]))                       # (B, 3)
+    sb = torch.sign(_dot(Bx, n[:, None]))
+    oh_i = torch.zeros_like(sa).scatter_(-1, i_[:, None], 1.0)
+    oh_j = torch.zeros_like(sb).scatter_(-1, j_[:, None], 1.0)
+    wa = (1.0 - oh_i) * sa * ha
+    wb = (1.0 - oh_j) * sb * hb
+    ca = pa + ((wa[:, 0:1] * A[:, 0] + wa[:, 1:2] * A[:, 1]) + wa[:, 2:3] * A[:, 2])
+    cb = pb - ((wb[:, 0:1] * Bx[:, 0] + wb[:, 1:2] * Bx[:, 1]) + wb[:, 2:3] * Bx[:, 2])
+    ea = torch.gather(A, 1, i_[:, None, None].expand(-1, 1, 3))[:, 0]
+    eb = torch.gather(Bx, 1, j_[:, None, None].expand(-1, 1, 3))[:, 0]
+    r0 = cb - ca
+    b_ = _dot(ea, eb)
+    denom = torch.clamp(1.0 - b_ * b_, min=1e-6)
+    s = (_dot(ea, r0) - b_ * _dot(eb, r0)) / denom
+    t = (b_ * _dot(ea, r0) - _dot(eb, r0)) / denom
+    ha_k = ha.expand_as(oh_i).gather(-1, i_[:, None])[:, 0]
+    hb_k = hb.expand_as(oh_j).gather(-1, j_[:, None])[:, 0]
+    s = torch.minimum(torch.maximum(s, -ha_k), ha_k)
+    t = torch.minimum(torch.maximum(t, -hb_k), hb_k)
+    cp = 0.5 * (((ca + ea * s[:, None]) + cb) + eb * t[:, None])
+    depth = torch.where(active, depth, torch.full_like(depth, -1.0))
+    return n, depth, cp
 
 
 def _G(r, M):

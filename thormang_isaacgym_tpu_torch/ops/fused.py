@@ -13,12 +13,14 @@ candidates, torque-body slots, sim constants) goes in as two small device
 tables, one int32 and one float32, so one compiled kernel serves every model
 under the caps below.
 
-Multi-actor scenes add the actor-pair blocks (B5 of the TPU kernel, round
-kinds: sphere vs sphere / capsule / cylinder, capsule vs capsule) and world-point
-attractors (B4): a pair table and an attractor table follow the contact
-candidates in the two tables, and the kernel's pair instance loops over them
-(nothing per pair is stored per thread; the pair wrench and the added inertia
-are summed per pair body). Box kinds and fixed tendons raise.
+Multi-actor scenes add the actor-pair blocks (B5 of the TPU kernel: sphere
+vs sphere / capsule / cylinder, capsule vs capsule; with B6, its box kinds:
+sphere vs box, capsule vs box, box vs box) and world-point attractors (B4):
+a pair table and an attractor table follow the contact candidates in the
+two tables, and the kernel's pair instances loop over them (nothing per pair
+or candidate is stored per thread; the pair wrench and the added inertia are
+summed per pair body). The box kinds have an instance of their own, so a
+scene without them runs the round-kind code as it was. Fixed tendons raise.
 
 The ground is a constant height or a ``Heightfield`` (block B7 of the TPU
 kernel). Over a heightfield the kernel samples, at the step's input q, a
@@ -72,7 +74,7 @@ MAX_PAIR_BODIES = 16
 MAX_PAIR_CANDIDATES = 1024
 MAX_ATTRACTORS = 64
 _HEADER = 48
-_KIND = {"sphere": 0, "capcap": 1}
+_KIND = {"sphere": 0, "capcap": 1, "capbox": 2, "boxbox": 3}
 
 _ROW_NAMES = ("q", "qd", "tp", "tv", "eff", "mass", "com", "inertia", "gscale",
               "armature", "damping", "friction", "lower", "upper", "vel_limit",
@@ -209,8 +211,9 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
     attractors: header ints 39-41 (pairs, attractors, pair bodies), floats
     17-20 (D = h kn + kd, D max_dep, h D, max_dep / 2); after the candidate
     rows, per pair (geom a, geom b, body a, body b, kind 0 sphere / 1
-    capcap, geom type of b) and (sizes of a and b, r_a + r_b, geom poses of
-    a and b in their bodies), a per-body pair-accumulator slot, and per
+    capcap / 2 capbox / 3 boxbox, geom type of b) and (sizes of a and b, 3
+    each, zero-padded; r_a + r_b; geom poses of a and b in their bodies), a
+    per-body pair-accumulator slot, and per
     attractor (body) and (local point, target, kp, kd, |p|^2 + 1e-6, or 0
     when |p|^2 <= 1e-6)."""
     cand = contact.candidates(model)
@@ -258,9 +261,8 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
                     else [(0, 0, 0, 1, 0, 0, 0)] * nr, np.float64)
     pair_f = []
     for ia, ib, _ in pairs:
-        sa, sb = (tuple(float(x) for x in g[i].size) + (0.0,) for i in (ia, ib))
-        pair_f.append([sa[0], sa[1], sb[0], sb[1], sa[0] + sb[0],
-                       *g[ia].pos, *g[ia].quat, *g[ib].pos, *g[ib].quat])
+        sa, sb = ((tuple(float(x) for x in g[i].size) + (0.0, 0.0))[:3] for i in (ia, ib))
+        pair_f.append([*sa, *sb, sa[0] + sb[0], *g[ia].pos, *g[ia].quat, *g[ib].pos, *g[ib].quat])
     attr_f = []
     for _, local_p, target, kp, kd in attractors:
         r2 = float(np.dot(np.asarray(local_p, np.float64), np.asarray(local_p, np.float64)))
@@ -288,7 +290,9 @@ class FusedStep:
     constant height or a Heightfield, whose table must lie on the device
     of the tensors the step is given. ``attractors``: (body, local_p,
     target, kp, kd) tuples. ``launches`` counts kernel launches (CPU calls
-    run the plain version and do not count)."""
+    run the plain version and do not count). ``pair_mode`` picks the
+    kernel instance: 0 without pairs and attractors, 1 with them, 2 with a
+    pair of a box kind."""
 
     def __init__(self, model: RobotModel, sim_params: SimParams, *,
                  ground=0.0, attractors=None, need_torque=True):
@@ -298,8 +302,9 @@ class FusedStep:
         self.attractors = tuple(attractors or ())
         ground = check_supported(model, ground, self.attractors)
         check_caps(model, self.attractors)
-        # the kernel instance with the pair and attractor blocks
-        self.pair_mode = collide.has_pairs(model) or bool(self.attractors)
+        # the kernel instance: with the pair and attractor blocks, and the box kinds
+        self.pair_mode = 2 if collide.has_box_pairs(model) else \
+            int(collide.has_pairs(model) or bool(self.attractors))
         self.hf = ground if isinstance(ground, Heightfield) else None
         self.tq_bodies = norm_torque_bodies(need_torque, model.nb)
         self.rows = make_rows(model)
@@ -399,7 +404,7 @@ class FusedStep:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(mi_t.data_ptr(), mf_t.data_ptr(), hf_ptr, packed.data_ptr(),
-                     out.data_ptr(), B, int(self.pair_mode), stream)
+                     out.data_ptr(), B, self.pair_mode, stream)
         if err != 0:
             raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
         self.launches += 1

@@ -14,10 +14,10 @@ substep, as the JAX op path does; the fused kernel and its plain twin
 freeze a local plane per contact candidate for the whole control step.
 
 Multi-actor scenes (``models/scene.py``) collide between actors through
-``ops/collide.py`` (the round kinds: sphere vs sphere / capsule / cylinder,
-capsule vs capsule), whose implicit reaction joins the articulated inertia;
-world-point attractors pull body points toward fixed targets. The box kinds
-of the pair narrowphase and fixed tendons are not ported and raise.
+``ops/collide.py`` (sphere vs sphere / capsule / cylinder / box, capsule vs
+capsule, capsule vs box, box vs box), whose implicit reaction joins the
+articulated inertia; world-point attractors pull body points toward fixed
+targets. Fixed tendons are not ported and raise.
 """
 from __future__ import annotations
 
@@ -69,15 +69,15 @@ def zero_controls(model: RobotModel, batch: int, device="cpu") -> Controls:
 
 
 def check_supported(model: RobotModel, ground=0.0, attractors=None):
-    """Raise for what the port does not cover yet (actor pairs of a box
-    kind, fixed tendons, a callable ground); return the ground: a constant
-    height (float) or a Heightfield."""
-    collide_mod.check_round(model)
+    """Raise for what the port does not cover yet (fixed tendons, a
+    callable ground); return the ground: a constant height (float) or a
+    Heightfield."""
     for a in attractors or ():
         if len(a) != 5 or not 0 <= int(a[0]) < model.nb:
             raise ValueError(f"attractor {a!r}: expected (body, local_p, target, kp, kd)")
     if getattr(model, "tendons", ()):
-        raise NotImplementedError("fixed tendons are not ported yet")
+        raise NotImplementedError(
+            f"fixed tendons are not ported yet ({len(model.tendons)} in model {model.name!r})")
     if isinstance(ground, Heightfield):
         return ground
     if ground is not None and not isinstance(ground, (int, float)):

@@ -1,8 +1,9 @@
 """Task registry: ``make`` and ``apply_cfg_env`` over the reference-shaped
 ``cfg/task/*.yaml`` files. Port of ``thormang_isaacgym_tpu/tasks/__init__.py``.
 
-Only the tasks of this slice are registered; the other entries of the JAX
-package's registry wait for later slices. Tasks import lazily.
+Only the tasks of the slices so far are registered; the other entries of
+the JAX package's registry wait for later slices (``make("ShadowHand")``
+raises, naming what it waits for). Tasks import lazily.
 """
 from __future__ import annotations
 
@@ -17,19 +18,31 @@ TASK_MAP = {
     "Anymal": ("thormang_isaacgym_tpu_torch.tasks.anymal", "Anymal"),
     "AnymalTerrain": ("thormang_isaacgym_tpu_torch.tasks.anymal_terrain", "AnymalTerrain"),
     "BallBalance": ("thormang_isaacgym_tpu_torch.tasks.ball_balance", "BallBalance"),
+    "AllegroHand": ("thormang_isaacgym_tpu_torch.tasks.allegro_hand", "AllegroHand"),
 }
+# in the JAX registry, waiting for a kernel block that is not ported yet
+NOT_YET = {"ShadowHand": "its model's 4 fixed tendons (kernel block B4b) are not ported yet"}
 
 
 def get_task_class(name: str):
+    if name in NOT_YET:
+        raise NotImplementedError(f"task {name!r} is not ported: {NOT_YET[name]}")
     if name not in TASK_MAP:
         raise KeyError(f"unknown or not yet ported task {name!r}; ported: {sorted(TASK_MAP)}")
     module, cls = TASK_MAP[name]
     return getattr(importlib.import_module(module), cls)
 
 
+# reference env-block keys -> constructor kwargs (they shape the model or the
+# obs space, so they must reach __init__; the JAX registry's AMP and
+# controlType keys come with the slices that port those tasks)
+_CTOR_KEYS = {
+    "observationType": "obs_type",
+    "asymmetric_observations": "asymmetric_obs",
+}
 # reference env-block keys -> Task attribute names that don't follow plain
 # camelCase -> snake_case (only the keys of the registered tasks' YAMLs; the
-# JAX registry's AMP / ShadowHand keys come with the slices that port them).
+# JAX registry's AMP keys come with the slice that ports them).
 # BallBalance's actionSpeedScale needs none: it maps to action_speed_scale.
 _ATTR_ALIASES = {
     "episodeLength": "max_episode_length",
@@ -40,6 +53,25 @@ _ATTR_ALIASES = {
     "actionsCost": "actions_cost_scale",
     "energyCost": "energy_cost_scale",
     "jointsAtLimitCost": "joints_at_limit_cost_scale",
+    # ShadowHand / AllegroHand env-block keys (tasks/shadow_hand.py reads
+    # these under other snake-case names than camel -> snake gives)
+    "fallDistance": "fall_dist",
+    "fallPenalty": "fall_penalty",
+    "actionsMovingAverage": "act_moving_average",
+    "resetPositionNoise": "reset_position_noise",
+    "resetDofPosRandomInterval": "reset_dof_pos_noise",
+    "resetDofVelRandomInterval": "reset_dof_vel_noise",
+    "dofSpeedScale": "dof_speed_scale",
+    "successTolerance": "success_tolerance",
+    "reachGoalBonus": "reach_goal_bonus",
+    "rotRewardScale": "rot_reward_scale",
+    "distRewardScale": "dist_reward_scale",
+    "actionPenaltyScale": "action_penalty_scale",
+    "rotEps": "rot_eps",
+    "maxConsecutiveSuccesses": "max_consecutive_successes",
+    "averFactor": "av_factor",
+    "useRelativeControl": "use_relative_control",
+    "forceScale": "force_scale",
 }
 
 
@@ -50,7 +82,8 @@ def _camel_to_snake(s: str) -> str:
 
 # env-block keys legitimately consumed elsewhere (constructor, engine, sim
 # construction) — not attribute targets, so no drift warning for them
-_CONSUMED_KEYS = {"numEnvs", "envSpacing", "enableDebugVis"}
+_CONSUMED_KEYS = {"numEnvs", "envSpacing", "enableDebugVis", "aggregateMode",
+                  *_CTOR_KEYS}
 
 
 def apply_cfg_env(task, env_cfg: dict, *, warn_unknown: bool = True):
@@ -120,6 +153,9 @@ def make(task_name: str, num_envs: int | None = None, seed: int = 42,
     if (isinstance(task_blk, dict) and task_blk.get("randomize")) or kwargs.get("randomize"):
         raise NotImplementedError("domain randomization (randomize: true) is not ported yet")
     kwargs.pop("randomize", None)
+    for ykey, ckey in _CTOR_KEYS.items():
+        if ykey in env_cfg and ckey not in kwargs:
+            kwargs[ckey] = env_cfg[ykey]
     if num_envs is not None:
         kwargs["num_envs"] = num_envs
     elif "numEnvs" in env_cfg:
