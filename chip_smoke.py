@@ -9,32 +9,37 @@ Phases, one line each (any failure raises and exits non-zero):
  1. build: compiles csrc/fused_step.cu with nvcc for sm_90a (build seconds,
     registers and spills as ptxas reports them).
  2. compare: the fused kernel against its plain PyTorch version on the card,
-    at 4096 envs (AllegroHand 16384) from seeded numpy states, 1 and 5
-    control steps: Cartpole and Ant (flat ground), AnymalTerrain
+    at 4096 envs (the hands 16384) from seeded numpy states, 1 and 5
+    control steps: Cartpole and Ant (flat ground), the two-link tendon scene
+    of tests/test_fused.py (block B4b: its coupled length below, inside and
+    above its bounds), AnymalTerrain
     (heightfield mode, bases placed on the terrain grid), BallBalance (pair
     mode: actor pairs and attractors, the ball resting in the tray or pressed
     into a leg), the pair-capsule scene of tests/test_fused.py
     (sphere-capsule and capsule-capsule pairs), and in the box mode (block
     B6) the box-box and capsule-box scenes of tests/test_fused.py, a ball on
-    a cube, and AllegroHand (the cube on the palm and among the fingers, or
-    pressed into the palm's edge); max abs error of q, qd and net against
+    a cube, AllegroHand (the cube on the palm and among the fingers, or
+    pressed into the palm's edge) and ShadowHand (the same, with its four
+    tendons on either side of their bounds); max abs error of q, qd and net against
     TOL, beside the largest |value| of each and the share of non-zero net
     rows (AnymalTerrain also: the share of active contact candidates, the
     share of those on sloped cells, the largest |gx x| of a ground plane; the
     pair and box scenes: the share of active pair candidates, per kind in the
     box mode with the envs whose box-box edge-edge candidate is active, and
-    the largest |dIA| entry).
+    the largest |dIA| entry; the tendon scenes: the share of env-tendons
+    below and above their bounds).
  3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain and
-    BallBalance at 4096 envs and AllegroHand at 16384 (CUDA events after
-    warm-up, ms per control step) beside the kernel's bound.
+    BallBalance at 4096 envs and AllegroHand and ShadowHand at 16384 (CUDA
+    events after warm-up, ms per control step) beside the kernel's bound.
  4. train: make(task, cfg=cfg/task/<task>.yaml) at the YAML's numEnvs,
     PPO(PPOConfig.from_rlgames(cfg/train/<task>PPO.yaml)), 3
     train_iterations, for Ant (4096 envs, 3 x 16 kernel launches),
-    AnymalTerrain (4096, 3 x 24), BallBalance (4096, 3 x 16) and
-    AllegroHand (16384, 3 x 8 x 2); every metric finite, obs finite of shape
-    (envs, num_obs).
+    AnymalTerrain (4096, 3 x 24), BallBalance (4096, 3 x 16), AllegroHand
+    (16384, 3 x 8 x 2) and ShadowHand (16384, 3 x 8 x 1); every metric
+    finite, obs finite of shape (envs, num_obs).
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
-box modes) and, last, the {"ok": true, "device": ...} line.
+box modes, and its tendon block, timed on ShadowHand) and, last, the
+{"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -61,12 +66,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # pair-capsule scene and the BallBalance contact states
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 from test_torch_fused import (  # noqa: E402
-    BOX_POSES, BOX_SP, PAIR_POSES, PAIR_SP, allegro_contact_q, ball_balance_q, box_pair_scene,
-    pair_capsule_scene,
+    BOX_POSES, BOX_SP, PAIR_POSES, PAIR_SP, TENDON_SP, allegro_contact_q, ball_balance_q,
+    box_pair_scene, pair_capsule_scene, shadow_contact_q, tendon_length, tendon_q, tendon_scene,
 )
 B = 4096
 # tasks whose published width is not B (cfg/task/<task>.yaml numEnvs)
-ENVS = {"AllegroHand": 16384}
+ENVS = {"AllegroHand": 16384, "ShadowHand": 16384}
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
 # (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
@@ -101,22 +106,26 @@ SEED = 0
 # one substep from the same state differs by up to 0.53 N (net) and 0.056
 # (qd) over 16384 envs, measured on an H100 and reproduced bit for bit by the
 # host-C++ build of the kernel on the CPU. An env outside the tolerance must
-# sit at a tie of a narrowphase branch (box_ties): 1-2 of 16384 per substep.
+# sit at a tie of a narrowphase branch or of a tendon's bound (box_ties): 1-2
+# of 16384 per substep. ShadowHand runs the box instance with the tendon
+# block, and is held as AllegroHand is.
 TOL = dict(flat=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1e-2, 5e-3)),
            heightfield=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.3, 5e-3)),
            pairs=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.1, 5e-3)),
            boxes=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1.0, 5e-3)))
 # cases held against the plain version step by step (see phase_compare)
-STEPWISE = {"AnymalTerrain", "PairCapsule", "BoxBox", "AllegroHand"}
+STEPWISE = {"AnymalTerrain", "PairCapsule", "BoxBox", "AllegroHand", "ShadowHand"}
 # cases held substep by substep (a one-substep build of the kernel; see phase_compare)
-SUBSTEPWISE = {"AllegroHand"}
+SUBSTEPWISE = {"AllegroHand", "ShadowHand"}
 # the TPU kernel's call and the blocks the heightfield, pair and box modes
 # replace (the pair modes: the pair force block and the attractor block; the
-# box mode also the box narrowphase: sphere-box, capsule-box, box-box)
+# box mode also the box narrowphase: sphere-box, capsule-box, box-box), and
+# the tendon block, which runs in every instance
 REPLACES = dict(flat="thormang_isaacgym_tpu/ops/fused.py:1707",
                 heightfield="thormang_isaacgym_tpu/ops/fused.py:1154",
                 pairs="thormang_isaacgym_tpu/ops/fused.py:1235",
-                boxes="thormang_isaacgym_tpu/ops/fused.py:640")
+                boxes="thormang_isaacgym_tpu/ops/fused.py:640",
+                tendons="thormang_isaacgym_tpu/ops/fused.py:1373")
 ALSO_REPLACES = dict(pairs=["thormang_isaacgym_tpu/ops/fused.py:1323"],
                      boxes=["thormang_isaacgym_tpu/ops/fused.py:477",
                             "thormang_isaacgym_tpu/ops/fused.py:597",
@@ -176,9 +185,10 @@ def random_inputs(task, rng: np.random.Generator, device):
     targets = None                        # drawn last, as before, off the terrain
     zero_wrench = False
     if hasattr(task, "fingertip_ids"):
-        # AllegroHand: the cube in contact with the palm and fingers, targets
-        # inside the joint ranges, no wrench (forceScale 0, as in training)
-        q = allegro_contact_q(m, rng, B)
+        # the hands: the cube in contact with the palm and fingers (ShadowHand's
+        # tendons on either side of their bounds), targets inside the joint
+        # ranges, no wrench (forceScale 0, as in training)
+        q = (shadow_contact_q if m.tendons else allegro_contact_q)(m, rng, B)
         qd = np.concatenate([rng.normal(size=(B, 6)) * 0.1, rng.uniform(-0.1, 0.1, (B, nj))], 1)
         targets = lo + (hi - lo) * rng.uniform(0.2, 0.8, (B, nj))
         effort = np.zeros((B, nj))
@@ -271,8 +281,9 @@ def _errors(got, want, tol: dict, rows=None) -> dict:
         errs[key] = float(d.max()) if d.numel() else 0.0
         size[key] = float(b.abs().max()) if b.numel() else 0.0
         inside &= (torch.isfinite(a) & (d <= atol + rtol * b.abs())).reshape(a.shape[0], -1).all(1)
-    return dict(max_abs_err=errs, max_abs=size, env_share_within_tol=float(inside.float().mean()),
-                inside=inside)
+    # counted, not averaged: a float32 mean of n ones need not be 1
+    return dict(max_abs_err=errs, max_abs=size,
+                env_share_within_tol=int(inside.sum()) / max(inside.numel(), 1), inside=inside)
 
 
 class PairCapsule:
@@ -297,6 +308,38 @@ def pair_capsule_inputs(model, rng: np.random.Generator, device):
 
     z = t(np.zeros((B, 0)))
     return model.default_params(device).batch(B), t(q), t(qd), Controls(z, z, z), t(wrench)
+
+
+class TwoLinkTendon:
+    """The two-link tendon scene of tests/test_fused.py as a task-like case: a
+    fixed base and two links whose tendon holds q1 - q2 in [-0.05, 0.05]."""
+    attractors = ()
+
+    def __init__(self):
+        self.model = tendon_scene(load_urdf)
+        self.sim_params = SimParams(**TENDON_SP)
+
+
+def tendon_inputs(model, rng: np.random.Generator, device):
+    """Coupled lengths q1 - q2 in [-0.1, 0.1] (either side of each bound, or
+    inside), seeded velocities and wrenches."""
+    q = tendon_q(rng, B)
+    qd = rng.normal(size=(B, model.nv))
+    wrench = np.concatenate([rng.normal(size=(B, model.nb, 3)) * 0.02,
+                             rng.normal(size=(B, model.nb, 3)) * 0.2], axis=-1)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    z = t(np.zeros((B, model.nj)))
+    return model.default_params(device).batch(B), t(q), t(qd), Controls(z, z, z), t(wrench)
+
+
+def tendon_stats(model, q) -> dict:
+    """The share of env-tendons below and above their bounds at q."""
+    L = tendon_length(model, q[:, 7 * model.n_floating:].double().cpu().numpy())
+    lo, hi = (np.array([t[k] for t in model.tendons]) for k in (1, 2))
+    return dict(tendon_below_share=float((L < lo).mean()), tendon_above_share=float((L > hi).mean()))
 
 
 class BoxPair:
@@ -349,7 +392,8 @@ def _candidate_kinds(model) -> list:
 # ternary-search point is a tie within TIE_T of its mask's thresholds, and
 # where the segment's distance to the box stays within TIE_FLAT of its
 # minimum over a stretch of the axis along which the point's sphere turns its
-# normal by more than TIE_TURN (the search stops anywhere on that stretch)
+# normal by more than TIE_TURN (the search stops anywhere on that stretch);
+# a tendon's length within TIE_LEN of a bound switches its spring on or off
 TIE_LEN = 2e-6
 TIE_T = 1e-3
 TIE_FLAT = 1e-7
@@ -370,7 +414,8 @@ def _sphere_box_ties(center, r, pb, qb, half):
 
 def box_ties(model, q, qd) -> torch.Tensor:
     """(n,) envs at (q, qd) where a discontinuous branch of the pair
-    narrowphase is a tie: a candidate's contact onset (|depth| < TIE_LEN);
+    narrowphase or of a tendon spring is a tie: a tendon's length at a bound
+    (|L - lo| or |L - hi| < TIE_LEN); a candidate's contact onset (|depth| < TIE_LEN);
     box-box: a face or cross-axis overlap at 0, the edge-edge activation
     (least edge overlap against 0.99 of the least face overlap), the choice
     of the least face overlap while a corner is in contact, the choice of the
@@ -382,6 +427,11 @@ def box_ties(model, q, qd) -> torch.Tensor:
     f = forward_kinematics(model, q, qd)
     f = type(f)(*(x.double() for x in f))
     tie = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+    if model.tendons:
+        L = torch.as_tensor(tendon_length(model, q[:, 7 * model.n_floating:].double().cpu().numpy()),
+                            device=q.device)
+        bounds = [L.new_tensor([t[k] for t in model.tendons]) for k in (1, 2)]
+        tie |= torch.stack([(L - b).abs() < TIE_LEN for b in bounds], -1).any(-1).any(-1)
     cands = collide.candidates(model, f)
     for c in cands:
         tie |= c[5].abs() < TIE_LEN
@@ -484,11 +534,13 @@ def pair_stats(step, params, q, qd) -> dict:
 
 def phase_compare(device) -> dict:
     """Worst error of each kernel mode: {"flat": x, "heightfield": y,
-    "pairs": z, "boxes": w}.
+    "pairs": z, "boxes": w, "tendons": v}; a case whose model has tendons
+    counts for its mode and for "tendons".
 
-    Cartpole, Ant, BallBalance and the capsule-box and sphere-box scenes are
-    held against the plain version after 1 and 5 free running control steps.
-    AnymalTerrain, the pair-capsule scene, the box-box scene and AllegroHand
+    Cartpole, Ant, the two-link tendon scene, BallBalance and the capsule-box
+    and sphere-box scenes are held against the plain version after 1 and 5
+    free running control steps.
+    AnymalTerrain, the pair-capsule scene, the box-box scene and the hands
     are held against it step by step: at each of the 5 steps both start from
     the plain version's state. Their stiff contact (over terrain; a stack of
     bodies on a bar; a cube on a cube, turned 5 degrees: its edge-edge
@@ -497,20 +549,23 @@ def phase_compare(device) -> dict:
     in one version and not the other (the damper makes the force jump at
     contact onset), so the free running trajectories part after a few steps
     in some envs; their errors and the share of envs still within TOL are
-    printed, not gated. AllegroHand is held substep by substep, through a
+    printed, not gated. The hands are held substep by substep, through a
     one-substep build of the same kernel: a 1.6e-4 m/s difference after one
     substep grows ~1500x in the next (the cube's 7.6e-5 kg m^2 against 617 N
     s/m of contact damping at 3 cm lever arms). In the box mode an env outside
-    TOL must sit at a tie of a narrowphase branch (``box_ties``), and every
-    kind (sphere-box, capsule-box, box-box corners and edge-edge) must be in
-    contact somewhere."""
+    TOL must sit at a tie of a narrowphase branch or a tendon's bound
+    (``box_ties``), and every kind (sphere-box, capsule-box, box-box corners
+    and edge-edge) must be in contact somewhere. Each tendon scene must have
+    env-tendons below and above their bounds, and inside."""
     rng = np.random.default_rng(SEED)
-    worst = dict(flat=0.0, heightfield=0.0, pairs=0.0, boxes=0.0)
+    worst = dict(flat=0.0, heightfield=0.0, pairs=0.0, boxes=0.0, tendons=0.0)
     box_active = {}
     for name in ("Cartpole", "Ant", "AnymalTerrain", "BallBalance", "PairCapsule",
-                 "BoxBox", "CapBox", "SphereBox", "AllegroHand"):
+                 "BoxBox", "CapBox", "SphereBox", "AllegroHand", "ShadowHand", "Tendon"):
         if name == "PairCapsule":
             task = PairCapsule()
+        elif name == "Tendon":
+            task = TwoLinkTendon()
         elif name in ("BoxBox", "CapBox", "SphereBox"):
             task = BoxPair(name.lower())
         else:
@@ -529,6 +584,8 @@ def phase_compare(device) -> dict:
             raise AssertionError("the box mode's tie analysis takes one substep per launch")
         if name == "PairCapsule":
             params, q0, qd0, ctrl, wrench = pair_capsule_inputs(task.model, rng, device)
+        elif name == "Tendon":
+            params, q0, qd0, ctrl, wrench = tendon_inputs(task.model, rng, device)
         elif isinstance(task, BoxPair):
             params, q0, qd0, ctrl, wrench = box_pair_inputs(task, rng, device)
         else:
@@ -536,6 +593,11 @@ def phase_compare(device) -> dict:
         envs = q0.shape[0]
         extra = ground_stats(step, q0) if mode == "heightfield" else \
             pair_stats(step, params, q0, qd0) if mode in ("pairs", "boxes") else {}
+        if task.model.tendons:
+            extra.update(tendon_stats(task.model, q0))
+            below, above = extra["tendon_below_share"], extra["tendon_above_share"]
+            if not (below > 0.0 and above > 0.0 and below + above < 1.0):
+                raise AssertionError(f"{name}: the tendons are not on both sides of their bounds")
         for k, v in extra.get("active_share_by_kind", {}).items():
             box_active[k] = max(box_active.get(k, 0.0), v)
         if extra.get("edge_edge_active_envs", 0) > 0:
@@ -570,7 +632,8 @@ def phase_compare(device) -> dict:
             free = _errors((qa, qda, na), (qb, qdb, nb_), TOL[mode])
             gate = free if stepwise is None else stepwise
             ok = gate["env_share_within_tol"] == 1.0 and outside == at_tie
-            worst[mode] = max([worst[mode], *gate["max_abs_err"].values()])
+            for entry in (mode, "tendons") if task.model.tendons else (mode,):
+                worst[entry] = max([worst[entry], *gate["max_abs_err"].values()])
             nonzero = float((nb_.abs().amax(-1) > 0).float().mean())
             extra_n = {} if stepwise is None else dict(
                 stepwise=dict(max_abs_err=stepwise["max_abs_err"],
@@ -692,6 +755,10 @@ OPS = dict(
     # per attractor: world point 33, arm 3, point velocity 72, I_min and the
     # effective mass 4, clamped gains 6, force 12, torque 9, sums 6
     attractor=_QROT + _V3 + 3 + (2 * _QROT + _CROSS + _V3) + 4 + 6 + 12 + _CROSS + 6,
+    # per tendon (block B4b): bounds 4, violation 1, its flag 2, force 6,
+    # diagonal 4; per nonzero term: L and Ld 4, tau 2, diag 3
+    tendon=4 + 1 + 2 + 6 + 4,
+    tendon_term=4 + 2 + 3,
 )
 
 
@@ -702,7 +769,8 @@ def kernel_ops_per_env(model, n_steps: int, heightfield: bool = False,
     over a heightfield the plane sampling once per control step and the
     tilted-normal terms every substep; in the pair and box modes each actor
     pair's narrowphase, each of its candidates' force and added inertia and
-    each attractor every substep."""
+    each attractor every substep; each tendon and its nonzero terms every
+    substep."""
     cand = fused.contact.candidates(model)
     nc = len(cand["geom"])
     jt = np.asarray(model.joint_type)
@@ -718,7 +786,9 @@ def kernel_ops_per_env(model, n_steps: int, heightfield: bool = False,
             pair_ops += OPS["sphere_box"]
         else:
             pair_ops += OPS["pair_kind"][k if k == "capcap" else f"{k}/{model.geoms[ib].gtype}"]
-    per_sub = (pair_ops + len(fused.pair_bodies(model)) * OPS["pair_body"]
+    tendon_ops = sum(OPS["tendon"] + OPS["tendon_term"] * int(np.count_nonzero(coef))
+                     for coef, *_ in model.tendons)
+    per_sub = (pair_ops + tendon_ops + len(fused.pair_bodies(model)) * OPS["pair_body"]
                + len(attractors) * OPS["attractor"]
                + model.n_roots * OPS["root"]
                + sum(OPS["joint_local"][int(t == 1)] for t in jt)
@@ -829,7 +899,7 @@ def main() -> None:
     phase_build()
     max_err = phase_compare(device)
     modes = (("flat", "Ant"), ("heightfield", "AnymalTerrain"), ("pairs", "BallBalance"),
-             ("boxes", "AllegroHand"))
+             ("boxes", "AllegroHand"), ("tendons", "ShadowHand"))
     timing = {mode: phase_time(name, device) for mode, name in modes}
     train = {mode: phase_train(name, device, dev_info["kind"]) for mode, name in modes}
     kernels = [dict(

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the fused CUDA kernel on Ant (its flat instance) or BallBalance (its
-pair instance, the round kinds and attractors) at 4096 envs, from the port
-package found in a given source tree, so two trees (a change and its parent)
-can be compared on one card in one call.
+"""Time the fused CUDA kernel on Ant (its flat instance), BallBalance (its
+pair instance, the round kinds and attractors), AllegroHand (its box
+instance) or ShadowHand (the box instance with the tendon block) at the task
+YAML's width (4096 envs; the hands 16384), from the port package found in a
+given source tree, so two trees (a change and its parent) can be compared on
+one card in one call.
 
-    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|BallBalance] [--iters 300]
+    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|BallBalance|AllegroHand|ShadowHand] [--iters 300]
 
 DIR is a checkout holding ``thormang_isaacgym_tpu_torch/`` (default: this
 repository); its kernel is built there with nvcc. Prints one JSON line: the
@@ -12,9 +14,11 @@ tree, the card (nvidia-smi name and power limit), ms per control step (CUDA
 events over `iters` launches after 30 of warm-up; the task YAML's sim block:
 Ant dt 0.0166 s with 2 substeps and no torque rows, BallBalance dt 0.01 s
 with 1 substep, its attractors and the lower legs' torque rows, as VecEnv
-builds them, with the ball pressed into the tray) and the ptxas register
-and stack line of the instance. Run it for the two trees in turns (parent,
-change, change, parent) to see the spread.
+builds them, with the ball pressed into the tray; the hands dt 0.01667 s
+with 2 substeps and the fingertips' torque rows, the cube pressed into the
+palm and fingers as tests/test_torch_fused.py places it) and the ptxas
+register and stack line of the instance. Run it for the two trees in turns
+(parent, change, change, parent) to see the spread.
 """
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the instance's mangled name in either tree: the template <kHF, kPA> or,
 # with the box instance, <kHF, kPA, kBX>
 INSTANCE = {"Ant": ("kernelILb0ELb0EEEv", "kernelILb0ELb0ELb0EEEv"),
-            "BallBalance": ("kernelILb0ELb1EEEv", "kernelILb0ELb1ELb0EEEv")}
+            "BallBalance": ("kernelILb0ELb1EEEv", "kernelILb0ELb1ELb0EEEv"),
+            "AllegroHand": ("kernelILb0ELb1ELb1EEEv",),
+            "ShadowHand": ("kernelILb0ELb1ELb1EEEv",)}
 
 
 def main() -> None:
@@ -54,10 +60,11 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     import yaml
-    B, dev = 4096, torch.device("cuda")
-    task = get_task_class(args.task)(num_envs=B, device=dev)
     with open(os.path.join(ROOT, "cfg", "task", f"{args.task}.yaml")) as f:
-        apply_cfg_sim(task, yaml.safe_load(f)["sim"])
+        cfg = yaml.safe_load(f)
+    B, dev = int(cfg["env"]["numEnvs"]), torch.device("cuda")
+    task = get_task_class(args.task)(num_envs=B, device=dev)
+    apply_cfg_sim(task, cfg["sim"])
     m = task.model
     step = fused.build_fused_step_fn(m, task.sim_params,
                                      attractors=getattr(task, "attractors", None),
@@ -71,6 +78,12 @@ def main() -> None:
         q[:, 7:] = task._init_jq + rng.uniform(-0.2, 0.2, (B, m.nj))
         qd = rng.normal(size=(B, m.nv)) * 0.5
         effort = rng.uniform(-15, 15, (B, m.nj))
+    elif args.task in ("AllegroHand", "ShadowHand"):
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from test_torch_fused import allegro_contact_q, shadow_contact_q
+        q = (shadow_contact_q if args.task == "ShadowHand" else allegro_contact_q)(m, rng, B)
+        qd = rng.normal(size=(B, m.nv)) * 0.1
+        effort = np.zeros((B, m.nj))
     else:
         from thormang_isaacgym_tpu_torch.tasks import ball_balance as bb
         # the bot at rest, the ball 0 to 1 cm into the tray top at a random point
@@ -86,7 +99,11 @@ def main() -> None:
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
     z = t(np.zeros((B, m.nj)))
-    packed = step.pack(m.default_params(dev).batch(B), t(q), t(qd), Controls(z, z, t(effort)),
+    targets = z
+    if args.task in ("AllegroHand", "ShadowHand"):
+        lo, hi = m._defaults["dof_lower"], m._defaults["dof_upper"]
+        targets = t(lo + (hi - lo) * rng.uniform(0.2, 0.8, (B, m.nj)))
+    packed = step.pack(m.default_params(dev).batch(B), t(q), t(qd), Controls(targets, z, t(effort)),
                        t(np.zeros((B, m.nb, 6))))
     for _ in range(30):
         step.launch(packed)

@@ -349,14 +349,21 @@ def test_aba_extra_body_inertia_matches_jax():
 
 @pytest.mark.parametrize("other", ["box_sphere", "box_capsule", "box_box", "tendon", "cap"])
 def test_unported_pairs_raise(other):
-    """What the kernel does not cover raises at build time: a tendon model and
-    a model above the pair-candidate cap. The box kinds are ported: their
-    models build the wrapper with the box instance (pair_mode 2)."""
+    """What the kernel does not cover raises at build time: a model above the
+    pair-candidate cap. The box kinds and fixed tendons are ported: their
+    models build the wrapper, with the box instance (pair_mode 2) or with
+    the tendon table (the round pairs' instance, pair_mode 1)."""
     sp = SimParams()
     if other == "tendon":
         m = compose([(load_urdf(BALL), (0, 0, 1, 1, 0, 0, 0), "a/"),
                      (load_urdf(SMALL_BALL), (0, 0, 0, 1, 0, 0, 0), "b/")])
         m = dataclasses.replace(m, tendons=(((),) + (-1.0, 1.0, "t"),))
+        assert check_supported(m) == 0.0
+        step = fused.build_fused_step_fn(m, sp)
+        mi, mf = step._tables
+        assert step.pair_mode == 1 and (mi[42], mi[43]) == (1, step.rows["tstiff"])
+        assert mi[-2:].tolist() == [0, 0] and mf[-2:].tolist() == [-1.0, 1.0]   # no terms; lo, hi
+        return
     elif other == "cap":
         # 33 x 33 sphere pairs between two one-link actors: above 1024 candidates
         spheres = "".join(f'<collision><origin xyz="{0.01 * i} 0 0"/><geometry><sphere '

@@ -16,7 +16,10 @@ pairs against a fixed bar), and on a body held by two attractors. The box
 instance (block B6: sphere vs box, capsule vs box, box vs box) is held on the
 two-actor scenes of tests/test_fused.py's box-kind checks and a ball on a
 cube, and on AllegroHand (the cube on the palm and among the fingers, or
-pressed into the palm's edge), step by step (``STEPWISE``). Tolerances of
+pressed into the palm's edge), step by step (``STEPWISE``). The tendon block
+(B4b) is held on the two-link tendon scene of tests/test_fused.py (the
+coupled length on both sides of each bound and inside) and on ShadowHand
+(four tendons, the cube on its palm), step by step. Tolerances of
 tests/test_fused.py: q atol=rtol 2e-3, qd atol=rtol 2e-2, net atol 1.0 /
 rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine
 without it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
@@ -40,6 +43,7 @@ from thormang_isaacgym_tpu_torch.tasks.allegro_hand import AllegroHand
 from thormang_isaacgym_tpu_torch.tasks.ant import Ant
 from thormang_isaacgym_tpu_torch.tasks.anymal import Anymal
 from thormang_isaacgym_tpu_torch.tasks.cartpole import Cartpole
+from thormang_isaacgym_tpu_torch.tasks.shadow_hand import ShadowHand
 
 B = 64
 # the tiny floating model of tests/test_fused.py: free sphere + one revolute arm
@@ -135,6 +139,54 @@ class _Held:
     attractors = HELD_ATTRACTORS
 
 
+# the two-link tendon scene of tests/test_fused.py (test_fused_tendon_matches_xla):
+# a fixed base and two revolute links whose tendon holds q1 - q2 in [-0.05, 0.05]
+TENDON_URDF = """
+<robot name="twolink">
+  <link name="base"><inertial><mass value="1.0"/>
+    <inertia ixx="0.01" iyy="0.01" izz="0.01" ixy="0" ixz="0" iyz="0"/>
+    </inertial></link>
+  <link name="l1"><inertial><origin xyz="0 0 -0.1"/><mass value="0.2"/>
+    <inertia ixx="0.001" iyy="0.001" izz="0.0005" ixy="0" ixz="0" iyz="0"/>
+    </inertial></link>
+  <link name="l2"><inertial><origin xyz="0 0 -0.1"/><mass value="0.1"/>
+    <inertia ixx="0.0005" iyy="0.0005" izz="0.0002" ixy="0" ixz="0"
+    iyz="0"/></inertial></link>
+  <joint name="j1" type="revolute"><parent link="base"/><child link="l1"/>
+    <origin xyz="0 0 -0.05"/><axis xyz="0 1 0"/>
+    <limit lower="-1.5" upper="1.5" effort="5" velocity="10"/></joint>
+  <joint name="j2" type="revolute"><parent link="l1"/><child link="l2"/>
+    <origin xyz="0 0 -0.2"/><axis xyz="0 1 0"/>
+    <limit lower="-1.5" upper="1.5" effort="5" velocity="10"/></joint>
+</robot>"""
+TENDON = ((1.0, -1.0), -0.05, 0.05, "t0")
+TENDON_SP = dict(dt=1 / 60, substeps=2)
+
+
+def tendon_scene(load):
+    """The two-link tendon scene from either package's load_urdf: stiffness
+    25, damping 0.2, as tests/test_fused.py sets them."""
+    m = load(TENDON_URDF, fix_base_link=True)
+    d = dict(m._defaults)
+    d["tendon_stiffness"] = np.array([25.0], np.float32)
+    d["tendon_damping"] = np.array([0.2], np.float32)
+    m = dataclasses.replace(m, tendons=(TENDON,))
+    object.__setattr__(m, "_defaults", d)
+    return m
+
+
+def tendon_q(rng, n):
+    """(n, 2) states of the two-link scene whose coupled length q1 - q2 lies
+    on either side of each bound or inside ([-0.1, 0.1])."""
+    q1 = rng.uniform(-0.6, 0.6, n)
+    return np.stack([q1, q1 - rng.uniform(-0.1, 0.1, n)], 1)
+
+
+def tendon_length(model, jq):
+    """(n, nt) tendon lengths C q of joint positions jq (n, nj), numpy."""
+    return np.asarray(jq, np.float64) @ np.array([t[0] for t in model.tendons], np.float64).T
+
+
 def pair_capsule_q(rng, n):
     """(n, 10 + 11) states of the pair-capsule scene: its poses with 1 cm of
     noise; in every fourth env capsule A hangs over the bar's end, so the
@@ -204,13 +256,14 @@ ALLEGRO_PALM_TOP = 0.54      # the Allegro palm box's top face, world z (hand ba
 ALLEGRO_PALM_EDGE = (-0.075, 0.54)   # its front top edge (along x): y, z
 
 
-def allegro_contact_q(model, rng, n):
+def allegro_contact_q(model, rng, n, top=ALLEGRO_PALM_TOP, edge_yz=ALLEGRO_PALM_EDGE, mid_y=-0.04):
     """(n, nq) AllegroHand states with the cube in contact with the palm and
     fingers, the fingers at 30 to 70 % of their joint ranges. The cube turned
-    at random; in three envs of four it lies on the palm top, its lowest
-    corner 0 to 6 mm in; in every fourth it presses 0 to 4 mm into the palm's
-    front top edge from the front and above, where an edge of the cube often
-    crosses that edge (the box-box edge-edge candidate)."""
+    at random; in three envs of four it lies on the palm top (world z `top`,
+    around y `mid_y`), its lowest corner 0 to 6 mm in; in every fourth it
+    presses 0 to 4 mm into the palm's front top edge (`edge_yz`) from the
+    front and above, where an edge of the cube often crosses that edge (the
+    box-box edge-edge candidate)."""
     q = np.zeros((n, model.nq), np.float32)
     qr = rng.normal(size=(n, 4))
     qr /= np.linalg.norm(qr, axis=1, keepdims=True)
@@ -225,15 +278,36 @@ def allegro_contact_q(model, rng, n):
     phi = rng.uniform(np.radians(15), np.radians(75), n)
     u = np.where(edge[:, None], np.stack([np.zeros(n), -np.cos(phi), np.sin(phi)], 1), [0.0, 0.0, 1.0])
     h = 0.0325 * np.abs(np.einsum("nij,ni->nj", R, u)).sum(-1)
-    p0 = np.where(edge[:, None], np.stack([rng.uniform(-0.03, 0.03, n), np.full(n, ALLEGRO_PALM_EDGE[0]),
-                                           np.full(n, ALLEGRO_PALM_EDGE[1])], 1),
-                  np.stack([rng.uniform(-0.02, 0.02, n), -0.04 + rng.uniform(-0.03, 0.03, n),
-                            np.full(n, ALLEGRO_PALM_TOP)], 1))
+    p0 = np.where(edge[:, None], np.stack([rng.uniform(-0.03, 0.03, n), np.full(n, edge_yz[0]),
+                                           np.full(n, edge_yz[1])], 1),
+                  np.stack([rng.uniform(-0.02, 0.02, n), mid_y + rng.uniform(-0.03, 0.03, n),
+                            np.full(n, top)], 1))
     pen = np.where(edge, rng.uniform(0.0, 0.004, n), rng.uniform(0.0, 0.006, n))
     q[:, 0:3] = p0 + u * (h - pen)[:, None]
     q[:, 3:7] = qr
     lo, hi = model._defaults["dof_lower"], model._defaults["dof_upper"]
     q[:, 7:] = lo + (hi - lo) * rng.uniform(0.3, 0.7, (n, model.nj))
+    return q
+
+
+SHADOW_PALM_TOP = 0.565     # the Shadow palm box's top face, world z (hand base at z 0.5)
+SHADOW_PALM_EDGE = (-0.415, 0.565)   # its front top edge (along x), under the knuckles: y, z
+
+
+def shadow_contact_q(model, rng, n):
+    """(n, nq) ShadowHand states with the cube in contact with the palm and
+    fingers: the wrist straight, the other DOFs at 30 to 70 % of their
+    ranges, and each distal J0 within 0.1 of its J1 (the tendon's coupled
+    length on either side of its bounds, or inside); the cube placed as
+    ``allegro_contact_q`` places it, on the palm top or pressed into its
+    front top edge."""
+    q = allegro_contact_q(model, rng, n, SHADOW_PALM_TOP, SHADOW_PALM_EDGE, mid_y=-0.38)
+    for name in ("robot0:WRJ1", "robot0:WRJ0"):
+        q[:, 7 + model.dof_id(name)] = 0.0
+    lo, hi = model._defaults["dof_lower"], model._defaults["dof_upper"]
+    for coef, *_ in model.tendons:
+        j1, j0 = (int(j) for j in np.flatnonzero(np.asarray(coef)))
+        q[:, 7 + j0] = np.clip(q[:, 7 + j1] + rng.uniform(-0.1, 0.1, n), lo[j0], hi[j0])
     return q
 
 
@@ -311,6 +385,12 @@ def _model(name):
         # the sim block of cfg/task/AllegroHand.yaml: dt 0.01667 s, 2 substeps
         task = AllegroHand(num_envs=B, device="cpu")
         return task.model, dataclasses.replace(task.sim_params, dt=0.01667), task, 0.0
+    if name == "shadow_hand":
+        # the sim block of cfg/task/ShadowHand.yaml: dt 0.01667 s, 2 substeps
+        task = ShadowHand(num_envs=B, device="cpu")
+        return task.model, dataclasses.replace(task.sim_params, dt=0.01667), task, 0.0
+    if name == "tendon":
+        return tendon_scene(load_urdf), SimParams(**TENDON_SP), None, 0.0
     if name == "ball_balance":
         # the sim block of cfg/task/BallBalance.yaml: dt 0.01 s, 1 substep
         task = bb.BallBalance(num_envs=B, device="cpu")
@@ -350,6 +430,12 @@ def _inputs(name, model, task, device, ground=None):
     elif name == "allegro_hand":
         q = allegro_contact_q(model, rng, B)
         qd = rng.normal(size=(B, model.nv)) * 0.1
+    elif name == "shadow_hand":
+        q = shadow_contact_q(model, rng, B)
+        qd = rng.normal(size=(B, model.nv)) * 0.1
+    elif name == "tendon":
+        q = tendon_q(rng, B)
+        qd = rng.normal(size=(B, model.nv))
     elif name in BOX_POSES:
         # the scene's pose with 1 mm of noise in position and 0.02 in the quaternion
         q = np.tile(BOX_POSES[name][1], (B, 1)) + np.concatenate(
@@ -428,10 +514,10 @@ def _assert_close(a, b):
 # h c_t ~ 80 kg, friction_vel 0.01 m/s), so the last-bit differences of the
 # two versions' articulated solves grow several-fold per step; free running,
 # the versions part within 3 steps (qd 0.02, net 1.9 N of 1.5 kN)
-STEPWISE = {"allegro_hand"}
+STEPWISE = {"allegro_hand", "shadow_hand"}
 HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
               "ball_balance", "pair_capsule", "held", "boxbox", "capbox", "spherebox",
-              "allegro_hand"]
+              "allegro_hand", "tendon", "shadow_hand"]
 
 
 def _step(model, sp, task, ground, device, need_torque=True):
@@ -447,19 +533,26 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
     params, q, qd, ctrl, w = _inputs(name, model, task, "cpu", ground)
     qa, qda, qb, qdb = q, qd, q, qd
     touched = 0.0
+    sides = np.zeros(3)                          # the most env-tendons below, inside, above bounds
     for _ in range(5):
         if name in STEPWISE:
             qa, qda = qb, qdb                    # each step from the plain version's state
+        if model.tendons:
+            L = tendon_length(model, qb[:, model.n_floating * 7:])
+            lo, hi = (np.array([t[k] for t in model.tendons]) for k in (1, 2))
+            sides = np.maximum(sides, [(L < lo).mean(), ((L >= lo) & (L <= hi)).mean(), (L > hi).mean()])
         qa, qda, na = _host_call(host_kernel, step, params, qa, qda, ctrl, w)
         qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, w)
         _assert_close((qa, qda, na), (qb, qdb, nb_))
         rows = nb_[..., :3].abs().amax(-1) > 0
-        if name == "allegro_hand":               # the share of envs whose cube is touched
+        if name in ("allegro_hand", "shadow_hand"):   # the share of envs whose cube is touched
             rows = rows[:, task.object_body]
         touched = max(touched, float(rows.float().mean()))
     if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
-                *BOX_POSES):
+                "shadow_hand", *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
+    if model.tendons:                            # the tendon springs act, not in every env-tendon
+        assert (sides > 0.1).all(), sides
 
 
 def test_kernel_caps_raise():
@@ -475,6 +568,31 @@ def test_kernel_caps_raise():
         fused.check_caps(big)
     with pytest.raises(NotImplementedError):      # at build time, not at the first launch
         fused.build_fused_step_fn(big, sp)
+
+
+@pytest.mark.parametrize("n_bodies", [fused.MAX_PAIR_BODIES, fused.MAX_PAIR_BODIES + 1])
+def test_pair_body_cap(n_bodies):
+    """A fixed chain of n_bodies - 1 links, each with a sphere, beside a free
+    ball: n_bodies pair bodies. At the cap (32, kMaxPairBodies in the source)
+    the wrapper builds; above it, it raises at build time."""
+    links = n_bodies - 2                                    # joints of the chain
+    assert f"constexpr int kMaxPairBodies = {fused.MAX_PAIR_BODIES};" in open(fused.SOURCE).read()
+    inertial = "<inertial><mass value='0.1'/><inertia ixx='1e-3' iyy='1e-3' izz='1e-3' ixy='0' " \
+        "ixz='0' iyz='0'/></inertial>"
+    chain = load_urdf("<robot name='chain'>" + "".join(
+        f"<link name='l{i}'>{inertial}<collision><geometry><sphere radius='0.01'/></geometry>"
+        f"</collision></link>" for i in range(links + 1)) + "".join(
+        f"<joint name='j{i}' type='revolute'><parent link='l{i}'/><child link='l{i + 1}'/>"
+        f"<origin xyz='0.03 0 0'/><axis xyz='0 0 1'/></joint>" for i in range(links)) + "</robot>",
+        fix_base_link=True)
+    ball = load_urdf(PAIR_BALL)
+    scene = compose([(chain, (0, 0, 1, 1, 0, 0, 0), "c/"), (ball, (0, 0, 2, 1, 0, 0, 0), "b/")])
+    assert len(fused.pair_bodies(scene)) == n_bodies
+    if n_bodies > fused.MAX_PAIR_BODIES:
+        with pytest.raises(NotImplementedError, match="pair bodies"):
+            fused.build_fused_step_fn(scene, SimParams())
+    else:
+        assert fused.build_fused_step_fn(scene, SimParams()).pair_mode == 1
 
 
 @pytest.fixture

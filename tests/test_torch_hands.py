@@ -21,7 +21,8 @@ slice: its cube and palm, its 12 capsule-box and 1 box-box actor pairs).
   YAML's dt 0.01667 s (1/60 to its 4 digits), 2 substeps, 2 physics steps per
   control step, the box instance of the kernel with the fingertips' torque
   rows; ``make`` without a device raises where there is no card, and
-  ``make("ShadowHand")`` raises, naming its tendons.
+  ``make("ShadowHand")`` builds, with its tendons (tests/test_torch_shadow_hand.py
+  holds it against JAX).
 - One AllegroHandPPO iteration at 8 envs on the CPU is finite, from weights
   that ``parity/convert.py`` carried across from a JAX PPO init (forward
   pass atol=rtol 1e-5)."""
@@ -224,8 +225,9 @@ def test_make_allegro_hand_with_its_yaml():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tgt.make("AllegroHand", num_envs=8)
-    with pytest.raises(NotImplementedError, match="tendons"):
-        tgt.make("ShadowHand", num_envs=8, device="cpu")
+    shadow = tgt.make("ShadowHand", num_envs=8, device="cpu")
+    assert len(shadow.task.model.tendons) == 4 and shadow.physics_step.pair_mode == 2
+    assert shadow.physics_step._tables[0][42] == 4
 
 
 def test_allegro_hand_ppo_iteration_on_cpu():

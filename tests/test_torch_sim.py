@@ -206,5 +206,10 @@ def test_unported_features_raise():
     assert build_step_fn(tm, tsp, attractors=attr).pair_mode
     with pytest.raises(ValueError):
         check_supported(tm, attractors=((0, (0, 0, 0), (0, 0, 1)),))
-    with pytest.raises(NotImplementedError):
-        check_supported(dataclasses.replace(tm, tendons=(((1.0,), -1.0, 1.0, "t"),)))
+    # fixed tendons are ported: a tendon model builds, with its tendon table;
+    # a tendon whose coefficients do not cover the joints raises
+    tendon = dataclasses.replace(tm, tendons=(((1.0,), -1.0, 1.0, "t"),))
+    assert check_supported(tendon) == 0.0
+    assert build_step_fn(tendon, tsp)._tables[0][42] == 1
+    with pytest.raises(ValueError):
+        check_supported(dataclasses.replace(tm, tendons=(((1.0, 1.0), -1.0, 1.0, "t"),)))

@@ -4,14 +4,26 @@
 //
 // Replaces the TPU kernel `_make_kernel(...).kernel` launched by the
 // `pl.pallas_call` in `build_fused_step_fn` (thormang_isaacgym_tpu/ops/fused.py).
-// It computes what that kernel computes for feature blocks B1-B7 but B4b:
+// It computes what that kernel computes for every feature block, B1-B7:
 // implicit joint drives, passive damping / dry friction / limit springs,
-// forward kinematics, penalty ground contact with stability-clamped
-// coefficients and tanh-regularised Coulomb friction, actor-pair contact of
-// every kind and world-point attractors, the three-sweep Featherstone
-// ABA with a 6x6 LDL^T solve per floating root, and semi-implicit Euler with
-// quaternion renormalisation, repeated n_steps times inside the kernel.
-// Fixed tendons (B4b) are not covered; the Python wrapper refuses such models.
+// fixed-tendon limit springs, forward kinematics, penalty ground contact with
+// stability-clamped coefficients and tanh-regularised Coulomb friction,
+// actor-pair contact of every kind and world-point attractors, the
+// three-sweep Featherstone ABA with a 6x6 LDL^T solve per floating root, and
+// semi-implicit Euler with quaternion renormalisation, repeated n_steps times
+// inside the kernel.
+//
+// Fixed tendons (B4b, the TPU kernel's fused.py:1373-1400). A tendon's length
+// L = sum_j c_j q_j over its nonzero coefficients (ascending joint order) is
+// held to [lo, hi] by a backward-Euler limit spring: f = in_vio (-k (viol +
+// h Ld)) - d Ld, with k, d the env's tendon_stiffness / tendon_damping rows;
+// c_j f joins tau[j] and c_j^2 (in_vio h^2 k + h d) the ABA's diagonal D.
+// The tendon table (each tendon's first term, the terms' joints; lo, hi and
+// the coefficients) is looped over at run time in every instance, so a model
+// without tendons pays one compare per substep (Ant's flat, BallBalance's
+// pair and AllegroHand's box instance time within 0.3 % of their builds
+// without the loop on an H100 at 700 W), and nothing per tendon is kept per
+// thread: no cap.
 //
 // Actor pairs (B5, B6) and attractors (B4a). The pair table lists each geom
 // pair of different actors: sphere vs sphere / capsule / cylinder / box (the
@@ -34,11 +46,11 @@
 // pull a body point toward a world target with kp, kd clamped to the point's
 // effective mass (the body mass, or I_min / |p|^2 when smaller). The blocks
 // are the template parameters kPA (pairs and attractors) and kBX (the box
-// kinds): the instances without them are the flat and heightfield kernels as
-// they were (167 and 163 registers, 20,864- and 22,400-byte stacks on
-// sm_90a); the flat instance with pairs uses 241 registers and a 22,592-byte
-// stack, as it did before the box kinds, and the box instance 232 registers
-// and a 22,896-byte stack (ptxas -v, CUDA 12.8).
+// kinds): the instances without them are the flat and heightfield kernels
+// (167 and 239 registers, 20,864- and 22,400-byte stacks on sm_90a); the flat
+// instance with pairs uses 249 registers and a 24,320-byte stack, the box
+// instance 244 registers and a 24,624-byte stack (ptxas -v, CUDA 12.8): the
+// per-pair-body sums for up to 32 pair bodies take 3.5 kB of it.
 //
 // Heightfield ground (B7). The TPU kernel reads, per contact candidate, a
 // local ground plane z = c + gx x + gy y that a separate sampler computed at
@@ -86,8 +98,11 @@
 // 7 pairs) is bound by bytes: 1.75 us for 5.9 MB. AllegroHand in the box
 // instance at 16384 envs (640 input + 111 output rows; 2 substeps of 88.6k
 // operations, 65 pair candidates) is bound by operations: 43 us for 2.9
-// GFLOP. No bound is close (0.12, 0.37-0.40, 0.097 and 1.0 ms measured on an
-// H100 at 700 W): this simple design is bound by latency. q, qd and the 21-float articulated inertias live in per-thread
+// GFLOP; ShadowHand in the same instance with its 4 tendons (941 input + 154
+// output rows; 2 substeps of 137.7k operations, 111 pair candidates) by
+// operations too: 67 us for 4.5 GFLOP. No bound is close (0.12, 0.37-0.41,
+// 0.098, 1.0 and 1.47 ms measured on an H100 at 700 W): this simple design
+// is bound by latency. q, qd and the 21-float articulated inertias live in per-thread
 // local memory (spills are accepted), 4096 envs make only 32 blocks of 128
 // threads (32 of 132 SMs busy), and the per-env model parameters are re-read
 // from the input slab in every substep. What it leaves on the table: smaller
@@ -109,7 +124,7 @@ constexpr int kHeader = 48;     // ints / floats of header in the two tables
 constexpr int kMaxBodies = 64;  // MAX_BODIES in ops/fused.py
 constexpr int kMaxRoots = 8;    // MAX_ROOTS in ops/fused.py
 constexpr int kMaxCands = 128;  // MAX_CANDIDATES in ops/fused.py
-constexpr int kMaxPairBodies = 16;  // MAX_PAIR_BODIES in ops/fused.py
+constexpr int kMaxPairBodies = 32;  // MAX_PAIR_BODIES in ops/fused.py
 constexpr int kPairInts = 6;    // per pair: geom a, geom b, body a, body b, kind, geom type of b
 constexpr int kPairFloats = 21; // per pair: sizes a (3), b (3), r_a + r_b, geom poses a, b (7 + 7)
 constexpr int kAttrFloats = 9;  // per attractor: local point, target, kp, kd, |p|^2 + 1e-6 or 0
@@ -570,6 +585,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const int nc = mi[7], ntq = mi[8], n_steps = mi[9];
   const int hf_H = mi[37], hf_W = mi[38];
   const int n_pairs = mi[39], n_attr = mi[40], n_pair_bodies = mi[41];
+  const int n_tendons = mi[42], tstiff_row = mi[43];  // tdamp rows follow tstiff's
   Rows rw;
   {
     int* dst = reinterpret_cast<int*>(&rw);
@@ -585,6 +601,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const int* pair_i = tq_slot + nb;                  // kPairInts per pair
   const int* pair_slot = pair_i + kPairInts * n_pairs;  // per body: accumulator slot or -1
   const int* attr_body = pair_slot + nb;
+  const int* t_start = attr_body + n_attr;            // per tendon its first term, then the end
+  const int* t_joint = t_start + n_tendons + 1;       // per term its joint
 
   const float h = mf[0], h2 = mf[1], ground_z = mf[2], kn_max = mf[3], kd_max = mf[4];
   const float fric_vel = mf[5], plane_fric = mf[6], lim_k = mf[7], lim_d = mf[8];
@@ -603,6 +621,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const float* cand_r = cand_off + 3 * nc;
   const float* pair_f = cand_r + nc;                 // kPairFloats per pair
   const float* attr_f = pair_f + kPairFloats * n_pairs;  // kAttrFloats per attractor
+  const float* t_lohi = attr_f + kAttrFloats * n_attr;   // per tendon lo, hi
+  const float* t_coef = t_lohi + 2 * n_tendons;           // per term its coefficient
 
 #define RD(r) in[(size_t)(r) * B + b]
 
@@ -948,6 +968,27 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       dg = dg + in_vio * lim_diag;
       tau[j] = t;
       diag[j] = dg;
+    }
+
+    // ---- fixed tendons (B4b): limit springs on L = C q, implicit diagonal ----
+    for (int k = 0; k < n_tendons; ++k) {
+      float L = 0.0f, Ld = 0.0f;
+      for (int e = t_start[k]; e < t_start[k + 1]; ++e) {
+        L = L + t_coef[e] * jq[t_joint[e]];
+        Ld = Ld + t_coef[e] * jqd[t_joint[e]];
+      }
+      const float below = fminf(L - t_lohi[2 * k], 0.0f);
+      const float above = fmaxf(L - t_lohi[2 * k + 1], 0.0f);
+      const float in_vio = (below < 0.0f || above > 0.0f) ? 1.0f : 0.0f;
+      const float kt = RD(tstiff_row + k), dt = RD(tstiff_row + n_tendons + k);
+      const float f = in_vio * -(kt * ((below + above) + h * Ld)) - dt * Ld;
+      const float dg = in_vio * (h2 * kt) + h * dt;
+      for (int e = t_start[k]; e < t_start[k + 1]; ++e) {
+        const int j = t_joint[e];
+        const float c = t_coef[e];
+        tau[j] = tau[j] + c * f;
+        diag[j] = diag[j] + (c * c) * dg;
+      }
     }
 
     // ---- body inertias + bias forces pA (link frame) ----

@@ -13,6 +13,9 @@ All quantities are link-local; motion vectors are (omega, v).
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 from thormang_isaacgym_tpu_torch.core import quat as Q
@@ -141,12 +144,17 @@ def passive_forces(params: ModelParams, joint_q: torch.Tensor,
                    joint_qd: torch.Tensor, h: float,
                    limit_stiffness: float = 2000.0,
                    limit_damping: float = 50.0,
-                   friction_vel_scale: float = 0.05):
+                   friction_vel_scale: float = 0.05,
+                   tendons=()):
     """Passive joint forces in implicit form: (tau_explicit, diag).
 
     damping -c qd (diag h c); bounded tanh dry friction (explicit); limit
     spring-damper active in violation, spring at the predicted position
-    q + h qd (diag h^2 k + h d)."""
+    q + h qd (diag h^2 k + h d). Fixed tendons (``RobotModel.tendons``,
+    (coef (nj,), lo, hi, name)): the length L = C q is held to [lo, hi] by a
+    backward-Euler limit spring (params.tendon_stiffness / tendon_damping,
+    (B, nt)); its torque C^T f joins tau and the diagonal of the rank-1
+    coupling, (C o C)^T (in_vio h^2 k + h d), joins diag."""
     c = params.dof_damping
     tau = -c * joint_qd
     diag = h * c
@@ -161,7 +169,28 @@ def passive_forces(params: ModelParams, joint_q: torch.Tensor,
     tau = tau + in_violation * (-limit_stiffness * (violation + h * joint_qd)
                                 - limit_damping * joint_qd)
     diag = diag + in_violation * (h * h * limit_stiffness + h * limit_damping)
+    if tendons:
+        C, lo, hi = tendon_tables(tuple(tendons), joint_q.device)
+        L = joint_q @ C.t()
+        Ld = joint_qd @ C.t()
+        below_t = torch.clamp(L - lo, max=0.0)
+        above_t = torch.clamp(L - hi, min=0.0)
+        viol = below_t + above_t
+        in_vio = ((below_t < 0) | (above_t > 0)).to(joint_q.dtype)
+        k_t, d_t = params.tendon_stiffness, params.tendon_damping
+        f_t = in_vio * (-k_t * (viol + h * Ld)) - d_t * Ld        # per-tendon force
+        tau = tau + f_t @ C
+        diag_t = in_vio * (h * h * k_t) + h * d_t
+        diag = diag + diag_t @ (C * C)
     return tau, diag
+
+
+@lru_cache(maxsize=16)
+def tendon_tables(tendons: tuple, device) -> tuple:
+    """(C (nt, nj), lo (nt,), hi (nt,)) float32 on `device`, built once: a
+    constant made per call would be a host copy."""
+    return tuple(torch.as_tensor(np.array([t[k] for t in tendons], np.float32), device=device)
+                 for k in (0, 1, 2))
 
 
 def drive_forces(params: ModelParams, joint_q: torch.Tensor,

@@ -20,7 +20,10 @@ a pair table and an attractor table follow the contact candidates in the
 two tables, and the kernel's pair instances loop over them (nothing per pair
 or candidate is stored per thread; the pair wrench and the added inertia are
 summed per pair body). The box kinds have an instance of their own, so a
-scene without them runs the round-kind code as it was. Fixed tendons raise.
+scene without them runs the round-kind code as it was. Fixed tendons (block
+B4b) are a third table in every instance: each tendon's nonzero (joint,
+coefficient) terms and its [lo, hi], looped over after the joint drives;
+their per-env stiffness and damping are two rows each of the slab.
 
 The ground is a constant height or a ``Heightfield`` (block B7 of the TPU
 kernel). Over a heightfield the kernel samples, at the step's input q, a
@@ -69,7 +72,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_BODIES = 64
 MAX_ROOTS = 8
 MAX_CANDIDATES = 128
-MAX_PAIR_BODIES = 16
+MAX_PAIR_BODIES = 32
 # the JAX package's runaway guard on the pair narrowphase (_MAX_PAIR_CANDIDATES)
 MAX_PAIR_CANDIDATES = 1024
 MAX_ATTRACTORS = 64
@@ -138,13 +141,15 @@ def load_library() -> ctypes.CDLL:
 
 def make_rows(model: RobotModel, ground_rows: int = 0) -> dict:
     """Row offsets into the packed (R, B) input, in ``_make_rows`` order,
-    plus ``total``. No tendon rows yet; ``ground_rows`` = 3C gives the JAX
-    layout's plane rows (the plain version's), 0 the CUDA kernel's slab,
-    which samples the heightfield itself."""
+    plus ``total``: nt rows each of tendon stiffness and damping;
+    ``ground_rows`` = 3C gives the JAX layout's plane rows (the plain
+    version's), 0 the CUDA kernel's slab, which samples the heightfield
+    itself."""
     nq, nv, nj, nb, ng = model.nq, model.nv, model.nj, model.nb, model.ng
+    nt = len(model.tendons)
     sizes = dict(q=nq, qd=nv, tp=nj, tv=nj, eff=nj, mass=nb, com=3 * nb,
                  inertia=6 * nb, gscale=nb, geom_fric=ng, gravity=3, wrench=6 * nb,
-                 tstiff=0, tdamp=0, gplane=ground_rows)
+                 tstiff=nt, tdamp=nt, gplane=ground_rows)
     rows, off = {}, 0
     for name in _ROW_NAMES + ("tstiff", "tdamp", "gplane"):
         rows[name] = off
@@ -207,7 +212,11 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
                   ground, tq_bodies: tuple, attractors=()):
     """The kernel's static model data: (int32 table, float32 table).
     `ground`: a constant height or a Heightfield (header ints 37-38: H, W;
-    floats 14-16: horizontal scale, origin x, y). Actor pairs and
+    floats 14-16: horizontal scale, origin x, y). Fixed tendons: header
+    ints 42-43 (tendons, the tstiff row; tdamp follows it); last in the int
+    table each tendon's first term (nt + 1 offsets) and the terms' joints,
+    last in the float table each tendon's (lo, hi) and the terms'
+    coefficients, its nonzero ones in ascending joint order. Actor pairs and
     attractors: header ints 39-41 (pairs, attractors, pair bodies), floats
     17-20 (D = h kn + kd, D max_dep, h D, max_dep / 2); after the candidate
     rows, per pair (geom a, geom b, body a, body b, kind 0 sphere / 1
@@ -228,7 +237,7 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
     pbodies = pair_bodies(model)
     head = [nb, nj, nr, model.n_floating, model.nq, model.nv, model.ng, nc,
             len(tq_bodies), n_steps] + [rows[n] for n in _ROW_NAMES] + [rows["total"]] \
-        + [H, W, len(pairs), len(attractors), len(pbodies)]
+        + [H, W, len(pairs), len(attractors), len(pbodies), len(model.tendons), rows["tstiff"]]
     slot = np.full(nb, -1, np.int64)
     slot[list(tq_bodies)] = np.arange(len(tq_bodies))
     pslot = np.full(nb, -1, np.int64)
@@ -236,6 +245,8 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
     g = model.geoms
     pair_i = [[ia, ib, g[ia].body, g[ib].body, _KIND[kind], g[ib].gtype]
               for ia, ib, kind in pairs]
+    terms = [np.flatnonzero(np.asarray(coef, np.float32)) for coef, *_ in model.tendons]
+    t_start = np.cumsum([0] + [len(j) for j in terms])
     mi = np.concatenate([
         np.array(head + [0] * (_HEADER - len(head))),
         np.array(model.parent), np.array(model.joint_type),
@@ -243,6 +254,7 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
         cand["body"], cand["geom"], cand["rim"].astype(np.int64), slot,
         np.array(pair_i, np.int64).reshape(-1), pslot,
         np.array([a[0] for a in attractors], np.int64),
+        t_start, np.concatenate([np.zeros(0, np.int64)] + terms),
     ]).astype(np.int32)
     h = sp.dt / sp.substeps
     D_imp = h * sp.contact_stiffness + sp.contact_damping
@@ -277,6 +289,9 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
         cand["off"].reshape(-1), cand["r"],
         np.array(pair_f, np.float64).reshape(-1),
         np.array(attr_f, np.float64).reshape(-1),
+        np.array([(lo, hi) for _, lo, hi, _ in model.tendons], np.float64).reshape(-1),
+        np.concatenate([np.zeros(0, np.float32)] + [np.asarray(coef, np.float32)[j]
+                                                    for (coef, *_), j in zip(model.tendons, terms)]),
     ]).astype(np.float32)
     return mi, mf
 
@@ -362,6 +377,8 @@ class FusedStep:
                 params.drive_stiffness, params.drive_damping,
                 params.drive_effort_limit, params.dof_locked,
                 params.dof_locked_pos, params.geom_friction, params.gravity, wrench]
+        if m.tendons:
+            cols += [params.tendon_stiffness, params.tendon_damping]
         packed = torch.cat([c.to(torch.float32).reshape(B, -1).t() for c in cols], 0)
         if packed.shape[0] != self.rows["total"]:
             raise ValueError(f"packed {packed.shape[0]} rows, expected {self.rows['total']}")

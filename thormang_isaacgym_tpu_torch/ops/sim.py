@@ -17,7 +17,8 @@ Multi-actor scenes (``models/scene.py``) collide between actors through
 ``ops/collide.py`` (sphere vs sphere / capsule / cylinder / box, capsule vs
 capsule, capsule vs box, box vs box), whose implicit reaction joins the
 articulated inertia; world-point attractors pull body points toward fixed
-targets. Fixed tendons are not ported and raise.
+targets. Fixed tendons hold each coupled length L = C q to [lo, hi] with a
+backward-Euler limit spring (``dynamics.passive_forces``).
 """
 from __future__ import annotations
 
@@ -69,15 +70,15 @@ def zero_controls(model: RobotModel, batch: int, device="cpu") -> Controls:
 
 
 def check_supported(model: RobotModel, ground=0.0, attractors=None):
-    """Raise for what the port does not cover yet (fixed tendons, a
-    callable ground); return the ground: a constant height (float) or a
-    Heightfield."""
+    """Raise for what the port does not cover yet (a callable ground) and
+    for malformed attractors or tendons; return the ground: a constant
+    height (float) or a Heightfield."""
     for a in attractors or ():
         if len(a) != 5 or not 0 <= int(a[0]) < model.nb:
             raise ValueError(f"attractor {a!r}: expected (body, local_p, target, kp, kd)")
-    if getattr(model, "tendons", ()):
-        raise NotImplementedError(
-            f"fixed tendons are not ported yet ({len(model.tendons)} in model {model.name!r})")
+    for t in model.tendons:
+        if len(t) != 4 or len(t[0]) != model.nj:
+            raise ValueError(f"tendon {t!r}: expected (coef ({model.nj},), lo, hi, name)")
     if isinstance(ground, Heightfield):
         return ground
     if ground is not None and not isinstance(ground, (int, float)):
@@ -133,7 +134,8 @@ def _substep(model: RobotModel, sp_: SimParams, params: ModelParams,
                                      ctrl.target_vel, ctrl.effort, h)
     tau_p, diag_p = dyn.passive_forces(params, joint_q, joint_qd, h,
                                        limit_stiffness=sp_.joint_limit_stiffness,
-                                       limit_damping=sp_.joint_limit_damping)
+                                       limit_damping=sp_.joint_limit_damping,
+                                       tendons=model.tendons)
     qdd = dyn.aba(model, params, q, qd, tau_d + tau_p, f_ext, params.gravity,
                   precomputed=(local[0], local[1], frames.quat),
                   extra_diag=diag_d + diag_p, extra_body_inertia=dIA)

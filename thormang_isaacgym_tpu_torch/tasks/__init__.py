@@ -2,8 +2,7 @@
 ``cfg/task/*.yaml`` files. Port of ``thormang_isaacgym_tpu/tasks/__init__.py``.
 
 Only the tasks of the slices so far are registered; the other entries of
-the JAX package's registry wait for later slices (``make("ShadowHand")``
-raises, naming what it waits for). Tasks import lazily.
+the JAX package's registry wait for later slices. Tasks import lazily.
 """
 from __future__ import annotations
 
@@ -19,14 +18,11 @@ TASK_MAP = {
     "AnymalTerrain": ("thormang_isaacgym_tpu_torch.tasks.anymal_terrain", "AnymalTerrain"),
     "BallBalance": ("thormang_isaacgym_tpu_torch.tasks.ball_balance", "BallBalance"),
     "AllegroHand": ("thormang_isaacgym_tpu_torch.tasks.allegro_hand", "AllegroHand"),
+    "ShadowHand": ("thormang_isaacgym_tpu_torch.tasks.shadow_hand", "ShadowHand"),
 }
-# in the JAX registry, waiting for a kernel block that is not ported yet
-NOT_YET = {"ShadowHand": "its model's 4 fixed tendons (kernel block B4b) are not ported yet"}
 
 
 def get_task_class(name: str):
-    if name in NOT_YET:
-        raise NotImplementedError(f"task {name!r} is not ported: {NOT_YET[name]}")
     if name not in TASK_MAP:
         raise KeyError(f"unknown or not yet ported task {name!r}; ported: {sorted(TASK_MAP)}")
     module, cls = TASK_MAP[name]

@@ -27,9 +27,8 @@ tendons) holds a free cube palm-up and turns it to a goal orientation.
 Random draws are the port's per-env murmur3 streams (``EnvRandom``): the
 reset's on the env's episode, the force kicks' (salt 77) and the goal
 resampling's (salt 303) on the global step. They are not the JAX package's
-threefry draws. ShadowHand itself is not registered: its model has four
-fixed tendons, which the kernel does not cover yet. AllegroHand
-(``tasks/allegro_hand.py``) subclasses this task.
+threefry draws. The hand's four fixed tendons run in the kernel's tendon
+block (B4b). AllegroHand (``tasks/allegro_hand.py``) subclasses this task.
 """
 from __future__ import annotations
 
@@ -46,6 +45,7 @@ from thormang_isaacgym_tpu_torch.models.scene import compose
 from thormang_isaacgym_tpu_torch.models.shadow_hand import (
     ACTUATED_DOF_NAMES, FINGERTIP_BODIES, load_shadow_hand, make_block_urdf,
 )
+from thormang_isaacgym_tpu_torch.ops.dynamics import tendon_tables
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
 
@@ -179,11 +179,7 @@ class ShadowHand(Task):
             self._set_maps(list(range(self.num_actions)), [])
         self.object_body = scene.body_id("obj/object")
         self.object_mass = float(np.asarray(d["body_mass"])[self.object_body])
-        tendons = scene.tendons
-        self._tendon = None
-        if tendons:
-            self._tendon = tuple(torch.as_tensor(np.array([t[k] for t in tendons], np.float32),
-                                                 device=dev) for k in (0, 1, 2))
+        self._tendon = tendon_tables(scene.tendons, dev) if scene.tendons else None
         # ShadowHand.yaml's sim block: dt 0.01667, 2 substeps
         self.sim_params = SimParams(
             dt=1.0 / 60.0, substeps=2, gravity=(0.0, 0.0, -9.81),
