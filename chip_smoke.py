@@ -30,7 +30,9 @@ Phases, one line each (any failure raises and exits non-zero):
     below and above their bounds).
  3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain and
     BallBalance at 4096 envs and AllegroHand and ShadowHand at 16384 (CUDA
-    events after warm-up, ms per control step) beside the kernel's bound.
+    events after warm-up, ms per control step) beside the kernel's bound;
+    the hands also the share of pairs that pass the box instance's cull and
+    of candidates in contact, per env and per warp of 32 (``cull_stats``).
  4. train: make(task, cfg=cfg/task/<task>.yaml) at the YAML's numEnvs,
     PPO(PPOConfig.from_rlgames(cfg/train/<task>PPO.yaml)), 3
     train_iterations, for Ant (4096 envs, 3 x 16 kernel launches),
@@ -815,9 +817,33 @@ def _time_cuda(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cull_stats(step, q, qd) -> dict:
+    """What the box instance's cull sees at (q, qd): the share of env-pairs
+    whose bounding spheres come within the margin (``fused.pairs_apart``)
+    and of warp-pairs (any of a warp's 32 envs: the narrowphase runs for
+    the warp), and the same shares of the candidates in contact (the force
+    block runs for the warp). The bound counts every candidate, as the TPU
+    kernel computes it."""
+    m = step.model
+    f = forward_kinematics(m, q, qd)
+    near = ~fused.pairs_apart(m, f)
+    active = torch.stack([c[5] for c in collide.candidates(m, f)], -1) > 0
+    w = 32
+    n = q.shape[0] // w * w
+
+    def share(x, warp=False):
+        x = x[:n].reshape(n // w, w, -1).any(1) if warp else x
+        return float(x.float().mean())
+
+    return dict(pair_pass_share=share(near), pair_pass_share_warp=share(near, True),
+                active_candidate_share=share(active),
+                active_candidate_share_warp=share(active, True))
+
+
 def phase_time(name: str, device) -> dict:
     """The kernel on `name`'s training inputs (torque rows of the task's
-    sensor bodies, as VecEnv builds it), ms per control step."""
+    sensor bodies, as VecEnv builds it), ms per control step; in the box
+    mode also what its cull sees (``cull_stats``)."""
     task = _task(name, device)
     m = task.model
     hf = task.ground_height_fn() if hasattr(task, "ground_height_fn") else None
@@ -843,7 +869,8 @@ def phase_time(name: str, device) -> dict:
                bound_ms=max(bytes_ms, flops_ms),
                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                bytes=nbytes, bytes_ms=bytes_ms, flops=flops, flops_ms=flops_ms)
-    log("time", model=name, envs=envs, substeps=step.n_steps, **out)
+    cull = cull_stats(step, q, qd) if step.pair_mode == 2 else {}
+    log("time", model=name, envs=envs, substeps=step.n_steps, **out, **cull)
     return out
 
 

@@ -52,7 +52,7 @@ from thormang_isaacgym_tpu_torch.models import load_urdf
 from thormang_isaacgym_tpu_torch.models.scene import compose
 from thormang_isaacgym_tpu_torch.ops import collide, fused
 from thormang_isaacgym_tpu_torch.ops import dynamics as dyn
-from thormang_isaacgym_tpu_torch.ops.kinematics import BodyFrames
+from thormang_isaacgym_tpu_torch.ops.kinematics import BodyFrames, forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import SimParams, check_supported, zero_controls
 from thormang_isaacgym_tpu_torch.tasks.ball_balance import BallBalance
 
@@ -385,3 +385,73 @@ def test_unported_pairs_raise(other):
         return
     with pytest.raises(NotImplementedError):
         fused.build_fused_step_fn(m, sp)          # the wrapper: at build, before any launch
+
+
+# the box instance's pair cull (ops/fused.py pairs_apart, csrc/fused_step.cu):
+# one geom of each kind (a first, as collide.pairs orders them), and the
+# direction in each geom's frame along which it reaches its bounding radius
+CAN = _body("can", '<cylinder radius="0.05" length="0.1"/>')     # rim sqrt(2) r from its centre
+CULL_PAIRS = {"sphere_sphere": (BALL, SMALL_BALL), "sphere_capsule": (BALL, CAP),
+              "sphere_cylinder": (BALL, CAN), "sphere_box": (BALL, BOX),
+              "capsule_capsule": (CAP, CAP), "capsule_box": (CAP, BOX), "box_box": (BOX, BOX)}
+
+
+def _reach_dir(g):
+    s = np.asarray(g.size, float)
+    e = {1: (0.0, 0.0, 1.0), 2: s, 3: (s[0], 0.0, s[1] if len(s) > 1 else 0.0)}.get(g.gtype, (1.0, 0.0, 0.0))
+    return np.asarray(e, float) / np.linalg.norm(e)
+
+
+def _aim(e, t, spin):
+    """wxyz quaternions (n, 4) turning the unit vector e onto the unit vectors
+    t (n, 3), then about t by `spin` radians."""
+    axis = np.cross(e, t)
+    c = t @ e
+    q = np.concatenate([(1.0 + c)[:, None], axis], 1)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    s = np.concatenate([np.cos(spin / 2)[:, None], t * np.sin(spin / 2)[:, None]], 1)
+    return _qmul(s, q)
+
+
+@pytest.mark.parametrize("where", ["at_margin", "inside_margin"])
+@pytest.mark.parametrize("kind", sorted(CULL_PAIRS))
+def test_box_cull_apart_pairs_have_no_contact(kind, where):
+    """Wherever the box instance's cull calls a pair apart, every candidate of
+    the plain narrowphase has depth <= 0: random poses of each kind, half of
+    them turned so each geom reaches its bounding radius along the line of
+    centres (a box's corner, a capsule's tip, a cylinder's rim), the centres
+    just beyond the cull's threshold (the sum of the bounding radii plus 1 mm
+    plus 1e-5 of the distance: the cull says apart) and half the margin
+    inside it (it says near; the bounding spheres are still apart)."""
+    a, b = CULL_PAIRS[kind]
+    m = compose([(load_urdf(a), (0, 0, 1, 1, 0, 0, 0), "a/"), (load_urdf(b), (0, 0, 0, 1, 0, 0, 0), "b/")])
+    (ia, ib, _), = collide.pairs(m)
+    ga, gb = m.geoms[ia], m.geoms[ib]
+    assert (ga.body, gb.body) == (0, 1)
+    reach = float(fused.pair_reach(m)[0])
+    n, half = 64, 32
+    rng = np.random.default_rng(sorted(CULL_PAIRS).index(kind))
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    if where == "at_margin":
+        d = (reach + fused.CULL_MARGIN) / (1.0 - fused.CULL_REL) + 1e-6
+    else:
+        d = reach + 0.5 * fused.CULL_MARGIN
+    q = np.zeros((n, 14))
+    q[:, 0:3] = rng.uniform(-0.5, 0.5, (n, 3))
+    q[:, 7:10] = q[:, 0:3] + u * d
+    q[:, 3:7] = _quat(rng, n, 1.0)
+    q[:, 10:14] = _quat(rng, n, 1.0)
+    ea, eb = _reach_dir(ga), _reach_dir(gb)
+    q[half:, 3:7] = _aim(ea, u[half:], rng.uniform(0, 2 * np.pi, n - half))
+    q[half:, 10:14] = _aim(eb, -u[half:], rng.uniform(0, 2 * np.pi, n - half))
+    # the aimed geoms' farthest points lie d - reach apart on the line of centres
+    tip_a = q[half:, 0:3] + _rot(q[half:, 3:7], np.tile(ea * fused.bounding_radius(ga), (n - half, 1)))
+    tip_b = q[half:, 7:10] + _rot(q[half:, 10:14], np.tile(eb * fused.bounding_radius(gb), (n - half, 1)))
+    np.testing.assert_allclose(np.linalg.norm(tip_b - tip_a, axis=1), d - reach, atol=1e-6)
+    qt = torch.as_tensor(q, dtype=torch.float32)
+    frames = forward_kinematics(m, qt, torch.zeros(n, m.nv))
+    apart = fused.pairs_apart(m, frames)[:, 0]
+    assert bool(apart.all()) if where == "at_margin" else not bool(apart.any())
+    depth = torch.stack([c[5] for c in collide.candidates(m, frames)], -1)
+    assert bool((depth <= 0).all()), float(depth.max())

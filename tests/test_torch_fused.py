@@ -35,7 +35,7 @@ import torch
 from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield, TerrainGrid
 from thormang_isaacgym_tpu_torch.models import load_urdf
 from thormang_isaacgym_tpu_torch.models.scene import compose
-from thormang_isaacgym_tpu_torch.ops import fused
+from thormang_isaacgym_tpu_torch.ops import collide, fused
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
 from thormang_isaacgym_tpu_torch.tasks import ball_balance as bb
@@ -133,6 +133,19 @@ def box_pair_scene(kind, load, compose_fn):
     urdf, pose = BOX_POSES[kind]
     return compose_fn([(load(urdf), pose, "A/"),
                        (load(BOX_CUBE, fix_base_link=True), (0.0, 0.0, 5.0, 1, 0, 0, 0), "B/")]), pose
+
+
+def box_terrain_scene(load, compose_fn):
+    """The box instance over a heightfield: a free cube resting on bumpy,
+    sloped ground (its corners 0 to 3 mm into it) and pressed 2 mm into the
+    side of a fixed cube (box vs box): (scene, the free cube's pose,
+    Heightfield)."""
+    i, j = np.meshgrid(np.arange(40), np.arange(40), indexing="ij")
+    h = 0.003 * np.sin(2.1 * i) * np.cos(1.7 * j) + 0.0005 * i
+    hf = Heightfield(h.astype(np.float32), 0.02, origin=(-0.4, -0.4))
+    pose = (0.012, 0.0, 0.0585, 1.0, 0.0, 0.0, 0.0)
+    return compose_fn([(load(BOX_CUBE), pose, "A/"),
+                       (load(BOX_CUBE, fix_base_link=True), (0.13, 0.0, 0.06, 1, 0, 0, 0), "B/")]), pose, hf
 
 
 class _Held:
@@ -330,6 +343,8 @@ using std::min;
 #define __restrict__ __restrict
 struct HostDim { int x; };
 static HostDim blockIdx, threadIdx, blockDim;
+// one env per call: a warp vote sees the calling thread alone
+inline bool __any_sync(unsigned, bool p) { return p; }
 """
 _HOST_LOOP = """
 extern "C" void host_launch(const int* mi, const float* mf, const float* hf, const float* in,
@@ -381,6 +396,9 @@ def _model(name):
         return load_urdf(HELD_URDF), SimParams(**PAIR_SP), _Held(), 0.0
     if name in BOX_POSES:
         return box_pair_scene(name, load_urdf, compose)[0], SimParams(**BOX_SP), None, 0.0
+    if name == "boxbox_terrain":
+        scene, _, hf = box_terrain_scene(load_urdf, compose)
+        return scene, SimParams(**BOX_SP), None, hf
     if name == "allegro_hand":
         # the sim block of cfg/task/AllegroHand.yaml: dt 0.01667 s, 2 substeps
         task = AllegroHand(num_envs=B, device="cpu")
@@ -436,9 +454,10 @@ def _inputs(name, model, task, device, ground=None):
     elif name == "tendon":
         q = tendon_q(rng, B)
         qd = rng.normal(size=(B, model.nv))
-    elif name in BOX_POSES:
+    elif name in BOX_POSES or name == "boxbox_terrain":
         # the scene's pose with 1 mm of noise in position and 0.02 in the quaternion
-        q = np.tile(BOX_POSES[name][1], (B, 1)) + np.concatenate(
+        pose = box_terrain_scene(load_urdf, compose)[1] if name == "boxbox_terrain" else BOX_POSES[name][1]
+        q = np.tile(pose, (B, 1)) + np.concatenate(
             [rng.normal(size=(B, 3)) * 0.001, rng.normal(size=(B, 4)) * 0.02], 1)
         q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
         qd = rng.normal(size=(B, model.nv)) * 0.05
@@ -514,10 +533,10 @@ def _assert_close(a, b):
 # h c_t ~ 80 kg, friction_vel 0.01 m/s), so the last-bit differences of the
 # two versions' articulated solves grow several-fold per step; free running,
 # the versions part within 3 steps (qd 0.02, net 1.9 N of 1.5 kN)
-STEPWISE = {"allegro_hand", "shadow_hand"}
+STEPWISE = {"allegro_hand", "shadow_hand", "boxbox_terrain"}
 HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
               "ball_balance", "pair_capsule", "held", "boxbox", "capbox", "spherebox",
-              "allegro_hand", "tendon", "shadow_hand"]
+              "allegro_hand", "tendon", "shadow_hand", "boxbox_terrain"]
 
 
 def _step(model, sp, task, ground, device, need_torque=True):
@@ -532,7 +551,7 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
     step = _step(model, sp, task, ground, "cpu", need_torque=(0,) if name == "ant" else True)
     params, q, qd, ctrl, w = _inputs(name, model, task, "cpu", ground)
     qa, qda, qb, qdb = q, qd, q, qd
-    touched = 0.0
+    touched = pair_touched = ground_touched = 0.0
     sides = np.zeros(3)                          # the most env-tendons below, inside, above bounds
     for _ in range(5):
         if name in STEPWISE:
@@ -548,9 +567,21 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         if name in ("allegro_hand", "shadow_hand"):   # the share of envs whose cube is touched
             rows = rows[:, task.object_body]
         touched = max(touched, float(rows.float().mean()))
+        if name == "boxbox_terrain":
+            fr = forward_kinematics(model, qb, qdb)
+            pair_touched = max(pair_touched, float((torch.stack([c[5] for c in collide.candidates(
+                model, fr)], -1) > 0).any(-1).float().mean()))
+            planes = step.sampler(qb).reshape(B, -1, 3)
+            p, _ = fused.contact.candidate_points(model, fr)
+            z = planes[..., 0] + planes[..., 1] * p[..., 0] + planes[..., 2] * p[..., 1]
+            ground_touched = max(ground_touched, float((z > p[..., 2] - torch.as_tensor(
+                fused.contact.candidates(model)["r"])).any(-1).float().mean()))
     if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
-                "shadow_hand", *BOX_POSES):
+                "shadow_hand", "boxbox_terrain", *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
+    if name == "boxbox_terrain":                 # the heightfield box instance: ground and pair
+        assert step.hf is not None and step.pair_mode == 2
+        assert pair_touched > 0.1 and ground_touched > 0.1, (pair_touched, ground_touched)
     if model.tendons:                            # the tendon springs act, not in every env-tendon
         assert (sides > 0.1).all(), sides
 

@@ -49,7 +49,7 @@
 // kinds): the instances without them are the flat and heightfield kernels
 // (167 and 239 registers, 20,864- and 22,400-byte stacks on sm_90a); the flat
 // instance with pairs uses 249 registers and a 24,320-byte stack, the box
-// instance 244 registers and a 24,624-byte stack (ptxas -v, CUDA 12.8): the
+// instance 254 registers and a 24,640-byte stack (ptxas -v, CUDA 12.8): the
 // per-pair-body sums for up to 32 pair bodies take 3.5 kB of it.
 //
 // Heightfield ground (B7). The TPU kernel reads, per contact candidate, a
@@ -101,19 +101,57 @@
 // GFLOP; ShadowHand in the same instance with its 4 tendons (941 input + 154
 // output rows; 2 substeps of 137.7k operations, 111 pair candidates) by
 // operations too: 67 us for 4.5 GFLOP. No bound is close (0.12, 0.37-0.41,
-// 0.098, 1.0 and 1.47 ms measured on an H100 at 700 W): this simple design
-// is bound by latency. q, qd and the 21-float articulated inertias live in per-thread
-// local memory (spills are accepted), 4096 envs make only 32 blocks of 128
-// threads (32 of 132 SMs busy), and the per-env model parameters are re-read
-// from the input slab in every substep. What it leaves on the table: smaller
-// blocks or more envs per launch, keeping the inertias in registers or shared
-// memory, splitting an env's bodies across a warp, and fusing the packing of
-// the input slab into the kernel.
+// 0.098, 0.80 and 1.10 ms measured on an H100 at 700 W). q, qd and the
+// 21-float articulated inertias live in per-thread local memory (spills are
+// accepted), 4096 envs make only 32 blocks of 128 threads (32 of 132 SMs
+// busy), and the per-env model parameters are re-read from the input slab
+// in every substep. What it leaves on the table: keeping the inertias in
+// registers or shared memory, splitting an env's tree across the threads of
+// a warp, and fusing the packing of the input slab into the kernel.
+//
+// The box instance (AllegroHand, ShadowHand at 16384 envs). What bounds it
+// is the warp instructions it executes, most of them loads and stores of the
+// per-thread arrays in local memory. One thread per env puts 4 warps on each
+// busy SM; at 4096 envs (32 SMs) a control step takes 0.74-0.82x its time at
+// 16384 (128 SMs), so the stack's working set beyond the L2 costs a fifth to
+// a quarter, not more. Lane groups (2, 4 or 8 threads per env, the leader
+// running the tree sweeps, the lanes the pair narrowphase through a shared
+// slice of the pair bodies' poses) ran 1.4-4.5x slower than one thread per env, though their outputs
+// matched bit for bit: a warp of 16 or 8 envs runs the whole sweep for
+// fewer envs, and 4 or 8 lanes cap the registers at 128 or 64 (spills). So
+// the instance stays one thread per env and does less instead: it skips,
+// warp by warp, the work that adds nothing. (1) The pair cull: a pair whose
+// geoms' bounding spheres (sphere r, capsule r + half length, box |half
+// extents|, cylinder sqrt(r^2 + half width^2); their sum is each pair row's
+// last float) lie apart by more than kCullMargin + kCullRel x distance in
+// every env of the warp has no candidate in contact (a sphere centre within
+// r of a box, a corner inside the other box, the edge-edge candidate with
+// all 15 axes overlapping all need the geoms to overlap), so its
+// narrowphase is skipped. (2) A pair candidate out of contact in every env
+// of the warp, and (3) in the ground contact's second pass a ground
+// candidate out of contact in every env of the warp, skip their force
+// blocks: out of contact each adds exact zeros (+0 or -0) to sums that start
+// at +0, and x + (-0) = x, so the sums never change. A NaN depth is not
+// skipped. For finite states the output is the unskipped kernel's bit for
+// bit (measured over 16384 envs of each hand); the bound still counts every
+// candidate, as the TPU kernel computes them. The vote (__any_sync) needs
+// every thread of the warp, so no box-instance thread leaves at the ragged
+// edge: it runs the last env again and writes nothing. On the hands'
+// contact states (the cube pressed into the palm and fingers) half the
+// warp-pairs pass the cull, a fifth to a third of the warp-candidates are
+// in contact, and no ground candidate is: the kernel takes 1.10 ms
+// (ShadowHand) and 0.80 ms (AllegroHand) per control step, against 1.47 and
+// 1.00 unskipped (an H100 at 700 W), of which the pair phase is 0.19 and
+// 0.18 ms and the ground 0.02. What is left is the tree sweeps (0.87 and
+// 0.60 ms: forward kinematics, drives, tendons, the ABA passes, Euler),
+// still one thread per env.
 //
 // Numerics: float32 throughout, built without --use_fast_math and with
 // -fmad=false so every product and sum rounds as the plain PyTorch version's
 // separate elementwise operations do; tanh, sin, cos, sqrt and division are
-// the accurate CUDA library versions.
+// the accurate CUDA library versions. Each counted operation is then its own
+// instruction, so against the 67 TFLOP/s bound, which counts a fused
+// multiply-add as two, the kernel could reach at most about half.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -127,6 +165,12 @@ constexpr int kMaxCands = 128;  // MAX_CANDIDATES in ops/fused.py
 constexpr int kMaxPairBodies = 32;  // MAX_PAIR_BODIES in ops/fused.py
 constexpr int kPairInts = 6;    // per pair: geom a, geom b, body a, body b, kind, geom type of b
 constexpr int kPairFloats = 21; // per pair: sizes a (3), b (3), r_a + r_b, geom poses a, b (7 + 7)
+constexpr int kBoxPairFloats = 22;  // the box instance's: the same, then the bounding reach
+// the box instance's pair cull: apart when |centre b - centre a| > reach +
+// kCullMargin + kCullRel |centre b - centre a| (metres)
+constexpr float kCullMargin = 1e-3f;
+constexpr float kCullRel = 1e-5f;
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kAttrFloats = 9;  // per attractor: local point, target, kp, kd, |p|^2 + 1e-6 or 0
 constexpr float kLockBig = 1e12f;
 constexpr float kJointFrictionVel = 0.05f;
@@ -575,8 +619,13 @@ __global__ void __launch_bounds__(128)
 fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
                   const float* __restrict__ hf, const float* __restrict__ in,
                   float* __restrict__ out, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const int b_thread = blockIdx.x * blockDim.x + threadIdx.x;
+  // the box instance's warps vote (__any_sync), so none of its threads
+  // leaves early: a thread past the ragged edge runs the last env again
+  // and writes nothing
+  if (!kBX && b_thread >= B) return;
+  const int b = kBX ? min(b_thread, B - 1) : b_thread;
+  constexpr int kPF = kBX ? kBoxPairFloats : kPairFloats;
   constexpr int MAXB = kMaxBodies;
   constexpr int MAXQ = 7 * kMaxRoots + MAXB;
   constexpr int MAXV = 6 * kMaxRoots + MAXB;
@@ -619,8 +668,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const float* cand_gquat = cand_gpos + 3 * nc;
   const float* cand_off = cand_gquat + 4 * nc;
   const float* cand_r = cand_off + 3 * nc;
-  const float* pair_f = cand_r + nc;                 // kPairFloats per pair
-  const float* attr_f = pair_f + kPairFloats * n_pairs;  // kAttrFloats per attractor
+  const float* pair_f = cand_r + nc;                 // kPF per pair
+  const float* attr_f = pair_f + kPF * n_pairs;      // kAttrFloats per attractor
   const float* t_lohi = attr_f + kAttrFloats * n_attr;   // per tendon lo, hi
   const float* t_coef = t_lohi + 2 * n_tendons;           // per term its coefficient
 
@@ -711,8 +760,13 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       net_t[bi] = {0.0f, 0.0f, 0.0f};
       n_active[bi] = 0.0f;
     }
+    // box instance: bit c set when candidate c is in contact in some env of
+    // the warp (phase 0); the others add exact zeros, so phase 1 skips them
+    unsigned touch[kBX ? kMaxCands / 32 : 1];
+    for (int w = 0; kBX && w < kMaxCands / 32; ++w) touch[w] = 0u;
     for (int phase = 0; phase < 2; ++phase) {
       for (int c = 0; c < nc; ++c) {
+        if (kBX && phase == 1 && !((touch[c >> 5] >> (c & 31)) & 1u)) continue;
         const int bi = cand_body[c];
         const Q4 bq = quat_w[bi];
         const Q4 gq = qmul(bq, {cand_gquat[4 * c], cand_gquat[4 * c + 1],
@@ -745,6 +799,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
         const bool active = depth > 0.0f;
         if (phase == 0) {
           n_active[bi] += active ? 1.0f : 0.0f;
+          if (kBX && __any_sync(kFullWarp, !(depth <= 0.0f))) touch[c >> 5] |= 1u << (c & 31);
           continue;
         }
         const V3 cp = kHF ? sub(pc, scl(n, eff_r)) : V3{pc.x, pc.y, pc.z - eff_r};
@@ -807,6 +862,10 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       // at once: the explicit force into pacc, the implicit reaction into dacc
       int ga = 0, gb = 0, ba = 0, bb = 0;
       auto contact = [&](V3 n, float depth, V3 cp) {
+        // box instance: a candidate out of contact in every env of the warp
+        // adds exact zeros to sums that start at +0, so it is skipped (a NaN
+        // depth runs, as it does without the skip)
+        if (kBX && !__any_sync(kFullWarp, !(depth <= 0.0f))) return;
         const bool active = depth > 0.0f;
         const float act = active ? 1.0f : 0.0f;
         const V3 arm_a = sub(cp, pos_w[ba]), arm_b = sub(cp, pos_w[bb]);
@@ -847,12 +906,20 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       };
       for (int k = 0; k < n_pairs; ++k) {
         const int* pi = pair_i + kPairInts * k;
-        const float* pf = pair_f + kPairFloats * k;
+        const float* pf = pair_f + kPF * k;
         ga = pi[0], gb = pi[1], ba = pi[2], bb = pi[3];
         const Q4 qa = qmul(quat_w[ba], {pf[10], pf[11], pf[12], pf[13]});
         const V3 pa = add(pos_w[ba], qrot(quat_w[ba], {pf[7], pf[8], pf[9]}));
         const Q4 qb = qmul(quat_w[bb], {pf[17], pf[18], pf[19], pf[20]});
         const V3 pb = add(pos_w[bb], qrot(quat_w[bb], {pf[14], pf[15], pf[16]}));
+        if (kBX) {
+          // the bounding spheres apart in every env of the warp: no candidate
+          // of the pair can be in contact, so its narrowphase is skipped
+          const V3 dc = sub(pb, pa);
+          const float dist = sqrtf(dot(dc, dc));
+          const bool near = !(dist > pf[21] + (kCullMargin + kCullRel * dist));
+          if (!__any_sync(kFullWarp, near)) continue;
+        }
         if (kBX && pi[4] == 2) {                      // capsule vs box: 4 candidates
           capsule_box(pa, qa, pf[0], pf[1], pb, qb, {pf[3], pf[4], pf[5]}, contact);
           continue;
@@ -1111,6 +1178,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   }
 
   // ---- outputs: q, qd, net force rows (3 nb), torque rows (3 ntq) ----
+  if (kBX && b_thread >= B) return;
   float* o = out + b;
   const size_t Bs = (size_t)B;
   for (int i = 0; i < nq; ++i) o[(size_t)i * Bs] = q[i];

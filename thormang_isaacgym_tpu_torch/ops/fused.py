@@ -54,8 +54,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from thormang_isaacgym_tpu_torch.core import quat as Q
 from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield
-from thormang_isaacgym_tpu_torch.models.robot import RobotModel
+from thormang_isaacgym_tpu_torch.models.robot import (
+    GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, RobotModel,
+)
 from thormang_isaacgym_tpu_torch.ops import collide, contact
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import SimParams, build_plain_step_fn, check_supported
@@ -76,6 +79,9 @@ MAX_PAIR_BODIES = 32
 # the JAX package's runaway guard on the pair narrowphase (_MAX_PAIR_CANDIDATES)
 MAX_PAIR_CANDIDATES = 1024
 MAX_ATTRACTORS = 64
+# the box instance's pair cull (csrc/fused_step.cu kCullMargin, kCullRel)
+CULL_MARGIN = 1e-3
+CULL_REL = 1e-5
 _HEADER = 48
 _KIND = {"sphere": 0, "capcap": 1, "capbox": 2, "boxbox": 3}
 
@@ -193,6 +199,45 @@ def pair_bodies(model: RobotModel) -> tuple:
                          for i in (ia, ib)}))
 
 
+def bounding_radius(geom) -> float:
+    """The radius of the sphere about a geom's centre that holds it: sphere
+    r, capsule r + half length, box |half extents|, cylinder
+    sqrt(r^2 + half width^2)."""
+    s = [float(x) for x in geom.size]
+    if geom.gtype == GEOM_SPHERE:
+        return s[0]
+    if geom.gtype == GEOM_CAPSULE:
+        return s[0] + s[1]
+    if geom.gtype == GEOM_BOX:
+        return float(np.sqrt(s[0] ** 2 + s[1] ** 2 + s[2] ** 2))
+    return float(np.hypot(s[0], s[1]))
+
+
+def pair_reach(model: RobotModel) -> np.ndarray:
+    """(n_pairs,) float32: the sum of each pair's two bounding radii, the
+    box instance's last pair float."""
+    g = model.geoms
+    return np.array([bounding_radius(g[ia]) + bounding_radius(g[ib])
+                     for ia, ib, _ in collide.pairs(model)], np.float32)
+
+
+def pairs_apart(model: RobotModel, frames) -> torch.Tensor:
+    """(B, n_pairs) bool: the box instance's cull, pairs whose geom centres
+    lie farther apart than their bounding radii and a margin of 1 mm plus
+    1e-5 of the distance (``CULL_MARGIN``, ``CULL_REL``), in float32 as the
+    kernel computes it. No candidate of such a pair can be in contact."""
+    g = model.geoms
+    reach = torch.as_tensor(pair_reach(model), device=frames.pos.device)
+    cols = []
+    for k, (ia, ib, _) in enumerate(collide.pairs(model)):
+        pa, pb = (frames.pos[:, g[i].body] + Q.rotate(
+            frames.quat[:, g[i].body], frames.pos.new_tensor(g[i].pos)) for i in (ia, ib))
+        d = pb - pa
+        dist = torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
+        cols.append(dist > reach[k] + (CULL_MARGIN + CULL_REL * dist))
+    return torch.stack(cols, -1)
+
+
 def check_caps(model: RobotModel, attractors=()) -> None:
     """Raise NotImplementedError for a model above the kernel's caps."""
     nc = len(contact.candidates(model)["geom"])
@@ -221,8 +266,10 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
     17-20 (D = h kn + kd, D max_dep, h D, max_dep / 2); after the candidate
     rows, per pair (geom a, geom b, body a, body b, kind 0 sphere / 1
     capcap / 2 capbox / 3 boxbox, geom type of b) and (sizes of a and b, 3
-    each, zero-padded; r_a + r_b; geom poses of a and b in their bodies), a
-    per-body pair-accumulator slot, and per
+    each, zero-padded; r_a + r_b; geom poses of a and b in their bodies;
+    for a model with a pair of a box kind, the box instance's, also the sum
+    of the two bounding radii, ``pair_reach``), a per-body pair-accumulator
+    slot, and per
     attractor (body) and (local point, target, kp, kd, |p|^2 + 1e-6, or 0
     when |p|^2 <= 1e-6)."""
     cand = contact.candidates(model)
@@ -275,6 +322,9 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
     for ia, ib, _ in pairs:
         sa, sb = ((tuple(float(x) for x in g[i].size) + (0.0, 0.0))[:3] for i in (ia, ib))
         pair_f.append([*sa, *sb, sa[0] + sb[0], *g[ia].pos, *g[ia].quat, *g[ib].pos, *g[ib].quat])
+    if collide.has_box_pairs(model):
+        # the box instance's pair rows end with the bounding reach
+        pair_f = [row + [float(r)] for row, r in zip(pair_f, pair_reach(model))]
     attr_f = []
     for _, local_p, target, kp, kd in attractors:
         r2 = float(np.dot(np.asarray(local_p, np.float64), np.asarray(local_p, np.float64)))
