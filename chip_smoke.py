@@ -30,7 +30,9 @@ Phases, one line each (any failure raises and exits non-zero):
     below and above their bounds).
  3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain and
     BallBalance at 4096 envs and AllegroHand and ShadowHand at 16384 (CUDA
-    events after warm-up, ms per control step) beside the kernel's bound;
+    events after warm-up, ms per control step) beside the kernel's bound,
+    with the launch's block size and dynamic shared bytes and ptxas'
+    registers and stack of the instance;
     the hands also the share of pairs that pass the box instance's cull and
     of candidates in contact, per env and per warp of 32 (``cull_stats``).
  4. train: make(task, cfg=cfg/task/<task>.yaml) at the YAML's numEnvs,
@@ -804,6 +806,18 @@ def kernel_ops_per_env(model, n_steps: int, heightfield: bool = False,
     return float(per_sub * n_steps + (nc * OPS["hf_sample"] if heightfield else 0))
 
 
+def instance_ptxas(log: str, step) -> list:
+    """ptxas' register and stack lines for the kernel instance `step`
+    launches (template flags kHF, kPA, kBX, kSM)."""
+    flags = (step.hf is not None, step.pair_mode > 0, step.pair_mode == 2, step.smem_bytes > 0)
+    name = "kernelI" + "".join(f"Lb{int(f)}E" for f in flags) + "EEv"
+    lines = log.splitlines()
+    at = [i for i, ln in enumerate(lines) if "Compiling entry" in ln and name in ln]
+    if not at:
+        raise AssertionError(f"no ptxas report for {name}")
+    return [ln.strip() for ln in lines[at[0]:at[0] + 4] if "stack" in ln or "registers" in ln]
+
+
 def _time_cuda(fn, iters: int, warmup: int) -> float:
     for _ in range(warmup):
         fn()
@@ -870,7 +884,9 @@ def phase_time(name: str, device) -> dict:
                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                bytes=nbytes, bytes_ms=bytes_ms, flops=flops, flops_ms=flops_ms)
     cull = cull_stats(step, q, qd) if step.pair_mode == 2 else {}
-    log("time", model=name, envs=envs, substeps=step.n_steps, **out, **cull)
+    log("time", model=name, envs=envs, substeps=step.n_steps, block=step.block,
+        smem_bytes=step.smem_bytes, ptxas=instance_ptxas(fused.build_library().log, step),
+        **out, **cull)
     return out
 
 

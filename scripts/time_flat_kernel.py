@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time the fused CUDA kernel on Ant (its flat instance), AnymalTerrain (its
-heightfield instance), BallBalance (its pair instance, the round kinds and
-attractors), AllegroHand (its box instance) or ShadowHand (the box instance
-with the tendon block) at the task YAML's width (4096 envs; the hands
-16384), from the port package found in a given source tree, so two trees (a
-change and its parent) can be compared on one card in one call.
+"""Time the fused CUDA kernel on Ant or Anymal (its flat instance),
+AnymalTerrain (its heightfield instance), BallBalance (its pair instance,
+the round kinds and attractors), AllegroHand (its box instance) or
+ShadowHand (the box instance with the tendon block) at the task YAML's width
+(4096 envs; the hands 16384), from the port package found in a given source
+tree, so two trees (a change and its parent) can be compared on one card in
+one call.
 
-    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|AnymalTerrain|BallBalance|AllegroHand|ShadowHand]
-        [--iters 300] [--envs N] [--split] [--stack] [--dump PATH]
+    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|Anymal|AnymalTerrain|BallBalance|AllegroHand|ShadowHand]
+        [--iters 300] [--envs N] [--block N [N ...]] [--local] [--split] [--stack] [--dump PATH]
     python3 scripts/time_flat_kernel.py --compare A.npy B.npy
 
 DIR is a checkout holding ``thormang_isaacgym_tpu_torch/`` (default: this
@@ -20,12 +21,21 @@ the grid, BallBalance dt 0.01 s with 1 substep, its attractors and the lower
 legs' torque rows, as VecEnv builds them, with the ball pressed into the
 tray; the hands dt 0.01667 s with 2 substeps and the fingertips' torque rows,
 the cube pressed into the palm and fingers as tests/test_torch_fused.py
-places it), the options' results and the ptxas register and stack line of
-the instance. Run it for the two trees in turns (parent, change, change,
+places it; Anymal dt 0.02 s with 2 substeps on flat ground, placed as
+AnymalTerrain is), the block size and dynamic shared bytes of the launch,
+the options' results and the ptxas register and stack line of the
+instance. Run it for the two trees in turns (parent, change, change,
 parent) to see the spread.
 
 Options:
   --envs N   the width (default: the YAML's numEnvs).
+  --block N [N ...]   the launch's block sizes (a tree whose wrapper has a
+             ``block``): each is timed in turns, in the order given and
+             then in reverse, under the wrapper's shared-memory budget
+             rule; ``ms`` is the first one's first reading.
+  --local    also time each block size with the budget set to 0, the
+             local-memory route of a model over the budget (in turns with
+             the shared layout).
   --split    also time the same inputs with the pair table cut out (header
              int 39 set to 0), with the ground candidates cut out (header
              int 7), and with both: copies of the model tables, the kernel's
@@ -36,30 +46,40 @@ Options:
              the CUDA runtime reserves for the per-thread stack frames.
   --dump P   save the kernel's output slab of one launch on the seeded
              inputs to P (.npy, (out_rows, envs) float32, with the row
-             counts in P + ".json").
+             counts in P + ".json"), launched with the first --block
+             size under the budget rule.
   --compare A B   the largest absolute difference between two dumps, per
              block of rows (q, qd, net force, torque), and whether they are
              equal bit for bit. Needs no card.
+  --sass P   save ``cuobjdump -sass`` of the tree's kernel library to P.
+  --compare-sass A B   per instance (its template flags, kSM = 0 where a
+             tree has no such flag), whether two such files hold the same
+             instructions, the function names aside. Needs no card.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the instance's mangled name in either tree: the template <kHF, kPA> or,
-# with the box instance, <kHF, kPA, kBX>
-INSTANCE = {"Ant": ("kernelILb0ELb0EEEv", "kernelILb0ELb0ELb0EEEv"),
-            "AnymalTerrain": ("kernelILb1ELb0EEEv", "kernelILb1ELb0ELb0EEEv"),
-            "BallBalance": ("kernelILb0ELb1EEEv", "kernelILb0ELb1ELb0EEEv"),
-            "AllegroHand": ("kernelILb0ELb1ELb1EEEv",),
-            "ShadowHand": ("kernelILb0ELb1ELb1EEEv",)}
+# each task's instance (kHF, kPA, kBX)
+INSTANCE = {"Ant": (0, 0, 0), "Anymal": (0, 0, 0), "AnymalTerrain": (1, 0, 0),
+            "BallBalance": (0, 1, 0), "AllegroHand": (0, 1, 1), "ShadowHand": (0, 1, 1)}
 _HEADER = 48
+
+
+def mangled(flags, smem: int) -> tuple:
+    """The instance's mangled name in any tree: the template <kHF, kPA>,
+    <kHF, kPA, kBX> or, with the shared layout's flag, <kHF, kPA, kBX, kSM>."""
+    def name(fl):
+        return "kernelI" + "".join(f"Lb{int(f)}E" for f in fl) + "EEv"
+    return name(flags[:2]), name(flags), name((*flags, smem > 0))
 
 
 def strip_tables(mi: np.ndarray, mf: np.ndarray, *, pairs: bool, ground: bool):
@@ -90,6 +110,7 @@ def strip_tables(mi: np.ndarray, mf: np.ndarray, *, pairs: bool, ground: bool):
         return a[keep].copy()
 
     mi2, mf2 = cut(mi, cut_i), cut(mf, cut_f)
+    mi2[44], mi2[45] = len(mi2), len(mf2)       # the tables' lengths (unread by older trees)
     if ground:
         mi2[7] = 0
     if pairs:
@@ -116,6 +137,27 @@ def compare(a_path: str, b_path: str) -> dict:
                 nan_count=[int(np.isnan(a).sum()), int(np.isnan(b).sum())])
 
 
+def sass_instances(path: str) -> dict:
+    """{template flags: instruction lines} of a ``cuobjdump -sass`` file;
+    an instance without the kSM flag counts as kSM = 0."""
+    out, key = {}, None
+    for ln in open(path):
+        if "Function :" in ln:
+            flags = re.search(r"kernelI((?:Lb[01]E)+)E", ln).group(1)
+            key = "".join(flags[2::4]).ljust(4, "0")
+            out[key] = []
+        elif key is not None and ln.strip():
+            out[key].append(ln.strip())
+    return out
+
+
+def compare_sass(a_path: str, b_path: str) -> dict:
+    a, b = sass_instances(a_path), sass_instances(b_path)
+    return {"a": a_path, "b": b_path, "instances": {
+        k: {"identical": a.get(k) == b.get(k), "lines": [len(a.get(k, [])), len(b.get(k, []))]}
+        for k in sorted(set(a) | set(b))}}
+
+
 def task_inputs(name, task, B, rng):
     """Seeded (q, qd, targets, effort) for `task`'s model (numpy)."""
     m = task.model
@@ -134,11 +176,14 @@ def task_inputs(name, task, B, rng):
         qd = rng.normal(size=(B, m.nv)) * 0.1
         lo, hi = m._defaults["dof_lower"], m._defaults["dof_upper"]
         return q, qd, lo + (hi - lo) * rng.uniform(0.2, 0.8, (B, m.nj)), z
-    if name == "AnymalTerrain":
-        # bases over tiles of every level and type, feet near the ground
-        lev = rng.integers(0, task.num_levels, B)
-        typ = rng.integers(0, task.num_types, B)
-        o = task.grid.env_origins[lev, typ]
+    if name in ("AnymalTerrain", "Anymal"):
+        # bases over tiles of every level and type (Anymal: at the origin),
+        # feet near the ground
+        o = np.zeros((B, 3))
+        if name == "AnymalTerrain":
+            lev = rng.integers(0, task.num_levels, B)
+            typ = rng.integers(0, task.num_types, B)
+            o = task.grid.env_origins[lev, typ]
         q = np.zeros((B, m.nq), np.float32)
         q[:, 0:2] = o[:, 0:2] + rng.uniform(-0.5, 0.5, (B, 2))
         q[:, 2] = o[:, 2] + 0.53 + rng.uniform(-0.05, 0.05, B)
@@ -164,13 +209,20 @@ def main() -> None:
     ap.add_argument("--task", default="Ant", choices=sorted(INSTANCE))
     ap.add_argument("--iters", type=int, default=300)
     ap.add_argument("--envs", type=int, default=0)
+    ap.add_argument("--block", type=int, nargs="+", default=[])
+    ap.add_argument("--local", action="store_true")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--stack", action="store_true")
     ap.add_argument("--dump", default="")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--sass", default="")
+    ap.add_argument("--compare-sass", nargs=2, metavar=("A", "B"))
     args = ap.parse_args()
     if args.compare:
         print(json.dumps(compare(*args.compare)), flush=True)
+        return
+    if args.compare_sass:
+        print(json.dumps(compare_sass(*args.compare_sass)), flush=True)
         return
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -205,7 +257,21 @@ def main() -> None:
     z = t(np.zeros((B, m.nj)))
     packed = step.pack(m.default_params(dev).batch(B), t(q), t(qd), Controls(t(targets), z, t(effort)),
                        t(np.zeros((B, m.nb, 6))))
-    fused.load_library()
+    lib = fused.load_library()
+    if args.sass:
+        with open(args.sass, "w") as f:
+            subprocess.run([os.path.join(os.path.dirname(fused._nvcc()), "cuobjdump"), "-sass",
+                            lib._name], stdout=f, check=True)
+    layouts = {}
+    if args.block or args.local:
+        if not hasattr(step, "block"):
+            raise RuntimeError(f"the wrapper in {tree} has no block size to set")
+        budget = fused.SMEM_BUDGET
+        for blk in args.block or [step.block]:
+            layouts[str(blk)] = (blk, budget)
+            if args.local:
+                layouts[f"{blk}/local"] = (blk, 0)
+        step.block, fused.SMEM_BUDGET = next(iter(layouts.values()))
     stack = {}
     if args.stack:
         # the output's block is allocated and freed first, so the launch's own
@@ -238,7 +304,13 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.iters
 
-    ms = {"as_is": time_ms()}
+    turns = {}
+    for key in [*layouts, *reversed(layouts)]:
+        step.block, fused.SMEM_BUDGET = layouts[key]
+        turns.setdefault(key, dict(smem_bytes=step.smem_bytes, ms=[]))["ms"].append(time_ms())
+    if layouts:
+        step.block, fused.SMEM_BUDGET = layouts[next(iter(layouts))]
+    ms = {"as_is": next(iter(turns.values()))["ms"][0] if turns else time_ms()}
     if args.split:
         full = step._tables
         for key, kw in (("no_pairs", dict(pairs=True, ground=False)),
@@ -250,13 +322,17 @@ def main() -> None:
         step._tables, step._dev_tables = full, {}
         ms["pair_phase"] = ms["as_is"] - ms["no_pairs"]
         ms["ground_phase"] = ms["as_is"] - ms["no_ground"]
+    smem = getattr(step, "smem_bytes", 0)
     log = fused.build_library().log.splitlines()
+    names = mangled(INSTANCE[args.task], smem)
     at = [i for i, ln in enumerate(log) if "Compiling entry" in ln
-          and any(n in ln for n in INSTANCE[args.task])]
+          and any(n in ln for n in names)]
     inst = [ln.strip() for ln in log[at[0]:at[0] + 4] if "stack" in ln or "registers" in ln] \
         if at else []
     print(json.dumps({"tree": os.path.relpath(tree, ROOT), "card": card, "task": args.task,
                       "envs": B, "iters": args.iters, "ms": ms["as_is"],
+                      "block": getattr(step, "block", 128), "smem_bytes": smem,
+                      **({"layouts": turns} if turns else {}),
                       **({"split_ms": ms} if args.split else {}), **stack,
                       "ptxas": inst}), flush=True)
 

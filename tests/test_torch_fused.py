@@ -333,39 +333,74 @@ def _rot(qw, v):
 
 _HOST_PRELUDE = """#include <algorithm>
 #include <cmath>
+#include <cstdint>
+#include <cstring>
 #include <math.h>
 using std::max;
 using std::min;
 #define __global__
 #define __device__
+#define __host__
+#define __shared__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__ __restrict
+#define __syncthreads()
 struct HostDim { int x; };
 static HostDim blockIdx, threadIdx, blockDim;
 // one env per call: a warp vote sees the calling thread alone
 inline bool __any_sync(unsigned, bool p) { return p; }
 """
+# One CUDA thread per call, blockDim.x = the launch's block size. The shared
+# instances' buffer is a static array: before each thread every word is set
+# to a NaN canary, and after it every word outside the thread's lane
+# (threadIdx.x x lane words, the lane words) must still hold it, so a lane
+# that strays out of its slice is counted (the return value), and one that
+# reads a word it never wrote turns its outputs to NaN.
 _HOST_LOOP = """
-extern "C" void host_launch(const int* mi, const float* mf, const float* hf, const float* in,
-                            float* out, int B, int pairs) {
-  blockDim.x = 128;
+float sweep_smem[232448 / 4];
+static const uint32_t kCanary = 0x7fc0dead;
+
+extern "C" int host_launch(const int* mi, const float* mf, const float* hf, const float* in,
+                           float* out, int B, int pairs, int threads, int smem) {
+  blockDim.x = threads;
+  // the model tables first (header ints 44-45: their lengths), then the lanes
+  const int tables = smem ? mi[44] + mi[45] : 0, words = smem / 4;
+  const int lane = (words - tables) / threads;
+  int strays = 0;
   for (int b = 0; b < B; ++b) {
-    blockIdx.x = b / 128;
-    threadIdx.x = b % 128;
+    blockIdx.x = b / threads;
+    threadIdx.x = b % threads;
+    for (int w = 0; w < words; ++w) std::memcpy(&sweep_smem[w], &kCanary, 4);
     if (hf && pairs == 2)
-      fused_step_kernel<true, true, true>(mi, mf, hf, in, out, B);
+      fused_step_kernel<true, true, true, false>(mi, mf, hf, in, out, B);
     else if (hf && pairs == 1)
-      fused_step_kernel<true, true, false>(mi, mf, hf, in, out, B);
+      fused_step_kernel<true, true, false, false>(mi, mf, hf, in, out, B);
+    else if (hf && smem)
+      fused_step_kernel<true, false, false, true>(mi, mf, hf, in, out, B);
     else if (hf)
-      fused_step_kernel<true, false, false>(mi, mf, hf, in, out, B);
+      fused_step_kernel<true, false, false, false>(mi, mf, hf, in, out, B);
     else if (pairs == 2)
-      fused_step_kernel<false, true, true>(mi, mf, hf, in, out, B);
+      fused_step_kernel<false, true, true, false>(mi, mf, hf, in, out, B);
     else if (pairs == 1)
-      fused_step_kernel<false, true, false>(mi, mf, hf, in, out, B);
+      fused_step_kernel<false, true, false, false>(mi, mf, hf, in, out, B);
+    else if (smem)
+      fused_step_kernel<false, false, false, true>(mi, mf, hf, in, out, B);
     else
-      fused_step_kernel<false, false, false>(mi, mf, hf, in, out, B);
+      fused_step_kernel<false, false, false, false>(mi, mf, hf, in, out, B);
+    for (int w = 0; w < words; ++w) {
+      uint32_t x;
+      std::memcpy(&x, &sweep_smem[w], 4);
+      const bool own = w < tables || (w >= tables + threadIdx.x * lane &&
+                                      w < tables + (threadIdx.x + 1) * lane);
+      strays += !own && x != kCanary;
+    }
   }
+  return strays;
+}
+
+extern "C" int host_lane_words(int nb, int nj, int nq, int nv, int nc, int hf, int rows) {
+  return lane_words(nb, nj, nq, nv, nc, hf != 0, rows);
 }
 """
 
@@ -376,15 +411,17 @@ def host_kernel(tmp_path_factory):
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source for the CPU")
     src = open(fused.SOURCE).read().replace("#include <cuda_runtime.h>", "")
-    src = src[:src.index('extern "C"')]
+    src = src[:src.index("// Plain C entry point")]
     d = tmp_path_factory.mktemp("host_kernel")
     cpp, so = d / "fused_step_host.cpp", d / "libfused_step_host.so"
     cpp.write_text(_HOST_PRELUDE + src + _HOST_LOOP)
     subprocess.run([cxx, "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
                     "-o", str(so), str(cpp)], check=True)
     lib = ctypes.CDLL(str(so))
-    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
-    lib.host_launch.restype = None
+    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    lib.host_launch.restype = ctypes.c_int
+    lib.host_lane_words.argtypes = [ctypes.c_int] * 7
+    lib.host_lane_words.restype = ctypes.c_int
     return lib
 
 
@@ -517,8 +554,9 @@ def _host_call(lib, step, params, q, qd, ctrl, wrench):
     mi, mf = (torch.as_tensor(x) for x in step._tables)
     hf = step.hf.table.data_ptr() if step.hf is not None else None
     out = torch.full((step.out_rows, q.shape[0]), float("nan"))
-    lib.host_launch(mi.data_ptr(), mf.data_ptr(), hf, packed.data_ptr(), out.data_ptr(),
-                    q.shape[0], int(step.pair_mode))
+    strays = lib.host_launch(mi.data_ptr(), mf.data_ptr(), hf, packed.data_ptr(), out.data_ptr(),
+                             q.shape[0], int(step.pair_mode), step.block, step.smem_bytes)
+    assert strays == 0, f"{strays} shared words written outside their lane"
     return step.unpack(out, q.shape[0])
 
 
@@ -586,6 +624,101 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         assert (sides > 0.1).all(), sides
 
 
+RAGGED = 37            # one block of fused.BLOCK envs and a ragged edge of 5
+
+
+def _first(n, model, q, qd, ctrl, w):
+    """The first n envs of `_inputs`' batch, with default params batched to n."""
+    return (model.default_params("cpu").batch(n), q[:n], qd[:n],
+            Controls(*(c[:n] for c in ctrl)), w[:n])
+
+
+def _bits(outs):
+    return [o.contiguous().view(torch.int32) for o in outs]
+
+
+@pytest.mark.parametrize("name", ["ant", "anymal_terrain"])
+def test_host_kernel_ragged_block(host_kernel, monkeypatch, name):
+    """The shared instance on the host over 37 distinct envs in blocks of
+    fused.BLOCK (a full block and a ragged edge): each env within
+    test_fused's tolerances of the plain version, and the lane check of the
+    host loop clean (``_host_call``). Permuting the envs permutes the outputs
+    bit for bit, and the local layout (the budget set to 0, blocks of 32)
+    gives the same bits."""
+    model, sp, task, ground = _model(name)
+    step = _step(model, sp, task, ground, "cpu")
+    assert step.block == fused.BLOCK == 32 and step.smem_bytes > 0
+    params, q, qd, ctrl, w = _first(RAGGED, model, *_inputs(name, model, task, "cpu", ground)[1:])
+    got = _host_call(host_kernel, step, params, q, qd, ctrl, w)
+    _assert_close(got, step.plain(params, q, qd, ctrl, w))
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(RAGGED))
+    got_p = _host_call(host_kernel, step, params, q[perm], qd[perm],
+                       Controls(*(c[perm] for c in ctrl)), w[perm])
+    for a, b in zip(_bits(got_p), _bits(got)):
+        assert torch.equal(a, b[perm])
+    monkeypatch.setattr(fused, "SMEM_BUDGET", 0)
+    assert step.smem_bytes == 0
+    local = _host_call(host_kernel, step, params, q, qd, ctrl, w)
+    for a, b in zip(_bits(local), _bits(got)):
+        assert torch.equal(a, b)
+
+
+def chain_model(n_bodies: int):
+    """A floating sphere and a chain of n_bodies - 1 capsule links on
+    revolute joints: 2 n_bodies - 1 ground candidates."""
+    inertial = "<inertial><mass value='0.5'/><inertia ixx='1e-3' iyy='1e-3' izz='1e-3' " \
+        "ixy='0' ixz='0' iyz='0'/></inertial>"
+    geom = ["<sphere radius='0.05'/>"] + ["<capsule radius='0.03' length='0.1'/>"] * (n_bodies - 1)
+    return load_urdf("<robot name='chain'>" + "".join(
+        f"<link name='l{i}'>{inertial}<collision><geometry>{g}</geometry></collision></link>"
+        for i, g in enumerate(geom)) + "".join(
+        f"<joint name='j{i}' type='revolute'><parent link='l{i}'/><child link='l{i + 1}'/>"
+        f"<origin xyz='0 0 -0.12'/><axis xyz='{i % 2} {(i + 1) % 2} 0'/>"
+        f"<limit lower='-1' upper='1' effort='10' velocity='10'/></joint>"
+        for i in range(n_bodies - 1)) + "</robot>")
+
+
+def test_shared_budget_rule(host_kernel):
+    """ops/fused.py shared_bytes, a pure function of the model's counts and
+    the block size: Ant and AnymalTerrain fit in blocks of 32 and not of 128,
+    with the lane words the kernel's own (``lane_words``, odd); a model of
+    HumanoidMJCF's counts (22 bodies, 21 joints, 43 ground candidates) does
+    not fit on either ground and takes the local-memory layout, which
+    matches the plain version."""
+    for name in ("ant", "anymal_terrain"):
+        model, sp, task, ground = _model(name)
+        step = _step(model, sp, task, ground, "cpu")
+        hf, rows, (mi, mf) = step.hf is not None, step.rows["total"], step._tables
+        counts = (model.nb, model.nj, model.nq, model.nv, step._nc)
+        words = fused.sweep_lane_words(*counts, heightfield=hf, rows=rows)
+        assert words % 2 == 1 and words == host_kernel.host_lane_words(*counts, int(hf), rows)
+        kw = dict(heightfield=hf, rows=rows, tables=len(mi) + len(mf))
+        assert fused.shared_bytes(*counts, 32, **kw) == step.smem_bytes == 4 * (
+            len(mi) + len(mf) + 32 * words)
+        assert 0 < step.smem_bytes <= fused.SMEM_BUDGET
+        assert fused.shared_bytes(*counts, 128, **kw) == 0
+    model = chain_model(22)
+    step = fused.build_fused_step_fn(model, SimParams(**TINY_SP))
+    counts = (model.nb, model.nj, model.nq, model.nv, step._nc)
+    assert counts == (22, 21, 28, 27, 43)
+    for hf in (False, True):
+        assert fused.shared_bytes(*counts, 32, heightfield=hf, rows=step.rows["total"]) == 0
+    assert step.smem_bytes == 0 and step.block == fused.BLOCK
+    rng = np.random.default_rng(4)
+    n = 8
+    q = np.zeros((n, model.nq))
+    q[:, 2] = rng.uniform(0.8, 1.6, n)
+    q[:, 3] = 1.0
+    q[:, 7:] = rng.uniform(-0.5, 0.5, (n, model.nj))
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32))  # noqa: E731
+    args = (model.default_params("cpu").batch(n), t(q), t(rng.normal(size=(n, model.nv)) * 0.5),
+            Controls(t(rng.normal(size=(n, model.nj)) * 0.1), t(np.zeros((n, model.nj))),
+                     t(rng.uniform(-5, 5, (n, model.nj)))), t(np.zeros((n, model.nb, 6))))
+    got = _host_call(host_kernel, step, *args)
+    _assert_close(got, step.plain(*args))
+    assert float(got[2][..., 2].abs().amax()) > 0        # the chain's lowest links touch the ground
+
+
 def test_kernel_caps_raise():
     model, sp, _, _ = _model("tiny")
     fused.check_caps(model)
@@ -649,6 +782,29 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
     torch.cuda.synchronize()
     _assert_close((qa, qda, na), (qb, qdb, nb_))
     assert step.launches == 5
+
+
+def test_cuda_refused_shared_memory_raises(cuda_device, monkeypatch):
+    """A block asking for more dynamic shared memory than the card gives
+    (the budget lifted, AnymalTerrain in blocks of 64: about 450 KB) is
+    refused by cudaFuncSetAttribute, and FusedStep.launch raises; nothing
+    runs, and the next launch within the budget succeeds."""
+    model, sp, task, ground = _model("anymal_terrain")
+    step = _step(model, sp, task, ground, cuda_device)
+    params, q, qd, ctrl, w = _inputs("anymal_terrain", model, task, cuda_device, ground)
+    packed = step.pack(params, q, qd, ctrl, w)
+    budget = fused.SMEM_BUDGET
+    monkeypatch.setattr(fused, "SMEM_BUDGET", 1 << 22)
+    step.block = 64
+    assert step.smem_bytes > budget
+    with pytest.raises(RuntimeError, match="launch failed"):
+        step.launch(packed)
+    assert step.launches == 0
+    monkeypatch.setattr(fused, "SMEM_BUDGET", budget)
+    step.block = fused.BLOCK
+    step.launch(packed)
+    torch.cuda.synchronize()
+    assert step.launches == 1
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -47,8 +47,9 @@
 // effective mass (the body mass, or I_min / |p|^2 when smaller). The blocks
 // are the template parameters kPA (pairs and attractors) and kBX (the box
 // kinds): the instances without them are the flat and heightfield kernels
-// (167 and 239 registers, 20,864- and 22,400-byte stacks on sm_90a); the flat
-// instance with pairs uses 249 registers and a 24,320-byte stack, the box
+// (in the local layout 167 and 239 registers, 20,864- and 22,400-byte stacks
+// on sm_90a; see Design); the flat instance with pairs uses 249 registers and
+// a 24,320-byte stack, the box
 // instance 254 registers and a 24,640-byte stack (ptxas -v, CUDA 12.8): the
 // per-pair-body sums for up to 32 pair bodies take 3.5 kB of it.
 //
@@ -73,18 +74,53 @@
 // branches exist only in the heightfield instance. Built into the one
 // instance with a run-time flag they cost Ant's flat-ground step 4.7 % on an
 // H100 at 700 W (0.1245 against 0.1188 ms); as a template the flat instance
-// is the flat-ground kernel as it was (167 registers, 20,864-byte stack).
+// is the flat-ground kernel as it was (167 registers, 20,864-byte stack, in
+// the local layout). In the shared layout the planes are 3 words of each
+// env's slice per candidate.
 //
 // Design. One generic kernel for every model: the model's static data (parent
 // indices, joint types, axes and frames, root flags, contact candidates,
 // torque-body slots) arrives as two small read-only device buffers that every
-// thread reads at the same address. Per-thread arrays are bounded by the
-// compile-time caps below (bodies, roots); the wrapper raises above them, and
-// only the first nb entries of each array are touched. Inputs are structure-of-arrays (R, B)
+// thread reads at the same address. Inputs are structure-of-arrays (R, B)
 // rows exactly as `_make_rows` lays them out, so thread b reads row r at
 // in[r * B + b] and neighbouring threads load neighbouring words; the output
-// (nq + nv + 3 nb + 3 ntq, B) has the same layout. Blocks of 128 threads,
-// the ragged edge masked.
+// (nq + nv + 3 nb + 3 ntq, B) has the same layout. One thread per env. The
+// per-env arrays are bounded by the compile-time caps below (bodies, roots);
+// the wrapper raises above them, and only the first nb entries of each array
+// are touched. Two layouts share the code (template parameter kSM):
+// - The pair and box instances, and a model without pairs whose slice (below)
+//   exceeds the block's shared memory: blocks of 128 threads (the flat and
+//   heightfield ones 32), the sweep state in per-thread local memory, the
+//   per-env rows read from the input slab in every substep.
+// - The shared instances (flat and heightfield ground without pairs: Ant,
+//   Anymal, AnymalTerrain, Cartpole): blocks of 32 threads, so 4096 envs are
+//   128 blocks, one warp on each of 128 of the H100's 132 SMs (blocks of 128
+//   put 4 warps on 32 SMs and left 100 idle). Each block's dynamic shared
+//   buffer (sized at launch by ops/fused.py shared_bytes, at most 227 KB)
+//   holds the model's two tables, copied once by the block, then one slice per
+//   env: its input rows, staged once per launch by cp.async and read by every
+//   substep; q, qd and the per-body and per-joint arrays the three tree sweeps
+//   walk (v, cb, pA, world poses, the 21-float articulated inertias, joint
+//   rotations, U, D^-1, ...); the heightfield's candidate planes; and what the
+//   ground contact's first pass computes for each candidate (point, radius,
+//   depth, normal), which the second pass reads instead of recomputing. An
+//   env's words are consecutive, so the kernel's structs keep their
+//   references and every offset inside a slice is an immediate, and the
+//   slice's length is odd, so the 32 lanes reading word w of their slices
+//   hit 32 different banks. A thread touches only its own slice. Like the box
+//   instance, a shared instance skips, warp by warp, the force of a ground
+//   candidate out of contact in every env of the warp (exact: it adds +0 or
+//   -0 to sums that start at +0), and keeps every thread of a ragged block
+//   alive (the vote and the table copy need them). AnymalTerrain takes
+//   225,584 bytes a block (1,745 words an env), Ant 147,368; HumanoidMJCF's
+//   22 bodies and about 806 input rows would take about 360 kB, so it takes
+//   the local layout. The shared instances use 166 registers and a 496-byte
+//   stack, which the first launch finds already reserved; the local ones 167
+//   (flat) and 239 (heightfield) and 20,864 and 22,400 bytes, for which the
+//   first launch reserves 5.4 and 5.8 GB of device memory.
+// The arithmetic is the same in both layouts and the outputs equal the
+// previous one-layout kernel's bit for bit (measured over 4096 envs of Ant,
+// Anymal and AnymalTerrain).
 //
 // What bounds it. Per env and control step the kernel reads R rows and writes
 // out_rows rows once (Ant: 330 input + 56 output rows of 4 bytes), so at 4096
@@ -100,14 +136,24 @@
 // operations, 65 pair candidates) is bound by operations: 43 us for 2.9
 // GFLOP; ShadowHand in the same instance with its 4 tendons (941 input + 154
 // output rows; 2 substeps of 137.7k operations, 111 pair candidates) by
-// operations too: 67 us for 4.5 GFLOP. No bound is close (0.12, 0.37-0.41,
-// 0.098, 0.80 and 1.10 ms measured on an H100 at 700 W). q, qd and the
-// 21-float articulated inertias live in per-thread local memory (spills are
-// accepted), 4096 envs make only 32 blocks of 128 threads (32 of 132 SMs
-// busy), and the per-env model parameters are re-read from the input slab
-// in every substep. What it leaves on the table: keeping the inertias in
-// registers or shared memory, splitting an env's tree across the threads of
-// a warp, and fusing the packing of the input slab into the kernel.
+// operations too: 67 us for 4.5 GFLOP. No bound is close. Measured on an
+// H100 80GB HBM3 at 700 W, ms per control step: AnymalTerrain 0.196-0.197
+// (0.369-0.375 in the local layout, blocks of 128), Ant 0.071 (0.120-0.121),
+// Anymal 0.082 (0.162), BallBalance 0.098, AllegroHand 0.79, ShadowHand
+// 1.10. What bounds the shared instances is the latency of one warp's
+// instruction stream: their 128
+// warps are all resident at once, one to an SM, so the kernel takes as long
+// as one warp, which issues each env's dependent operations one after
+// another with no other warp on its SM to hide a latency. Every step that
+// took a load off that chain gained: the SM's L1 to one warp (16 % and 15 %
+// for AnymalTerrain and Ant), the sweep state in shared memory (12 %, 1-4
+// %), the skipped ground forces (13 %, 10 %), the staged rows (8 %, 15 %)
+// and tables (6 %, 4 %), the kept candidate state (4 %, 2 %). Now the ground
+// contact is 0.069 ms of AnymalTerrain's 0.196 and 0.023 of Ant's 0.071,
+// the tree sweeps, drives and Euler the rest, 36x and 38x their bound. What
+// it leaves on the table: splitting an env's tree across the lanes of a
+// warp, so that more than one instruction stream per env runs at once, and
+// fusing the packing of the input slab into the kernel.
 //
 // The box instance (AllegroHand, ShadowHand at 16384 envs). What bounds it
 // is the warp instructions it executes, most of them loads and stores of the
@@ -155,6 +201,10 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+// The shared instances' sweep state: each env (lane) owns lane_words
+// consecutive words of the block's dynamic shared buffer, sized at launch.
+extern __shared__ float sweep_smem[];
 
 namespace {
 
@@ -611,20 +661,65 @@ __device__ void box_box(V3 pa, Q4 qa, const float* ha, V3 pb, Q4 qb, const float
   emit(n_e, active ? best_e : -1.0f, cp_e);
 }
 
+// The shared instances' buffer: the model's two tables, then one slice per
+// env (lane) of lane_words words, in the order the kernel carves them: the
+// env's input rows; q, qd; per body v, cb, pA, quat_w, pos_w, net_f, net_t,
+// IA, n_active; per joint Rl, pl, U, invD, uj, tau, diag, quat_l, qdd; per
+// ground candidate the heightfield's plane, then what the contact's first
+// pass keeps for the second (point, radius, depth; over a heightfield also
+// the normal). The count is made odd, so for any word w the 32 lanes of a
+// warp hit 32 different banks (ops/fused.py sweep_lane_words is the same
+// function).
+__host__ __device__ __forceinline__ int lane_words(int nb, int nj, int nq, int nv, int nc, bool hf,
+                                                    int rows) {
+  return (rows + nq + nv + nb * (3 * 6 + 4 + 3 * 3 + 21 + 1) + nj * (9 + 3 + 6 + 4 + 4 + 1) +
+          nc * (hf ? 3 + 8 : 5)) | 1;
+}
+// dst[r] = src[r B] for r < n, by asynchronous copies (cp.async) into
+// shared memory, waited for by the calling thread alone
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int n, int B) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  for (int r = 0; r < n; ++r)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + 4u * r),
+                 "l"(src + (size_t)r * B));
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#else
+  for (int r = 0; r < n; ++r) dst[r] = src[(size_t)r * B];
+#endif
+}
+// the next n elements of T of the lane's slice, as a T[N] of which the
+// first n are used (the local instances' arrays have the same type)
+template <int N, class T>
+__device__ __forceinline__ auto carve(float*& p, int n) -> T (&)[N] {
+  T (&a)[N] = *reinterpret_cast<T (*)[N]>(p);
+  p += n * static_cast<int>(sizeof(T) / sizeof(float));
+  return a;
+}
+template <int N, class T>
+__device__ __forceinline__ auto as_array(T* p) -> T (&)[N] {
+  return *reinterpret_cast<T (*)[N]>(p);
+}
+
 // kHF: heightfield ground (the launcher picks it when it is given a table);
 // kPA: actor pairs and attractors, kBX: with the box kinds of the pair
-// narrowphase (the launcher picks both on the wrapper's flag)
-template <bool kHF, bool kPA, bool kBX>
+// narrowphase (the launcher picks both on the wrapper's flag); kSM (only
+// without pairs): the sweep state in dynamic shared memory, else in
+// per-thread local memory
+template <bool kHF, bool kPA, bool kBX, bool kSM>
 __global__ void __launch_bounds__(128)
 fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
                   const float* __restrict__ hf, const float* __restrict__ in,
                   float* __restrict__ out, int B) {
+  // the box and shared instances skip, warp by warp, the force of a ground
+  // candidate out of contact in every env of the warp (__any_sync), and the
+  // shared instances fill their tables with the whole block (__syncthreads),
+  // so none of their threads leaves early: a thread past the ragged edge
+  // runs the last env again and writes nothing
+  constexpr bool kVote = kBX || kSM;
   const int b_thread = blockIdx.x * blockDim.x + threadIdx.x;
-  // the box instance's warps vote (__any_sync), so none of its threads
-  // leaves early: a thread past the ragged edge runs the last env again
-  // and writes nothing
-  if (!kBX && b_thread >= B) return;
-  const int b = kBX ? min(b_thread, B - 1) : b_thread;
+  if (!kVote && b_thread >= B) return;
+  const int b = kVote ? min(b_thread, B - 1) : b_thread;
   constexpr int kPF = kBX ? kBoxPairFloats : kPairFloats;
   constexpr int MAXB = kMaxBodies;
   constexpr int MAXQ = 7 * kMaxRoots + MAXB;
@@ -640,7 +735,27 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
     int* dst = reinterpret_cast<int*>(&rw);
     for (int k = 0; k < 27; ++k) dst[k] = mi[10 + k];
   }
-  const int* parent = mi + kHeader;
+  // shared instances: the model's two tables (header ints 44-45: their
+  // lengths) copied once per block to the front of the shared buffer; every
+  // thread reads them at the same address
+  const int n_mi = kSM ? mi[44] : 0, n_mf = kSM ? mi[45] : 0;
+  const int* mi_t = mi;
+  const float* mf_t = mf;
+  if (kSM) {
+    int* ti = reinterpret_cast<int*>(sweep_smem);
+    float* tf = sweep_smem + n_mi;
+#ifdef __CUDA_ARCH__
+    const int k0 = threadIdx.x, dk = blockDim.x;
+#else
+    const int k0 = 0, dk = 1;  // host C++ build: threads run one at a time, each copies all
+#endif
+    for (int k = k0; k < n_mi; k += dk) ti[k] = mi[k];
+    for (int k = k0; k < n_mf; k += dk) tf[k] = mf[k];
+    __syncthreads();
+    mi_t = ti;
+    mf_t = tf;
+  }
+  const int* parent = mi_t + kHeader;
   const int* jtype = parent + nb;
   const int* root_float = jtype + nj;
   const int* cand_body = root_float + nr;
@@ -660,7 +775,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const float hf_hs = mf[14], hf_ox = mf[15], hf_oy = mf[16];
   // pair contact: D = h kn + kd, D max_dep, h D, max_dep / 2
   const float D_imp = mf[17], D_maxdep = mf[18], hD = mf[19], half_maxdep = mf[20];
-  const float* jaxis = mf + kHeader;
+  const float* jaxis = mf_t + kHeader;
   const float* jpos = jaxis + 3 * nj;
   const float* jquat = jpos + 3 * nj;
   const float* root_base = jquat + 4 * nj;
@@ -673,25 +788,59 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   const float* t_lohi = attr_f + kAttrFloats * n_attr;   // per tendon lo, hi
   const float* t_coef = t_lohi + 2 * n_tendons;           // per term its coefficient
 
-#define RD(r) in[(size_t)(r) * B + b]
+  // kSM: the env's input rows, staged once, and the sweep state below are
+  // this lane's slice of the shared buffer (carved in lane_words' order);
+  // else the rows are read from the input slab in every substep and the
+  // sweep state is per-thread local arrays
+  float* sp = kSM ? sweep_smem + n_mi + n_mf +
+                        threadIdx.x * lane_words(nb, nj, nq, nv, nc, kHF, rw.total)
+                  : nullptr;
+  float* const rows_s = kSM ? carve<1, float>(sp, rw.total) : nullptr;
+  if (kSM) stage_rows(rows_s, in + b, rw.total, B);
+#define RD(r) (kSM ? rows_s[r] : in[(size_t)(r) * B + b])
 
-  float q[MAXQ], qd[MAXV];
+  float q_l[MAXQ], qd_l[MAXV];
+  float (&q)[MAXQ] = kSM ? carve<MAXQ, float>(sp, nq) : q_l;
+  float (&qd)[MAXV] = kSM ? carve<MAXV, float>(sp, nv) : qd_l;
   for (int i = 0; i < nq; ++i) q[i] = RD(rw.q + i);
   for (int i = 0; i < nv; ++i) qd[i] = RD(rw.qd + i);
   int fidx[kMaxRoots];
   for (int r = 0, fi = 0; r < nr; ++r) fidx[r] = root_float[r] ? fi++ : -1;
   const V3 gvec = {RD(rw.gravity), RD(rw.gravity + 1), RD(rw.gravity + 2)};
 
-  // per-body / per-joint scratch (local memory)
-  S6 v[MAXB], cb[MAXB], pA[MAXB];
-  Q4 quat_w[MAXB];
-  V3 pos_w[MAXB], net_f[MAXB], net_t[MAXB];
-  SymI IA[MAXB];
-  float n_active[MAXB];
-  float Rl[MAXB][9];
-  V3 pl[MAXB];
-  float U[MAXB][6], invD[MAXB], uj[MAXB], tau[MAXB], diag[MAXB];
-  float gpl[kHF ? 3 * kMaxCands : 1];  // heightfield mode: (c, gx, gy) per candidate
+  // per-body / per-joint scratch
+  S6 v_l[MAXB], cb_l[MAXB], pA_l[MAXB];
+  Q4 quat_w_l[MAXB];
+  V3 pos_w_l[MAXB], net_f_l[MAXB], net_t_l[MAXB];
+  SymI IA_l[MAXB];
+  float n_active_l[MAXB];
+  float Rl_l[MAXB][9];
+  V3 pl_l[MAXB];
+  float U_l[MAXB][6], invD_l[MAXB], uj_l[MAXB], tau_l[MAXB], diag_l[MAXB];
+  float gpl_l[kHF ? 3 * kMaxCands : 1];  // heightfield mode: (c, gx, gy) per candidate
+  S6 (&v)[MAXB] = kSM ? carve<MAXB, S6>(sp, nb) : v_l;
+  S6 (&cb)[MAXB] = kSM ? carve<MAXB, S6>(sp, nb) : cb_l;
+  S6 (&pA)[MAXB] = kSM ? carve<MAXB, S6>(sp, nb) : pA_l;
+  Q4 (&quat_w)[MAXB] = kSM ? carve<MAXB, Q4>(sp, nb) : quat_w_l;
+  V3 (&pos_w)[MAXB] = kSM ? carve<MAXB, V3>(sp, nb) : pos_w_l;
+  V3 (&net_f)[MAXB] = kSM ? carve<MAXB, V3>(sp, nb) : net_f_l;
+  V3 (&net_t)[MAXB] = kSM ? carve<MAXB, V3>(sp, nb) : net_t_l;
+  SymI (&IA)[MAXB] = kSM ? carve<MAXB, SymI>(sp, nb) : IA_l;
+  float (&n_active)[MAXB] = kSM ? carve<MAXB, float>(sp, nb) : n_active_l;
+  float (&Rl)[MAXB][9] = kSM ? carve<MAXB, float[9]>(sp, nj) : Rl_l;
+  V3 (&pl)[MAXB] = kSM ? carve<MAXB, V3>(sp, nj) : pl_l;
+  float (&U)[MAXB][6] = kSM ? carve<MAXB, float[6]>(sp, nj) : U_l;
+  float (&invD)[MAXB] = kSM ? carve<MAXB, float>(sp, nj) : invD_l;
+  float (&uj)[MAXB] = kSM ? carve<MAXB, float>(sp, nj) : uj_l;
+  float (&tau)[MAXB] = kSM ? carve<MAXB, float>(sp, nj) : tau_l;
+  float (&diag)[MAXB] = kSM ? carve<MAXB, float>(sp, nj) : diag_l;
+  // the two arrays the substep loop declares: joint local rotations, accelerations
+  Q4* const quat_l_s = kSM ? carve<MAXB, Q4>(sp, nj) : nullptr;
+  float* const qdd_s = kSM ? carve<MAXB, float>(sp, nj) : nullptr;
+  float (&gpl)[kHF ? 3 * kMaxCands : 1] =
+      kSM ? carve<kHF ? 3 * kMaxCands : 1, float>(sp, kHF ? 3 * nc : 0) : gpl_l;
+  constexpr int kCandKept = kHF ? 8 : 5;  // per candidate: point, radius, depth (, normal)
+  float* const cand_kept = kSM ? carve<kMaxCands * kCandKept, float>(sp, kCandKept * nc) : nullptr;
   // pair mode, per pair body: the pair wrench [torque, force] and added inertia
   S6 pacc[kPA ? kMaxPairBodies : 1];
   SymI dacc[kPA ? kMaxPairBodies : 1];
@@ -720,7 +869,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       }
     }
     // ---- joint local poses + pass 1 (outward): link velocities, world poses ----
-    Q4 quat_l[MAXB];
+    Q4 quat_l_l[MAXB];
+    Q4 (&quat_l)[MAXB] = kSM ? as_array<MAXB>(quat_l_s) : quat_l_l;
     for (int r = 0; r < nr; ++r) {
       v[r] = {root_wb[r], qrotinv(root_quat[r], root_vw[r])};
       cb[r] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
@@ -760,46 +910,64 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       net_t[bi] = {0.0f, 0.0f, 0.0f};
       n_active[bi] = 0.0f;
     }
-    // box instance: bit c set when candidate c is in contact in some env of
-    // the warp (phase 0); the others add exact zeros, so phase 1 skips them
-    unsigned touch[kBX ? kMaxCands / 32 : 1];
-    for (int w = 0; kBX && w < kMaxCands / 32; ++w) touch[w] = 0u;
+    // box and shared instances: bit c set when candidate c is in contact in
+    // some env of the warp (phase 0); the others add exact zeros, so phase 1
+    // skips them
+    unsigned touch[kVote ? kMaxCands / 32 : 1];
+    for (int w = 0; kVote && w < kMaxCands / 32; ++w) touch[w] = 0u;
     for (int phase = 0; phase < 2; ++phase) {
       for (int c = 0; c < nc; ++c) {
-        if (kBX && phase == 1 && !((touch[c >> 5] >> (c & 31)) & 1u)) continue;
+        if (kVote && phase == 1 && !((touch[c >> 5] >> (c & 31)) & 1u)) continue;
         const int bi = cand_body[c];
         const Q4 bq = quat_w[bi];
-        const Q4 gq = qmul(bq, {cand_gquat[4 * c], cand_gquat[4 * c + 1],
-                                cand_gquat[4 * c + 2], cand_gquat[4 * c + 3]});
-        const V3 gp = add(pos_w[bi], qrot(bq, {cand_gpos[3 * c], cand_gpos[3 * c + 1],
-                                               cand_gpos[3 * c + 2]}));
-        V3 pc = add(gp, qrot(gq, {cand_off[3 * c], cand_off[3 * c + 1], cand_off[3 * c + 2]}));
-        if (kHF && step == 0 && phase == 0)
-          hf_plane(hf, hf_H, hf_W, hf_hs, hf_ox, hf_oy, pc.x, pc.y, gpl + 3 * c);
-        float eff_r = cand_r[c];
-        if (cand_rim[c]) {
-          const V3 a = qrot(gq, {0.0f, 0.0f, 1.0f});
-          const V3 perp = {0.0f - a.x * a.z, 0.0f - a.y * a.z, 1.0f - a.z * a.z};
-          const float pn = fmaxf(sqrtf(dot(perp, perp)), 1e-6f);
-          const V3 u = {-perp.x / pn, -perp.y / pn, -perp.z / pn};
-          pc = add(pc, scl(u, cand_r[c]));
-          eff_r = 0.0f;
-        }
-        float depth;
+        V3 pc;
+        float eff_r, depth;
         V3 n = {0.0f, 0.0f, 1.0f};  // ground normal
-        if (kHF) {
-          const float gc = gpl[3 * c], ggx = gpl[3 * c + 1], ggy = gpl[3 * c + 2];
-          const float plane_z = gc + (ggx * pc.x + ggy * pc.y);
-          const float inv_nn = 1.0f / sqrtf(1.0f + (ggx * ggx + ggy * ggy));
-          n = {-ggx * inv_nn, -ggy * inv_nn, inv_nn};
-          depth = (plane_z - pc.z) * inv_nn + eff_r;
+        // shared instances: the first pass keeps the candidate's point,
+        // radius, depth (and normal) for the second
+        float* const kept = kSM ? cand_kept + kCandKept * c : nullptr;
+        if (kSM && phase == 1) {
+          pc = {kept[0], kept[1], kept[2]};
+          eff_r = kept[3];
+          depth = kept[4];
+          if (kHF) n = {kept[5], kept[6], kept[7]};
         } else {
-          depth = ground_z - (pc.z - eff_r);
+          const Q4 gq = qmul(bq, {cand_gquat[4 * c], cand_gquat[4 * c + 1],
+                                  cand_gquat[4 * c + 2], cand_gquat[4 * c + 3]});
+          const V3 gp = add(pos_w[bi], qrot(bq, {cand_gpos[3 * c], cand_gpos[3 * c + 1],
+                                                 cand_gpos[3 * c + 2]}));
+          pc = add(gp, qrot(gq, {cand_off[3 * c], cand_off[3 * c + 1], cand_off[3 * c + 2]}));
+          if (kHF && step == 0 && phase == 0)
+            hf_plane(hf, hf_H, hf_W, hf_hs, hf_ox, hf_oy, pc.x, pc.y, gpl + 3 * c);
+          eff_r = cand_r[c];
+          if (cand_rim[c]) {
+            const V3 a = qrot(gq, {0.0f, 0.0f, 1.0f});
+            const V3 perp = {0.0f - a.x * a.z, 0.0f - a.y * a.z, 1.0f - a.z * a.z};
+            const float pn = fmaxf(sqrtf(dot(perp, perp)), 1e-6f);
+            const V3 u = {-perp.x / pn, -perp.y / pn, -perp.z / pn};
+            pc = add(pc, scl(u, cand_r[c]));
+            eff_r = 0.0f;
+          }
+          if (kHF) {
+            const float gc = gpl[3 * c], ggx = gpl[3 * c + 1], ggy = gpl[3 * c + 2];
+            const float plane_z = gc + (ggx * pc.x + ggy * pc.y);
+            const float inv_nn = 1.0f / sqrtf(1.0f + (ggx * ggx + ggy * ggy));
+            n = {-ggx * inv_nn, -ggy * inv_nn, inv_nn};
+            depth = (plane_z - pc.z) * inv_nn + eff_r;
+          } else {
+            depth = ground_z - (pc.z - eff_r);
+          }
+          if (kSM) {
+            kept[0] = pc.x; kept[1] = pc.y; kept[2] = pc.z;
+            kept[3] = eff_r;
+            kept[4] = depth;
+            if (kHF) { kept[5] = n.x; kept[6] = n.y; kept[7] = n.z; }
+          }
         }
         const bool active = depth > 0.0f;
         if (phase == 0) {
           n_active[bi] += active ? 1.0f : 0.0f;
-          if (kBX && __any_sync(kFullWarp, !(depth <= 0.0f))) touch[c >> 5] |= 1u << (c & 31);
+          if (kVote && __any_sync(kFullWarp, !(depth <= 0.0f))) touch[c >> 5] |= 1u << (c & 31);
           continue;
         }
         const V3 cp = kHF ? sub(pc, scl(n, eff_r)) : V3{pc.x, pc.y, pc.z - eff_r};
@@ -1125,7 +1293,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
         v[r] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
       }
     }
-    float qdd[MAXB];
+    float qdd_l[MAXB];
+    float (&qdd)[MAXB] = kSM ? as_array<MAXB>(qdd_s) : qdd_l;
     for (int bi = nr; bi < nb; ++bi) {
       const int j = bi - nr, p = parent[bi];
       const S6 ap = add6(motion_to_child(Rl[j], pl[j], v[p]), cb[bi]);
@@ -1178,7 +1347,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   }
 
   // ---- outputs: q, qd, net force rows (3 nb), torque rows (3 ntq) ----
-  if (kBX && b_thread >= B) return;
+  if (kVote && b_thread >= B) return;
   float* o = out + b;
   const size_t Bs = (size_t)B;
   for (int i = 0; i < nq; ++i) o[(size_t)i * Bs] = q[i];
@@ -1201,15 +1370,39 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 
 }  // namespace
 
-// Plain C entry point for ctypes. Returns cudaGetLastError() after the
-// launch (0 = success); the launch is asynchronous on `stream`.
-// `hf` is the heightfield table in heightfield mode, else null; `pairs` picks
-// the instance: 0 without the actor-pair and attractor blocks, 1 with them
-// (the round kinds), 2 with the box kinds too.
+// Plain C entry point for ctypes. Returns the CUDA error of the launch (0 =
+// success); the launch is asynchronous on `stream`. `hf` is the heightfield
+// table in heightfield mode, else null; `pairs` picks the instance: 0
+// without the actor-pair and attractor blocks, 1 with them (the round
+// kinds), 2 with the box kinds too. `threads` is the block size; `smem`,
+// without pairs only, the dynamic shared bytes of the block's sweep state
+// (threads x lane_words x 4, ops/fused.py shared_bytes), or 0 for the
+// local-memory layout.
+template <bool kHF, bool kSM>
+int launch_no_pairs(const int* mi, const float* mf, const float* hf, const float* in, float* out,
+                    int B, int blocks, int threads, int smem, cudaStream_t s) {
+  if constexpr (kSM) {
+    // the attribute is raised once per instance, to the most a block may use
+    static int max_smem = 0;
+    if (smem > max_smem) {
+      const cudaError_t e = cudaFuncSetAttribute(fused_step_kernel<kHF, false, false, kSM>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) {
+        cudaGetLastError();  // returned here, so it does not fail the next launch
+        return static_cast<int>(e);
+      }
+      max_smem = smem;
+    }
+  }
+  fused_step_kernel<kHF, false, false, kSM><<<blocks, threads, smem, s>>>(mi, mf, hf, in, out, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
-                                 const void* in, void* out, int B, int pairs, void* stream) {
+                                 const void* in, void* out, int B, int pairs, int threads,
+                                 int smem, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
+  if (threads <= 0 || (pairs != 0 && smem != 0)) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mi_ = static_cast<const int*>(mi);
@@ -1217,20 +1410,23 @@ extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
   const float* hf_ = static_cast<const float*>(hf);
   const float* in_ = static_cast<const float*>(in);
   float* out_ = static_cast<float*>(out);
+  if (pairs == 0) {
+    if (hf_)
+      return smem ? launch_no_pairs<true, true>(mi_, mf_, hf_, in_, out_, B, blocks, threads, smem, s)
+                  : launch_no_pairs<true, false>(mi_, mf_, hf_, in_, out_, B, blocks, threads, 0, s);
+    return smem ? launch_no_pairs<false, true>(mi_, mf_, hf_, in_, out_, B, blocks, threads, smem, s)
+                : launch_no_pairs<false, false>(mi_, mf_, hf_, in_, out_, B, blocks, threads, 0, s);
+  }
   if (hf_) {
     if (pairs == 2)
-      fused_step_kernel<true, true, true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
-    else if (pairs == 1)
-      fused_step_kernel<true, true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+      fused_step_kernel<true, true, true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
     else
-      fused_step_kernel<true, false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+      fused_step_kernel<true, true, false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
   } else {
     if (pairs == 2)
-      fused_step_kernel<false, true, true><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
-    else if (pairs == 1)
-      fused_step_kernel<false, true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+      fused_step_kernel<false, true, true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
     else
-      fused_step_kernel<false, false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
+      fused_step_kernel<false, true, false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
   }
   return static_cast<int>(cudaGetLastError());
 }

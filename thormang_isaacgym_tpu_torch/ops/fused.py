@@ -34,6 +34,11 @@ for all substeps, as the TPU kernel holds the plane rows that
 structure: :func:`ground_plane_sampler` makes the (B, 3C) plane rows and the
 op path reads them.
 
+Without pairs, the kernel keeps each env's input rows and sweep state in
+the block's dynamic shared memory, in blocks of ``BLOCK`` envs, where the
+budget rule ``shared_bytes`` finds room; otherwise, and in the pair
+instances, the sweep state is per-thread local memory.
+
 The kernel is built at first use with ``nvcc`` alone (no PyTorch headers)
 into ``thormang_isaacgym_tpu_torch/_build/`` and loaded with ``ctypes``. For
 CPU tensors the step runs the plain PyTorch version (``ops.sim``'s op path,
@@ -82,6 +87,13 @@ MAX_ATTRACTORS = 64
 # the box instance's pair cull (csrc/fused_step.cu kCullMargin, kCullRel)
 CULL_MARGIN = 1e-3
 CULL_REL = 1e-5
+# launch geometry, one thread per env: the flat and heightfield instances
+# in blocks of BLOCK threads (4096 envs: 128 blocks, one on each of 128 of
+# the H100's 132 SMs), the pair and box instances in blocks of PAIR_BLOCK
+BLOCK = 32
+PAIR_BLOCK = 128
+# the dynamic shared memory a block may use on sm_90 (227 KB)
+SMEM_BUDGET = 232_448
 _HEADER = 48
 _KIND = {"sphere": 0, "capcap": 1, "capbox": 2, "boxbox": 3}
 
@@ -140,9 +152,35 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     lib = ctypes.CDLL(build_library().path)
     fn = lib.fused_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def sweep_lane_words(nb: int, nj: int, nq: int, nv: int, nc: int, *,
+                     heightfield: bool = False, rows: int = 0) -> int:
+    """Words of one env's slice of the flat and heightfield instances'
+    shared buffer (csrc/fused_step.cu ``lane_words``): its `rows` input rows;
+    q, qd; 53 per body (v, cb, pA, quat_w, pos_w, net_f, net_t, IA,
+    n_active); 27 per joint (Rl, pl, U, invD, uj, tau, diag, quat_l, qdd);
+    per ground candidate 5 (point, radius, depth), over a heightfield 11
+    (also the normal and the plane). Odd, so a warp's 32 lanes hit 32
+    different banks for any word."""
+    return (rows + nq + nv + 53 * nb + 27 * nj + (11 if heightfield else 5) * nc) | 1
+
+
+def shared_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
+                 heightfield: bool = False, rows: int = 0, tables: int = 0) -> int:
+    """The budget rule of the flat and heightfield instances: the dynamic
+    shared bytes of a block of `block` envs, the model's two tables
+    (`tables` words, once per block) and each env's slice
+    (``sweep_lane_words``); or 0 when that exceeds SMEM_BUDGET, and the
+    model takes the local-memory layout (the same arithmetic, the sweep
+    state in per-thread local memory, the rows and tables read from device
+    memory)."""
+    n = 4 * (tables + block * sweep_lane_words(nb, nj, nq, nv, nc, heightfield=heightfield,
+                                                rows=rows))
+    return n if n <= SMEM_BUDGET else 0
 
 
 def make_rows(model: RobotModel, ground_rows: int = 0) -> dict:
@@ -271,7 +309,8 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
     of the two bounding radii, ``pair_reach``), a per-body pair-accumulator
     slot, and per
     attractor (body) and (local point, target, kp, kd, |p|^2 + 1e-6, or 0
-    when |p|^2 <= 1e-6)."""
+    when |p|^2 <= 1e-6). Header ints 44-45: the two tables' lengths (the
+    shared instances copy both into each block's shared memory)."""
     cand = contact.candidates(model)
     nc = len(cand["geom"])
     nb, nj, nr = model.nb, model.nj, model.n_roots
@@ -343,6 +382,7 @@ def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
         np.concatenate([np.zeros(0, np.float32)] + [np.asarray(coef, np.float32)[j]
                                                     for (coef, *_), j in zip(model.tendons, terms)]),
     ]).astype(np.float32)
+    mi[44], mi[45] = len(mi), len(mf)
     return mi, mf
 
 
@@ -357,7 +397,9 @@ class FusedStep:
     target, kp, kd) tuples. ``launches`` counts kernel launches (CPU calls
     run the plain version and do not count). ``pair_mode`` picks the
     kernel instance: 0 without pairs and attractors, 1 with them, 2 with a
-    pair of a box kind."""
+    pair of a box kind. ``block`` is the launch's block size;
+    ``smem_bytes`` the dynamic shared memory of a block (``shared_bytes``;
+    0 in the pair modes and for a model over the budget)."""
 
     def __init__(self, model: RobotModel, sim_params: SimParams, *,
                  ground=0.0, attractors=None, need_torque=True):
@@ -371,6 +413,8 @@ class FusedStep:
         self.pair_mode = 2 if collide.has_box_pairs(model) else \
             int(collide.has_pairs(model) or bool(self.attractors))
         self.hf = ground if isinstance(ground, Heightfield) else None
+        self.block = PAIR_BLOCK if self.pair_mode else BLOCK
+        self._nc = len(contact.candidates(model)["geom"])
         self.tq_bodies = norm_torque_bodies(need_torque, model.nb)
         self.rows = make_rows(model)
         self.out_rows = model.nq + model.nv + 3 * model.nb + 3 * len(self.tq_bodies)
@@ -381,6 +425,16 @@ class FusedStep:
         self._plain = build_plain_step_fn(model, sim_params, ground, self.attractors)
         self.sampler = ground_plane_sampler(model, self.hf) if self.hf is not None else None
         self.launches = 0
+
+    @property
+    def smem_bytes(self) -> int:
+        if self.pair_mode:
+            return 0
+        m = self.model
+        mi, mf = self._tables
+        return shared_bytes(m.nb, m.nj, m.nq, m.nv, self._nc, self.block,
+                            heightfield=self.hf is not None, rows=self.rows["total"],
+                            tables=len(mi) + len(mf))
 
     def _on(self, dev):
         """(int table, float table, torque-body index) on `dev`, built once:
@@ -471,9 +525,10 @@ class FusedStep:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(mi_t.data_ptr(), mf_t.data_ptr(), hf_ptr, packed.data_ptr(),
-                     out.data_ptr(), B, self.pair_mode, stream)
+                     out.data_ptr(), B, self.pair_mode, self.block, self.smem_bytes, stream)
         if err != 0:
-            raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err} "
+                               f"(block {self.block}, {self.smem_bytes} shared bytes)")
         self.launches += 1
         return out
 
