@@ -32,9 +32,11 @@ Phases, one line each (any failure raises and exits non-zero):
     BallBalance at 4096 envs and AllegroHand and ShadowHand at 16384 (CUDA
     events after warm-up, ms per control step) beside the kernel's bound,
     with the launch's block size and dynamic shared bytes and ptxas'
-    registers and stack of the instance;
-    the hands also the share of pairs that pass the box instance's cull and
-    of candidates in contact, per env and per warp of 32 (``cull_stats``).
+    registers and stack of the instance; BallBalance and the hands also the
+    share of pair candidates in contact, per env and per warp of 32, the
+    hands also of the pairs that pass the box instance's cull
+    (``cull_stats``); ShadowHand also the tendon block's own time (the
+    tendon loop cut out) beside its bound.
  4. train: make(task, cfg=cfg/task/<task>.yaml) at the YAML's numEnvs,
     PPO(PPOConfig.from_rlgames(cfg/train/<task>PPO.yaml)), 3
     train_iterations, for Ant (4096 envs, 3 x 16 kernel launches),
@@ -42,8 +44,9 @@ Phases, one line each (any failure raises and exits non-zero):
     (16384, 3 x 8 x 2) and ShadowHand (16384, 3 x 8 x 1); every metric
     finite, obs finite of shape (envs, num_obs).
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
-box modes, and its tendon block, timed on ShadowHand) and, last, the
-{"ok": true, "device": ...} line.
+box modes, and its tendon block, timed on ShadowHand, with the block's own
+time and bound beside the instance's) and, last, the {"ok": true,
+"device": ...} line.
 """
 from __future__ import annotations
 
@@ -806,6 +809,19 @@ def kernel_ops_per_env(model, n_steps: int, heightfield: bool = False,
     return float(per_sub * n_steps + (nc * OPS["hf_sample"] if heightfield else 0))
 
 
+def tendon_bound(model, n_steps: int, envs: int) -> dict:
+    """The least time of the tendon block (B4b) alone: its operations (OPS'
+    tendon terms, every substep) and its bytes (each env's tendon stiffness
+    and damping rows, read once)."""
+    flops = envs * n_steps * sum(OPS["tendon"] + OPS["tendon_term"] * int(np.count_nonzero(coef))
+                                 for coef, *_ in model.tendons)
+    nbytes = 4 * envs * 2 * len(model.tendons)
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                bytes=nbytes, flops=flops)
+
+
 def instance_ptxas(log: str, step) -> list:
     """ptxas' register and stack lines for the kernel instance `step`
     launches (template flags kHF, kPA, kBX, kSM)."""
@@ -832,15 +848,15 @@ def _time_cuda(fn, iters: int, warmup: int) -> float:
 
 
 def cull_stats(step, q, qd) -> dict:
-    """What the box instance's cull sees at (q, qd): the share of env-pairs
-    whose bounding spheres come within the margin (``fused.pairs_apart``)
-    and of warp-pairs (any of a warp's 32 envs: the narrowphase runs for
-    the warp), and the same shares of the candidates in contact (the force
-    block runs for the warp). The bound counts every candidate, as the TPU
-    kernel computes it."""
+    """What the pair instances' skips see at (q, qd): the share of pair
+    candidates in contact per env and per warp of 32 (any of its envs: the
+    force block runs for the warp); in the box instance also the share of
+    env-pairs whose bounding spheres come within the cull's margin
+    (``fused.pairs_apart``) and of warp-pairs (the narrowphase runs for the
+    warp). The bound counts every candidate, as the TPU kernel computes
+    them."""
     m = step.model
     f = forward_kinematics(m, q, qd)
-    near = ~fused.pairs_apart(m, f)
     active = torch.stack([c[5] for c in collide.candidates(m, f)], -1) > 0
     w = 32
     n = q.shape[0] // w * w
@@ -849,15 +865,20 @@ def cull_stats(step, q, qd) -> dict:
         x = x[:n].reshape(n // w, w, -1).any(1) if warp else x
         return float(x.float().mean())
 
-    return dict(pair_pass_share=share(near), pair_pass_share_warp=share(near, True),
-                active_candidate_share=share(active),
-                active_candidate_share_warp=share(active, True))
+    out = dict(active_candidate_share=share(active),
+               active_candidate_share_warp=share(active, True))
+    if step.pair_mode == 2:
+        near = ~fused.pairs_apart(m, f)
+        out.update(pair_pass_share=share(near), pair_pass_share_warp=share(near, True))
+    return out
 
 
 def phase_time(name: str, device) -> dict:
     """The kernel on `name`'s training inputs (torque rows of the task's
-    sensor bodies, as VecEnv builds it), ms per control step; in the box
-    mode also what its cull sees (``cull_stats``)."""
+    sensor bodies, as VecEnv builds it), ms per control step; in the pair
+    modes also what their skips see (``cull_stats``); with tendons also the
+    tendon block's own time (the kernel with the tendon loop cut out, header
+    int 42 set to 0, subtracted) beside its bound (``tendon_bound``)."""
     task = _task(name, device)
     m = task.model
     hf = task.ground_height_fn() if hasattr(task, "ground_height_fn") else None
@@ -883,7 +904,17 @@ def phase_time(name: str, device) -> dict:
                bound_ms=max(bytes_ms, flops_ms),
                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                bytes=nbytes, bytes_ms=bytes_ms, flops=flops, flops_ms=flops_ms)
-    cull = cull_stats(step, q, qd) if step.pair_mode == 2 else {}
+    if m.tendons:
+        full = step._tables
+        mi = full[0].copy()
+        mi[42] = 0                                 # no tendon: the loop runs no iteration
+        step._tables, step._dev_tables = (mi, full[1]), {}
+        no_tendons_ms = _time_cuda(lambda: step.launch(packed), iters=200, warmup=20)
+        step._tables, step._dev_tables = full, {}
+        tb = tendon_bound(m, step.n_steps, envs)
+        out.update(tendon_block_ms=kernel_ms - no_tendons_ms, no_tendons_ms=no_tendons_ms,
+                   tendon_bound_ms=tb["bound_ms"], tendon_bound_by=tb["bound_by"])
+    cull = cull_stats(step, q, qd) if step.pair_mode else {}
     log("time", model=name, envs=envs, substeps=step.n_steps, block=step.block,
         smem_bytes=step.smem_bytes, ptxas=instance_ptxas(fused.build_library().log, step),
         **out, **cull)
@@ -951,7 +982,9 @@ def main() -> None:
         replaces=REPLACES[mode], launches=train[mode]["launches"],
         max_abs_err=max_err[mode], ms=timing[mode]["ms"], plain_ms=timing[mode]["plain_ms"],
         bound_ms=timing[mode]["bound_ms"], bound_by=timing[mode]["bound_by"], library_ms=None,
-        **({"also_replaces": ALSO_REPLACES[mode]} if mode in ALSO_REPLACES else {}))
+        **({"also_replaces": ALSO_REPLACES[mode]} if mode in ALSO_REPLACES else {}),
+        **({k: timing[mode][k] for k in ("tendon_block_ms", "tendon_bound_ms")}
+           if mode == "tendons" else {}))
         for mode, _ in modes]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_info["kind"],

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time the fused CUDA kernel on Ant or Anymal (its flat instance),
 AnymalTerrain (its heightfield instance), BallBalance (its pair instance,
-the round kinds and attractors), AllegroHand (its box instance) or
-ShadowHand (the box instance with the tendon block) at the task YAML's width
-(4096 envs; the hands 16384), from the port package found in a given source
-tree, so two trees (a change and its parent) can be compared on one card in
-one call.
+the round kinds and attractors), the pair-capsule scene of chip_smoke.py
+(the pair instance's sphere-capsule and capsule-capsule kinds, 4096 envs),
+AllegroHand (its box instance) or ShadowHand (the box instance with the
+tendon block) at the task YAML's width (4096 envs; the hands 16384), from
+the port package found in a given source tree, so two trees (a change and
+its parent) can be compared on one card in one call.
 
-    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|Anymal|AnymalTerrain|BallBalance|AllegroHand|ShadowHand]
+    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|Anymal|AnymalTerrain|BallBalance|PairCapsule|AllegroHand|ShadowHand]
         [--iters 300] [--envs N] [--block N [N ...]] [--local] [--split] [--stack] [--dump PATH]
     python3 scripts/time_flat_kernel.py --compare A.npy B.npy
 
@@ -40,7 +41,10 @@ Options:
              int 39 set to 0), with the ground candidates cut out (header
              int 7), and with both: copies of the model tables, the kernel's
              source untouched. The differences give the pair phase, the
-             ground phase and the rest (tree sweeps, drives, tendons).
+             ground phase and the rest (tree sweeps, drives, tendons). A
+             model with tendons is also timed with the tendon loop cut out
+             (header int 42 set to 0): the tendon block's own time, beside
+             its bound (chip_smoke.py's OPS and peaks).
   --stack    device memory taken by the instance's first launch
              (torch.cuda.mem_get_info before and after): the local memory
              the CUDA runtime reserves for the per-thread stack frames.
@@ -70,7 +74,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # each task's instance (kHF, kPA, kBX)
 INSTANCE = {"Ant": (0, 0, 0), "Anymal": (0, 0, 0), "AnymalTerrain": (1, 0, 0),
-            "BallBalance": (0, 1, 0), "AllegroHand": (0, 1, 1), "ShadowHand": (0, 1, 1)}
+            "BallBalance": (0, 1, 0), "PairCapsule": (0, 1, 0), "AllegroHand": (0, 1, 1),
+            "ShadowHand": (0, 1, 1)}
 _HEADER = 48
 
 
@@ -238,25 +243,37 @@ def main() -> None:
         raise RuntimeError("no CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    import yaml
-    with open(os.path.join(ROOT, "cfg", "task", f"{args.task}.yaml")) as f:
-        cfg = yaml.safe_load(f)
-    B, dev = args.envs or int(cfg["env"]["numEnvs"]), torch.device("cuda")
-    task = get_task_class(args.task)(num_envs=B, device=dev)
-    apply_cfg_sim(task, cfg["sim"])
-    m = task.model
-    ground = task.ground_height_fn() if hasattr(task, "ground_height_fn") else 0.0
-    step = fused.build_fused_step_fn(m, task.sim_params, ground=ground,
-                                     attractors=getattr(task, "attractors", None),
-                                     need_torque=getattr(task, "net_torque_bodies", None) or False)
-    q, qd, targets, effort = task_inputs(args.task, task, B, np.random.default_rng(1))
+    dev = torch.device("cuda")
+    if args.task == "PairCapsule":
+        # chip_smoke.py's pair-capsule scene and inputs, at its width
+        sys.path.insert(0, ROOT)
+        import chip_smoke
+        if args.envs not in (0, chip_smoke.B):
+            raise ValueError(f"PairCapsule runs at {chip_smoke.B} envs")
+        B, task = chip_smoke.B, chip_smoke.PairCapsule()
+        m = task.model
+        step = fused.build_fused_step_fn(m, task.sim_params)
+        packed = step.pack(*chip_smoke.pair_capsule_inputs(m, np.random.default_rng(1), dev))
+    else:
+        import yaml
+        with open(os.path.join(ROOT, "cfg", "task", f"{args.task}.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        B = args.envs or int(cfg["env"]["numEnvs"])
+        task = get_task_class(args.task)(num_envs=B, device=dev)
+        apply_cfg_sim(task, cfg["sim"])
+        m = task.model
+        ground = task.ground_height_fn() if hasattr(task, "ground_height_fn") else 0.0
+        step = fused.build_fused_step_fn(m, task.sim_params, ground=ground,
+                                         attractors=getattr(task, "attractors", None),
+                                         need_torque=getattr(task, "net_torque_bodies", None) or False)
+        q, qd, targets, effort = task_inputs(args.task, task, B, np.random.default_rng(1))
 
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
-    z = t(np.zeros((B, m.nj)))
-    packed = step.pack(m.default_params(dev).batch(B), t(q), t(qd), Controls(t(targets), z, t(effort)),
-                       t(np.zeros((B, m.nb, 6))))
+        z = t(np.zeros((B, m.nj)))
+        packed = step.pack(m.default_params(dev).batch(B), t(q), t(qd),
+                           Controls(t(targets), z, t(effort)), t(np.zeros((B, m.nb, 6))))
     lib = fused.load_library()
     if args.sass:
         with open(args.sass, "w") as f:
@@ -311,17 +328,28 @@ def main() -> None:
     if layouts:
         step.block, fused.SMEM_BUDGET = layouts[next(iter(layouts))]
     ms = {"as_is": next(iter(turns.values()))["ms"][0] if turns else time_ms()}
+    tendon = {}
     if args.split:
         full = step._tables
-        for key, kw in (("no_pairs", dict(pairs=True, ground=False)),
-                        ("no_ground", dict(pairs=False, ground=True)),
-                        ("neither", dict(pairs=True, ground=True))):
-            step._tables = strip_tables(*full, **kw)
-            step._dev_tables = {}
+        cuts = {key: strip_tables(*full, **kw) for key, kw in (
+            ("no_pairs", dict(pairs=True, ground=False)),
+            ("no_ground", dict(pairs=False, ground=True)),
+            ("neither", dict(pairs=True, ground=True)))}
+        if m.tendons:
+            mi2 = full[0].copy()
+            mi2[42] = 0                            # no tendon: the loop runs no iteration
+            cuts["no_tendons"] = (mi2, full[1])
+        for key, tables in cuts.items():
+            step._tables, step._dev_tables = tables, {}
             ms[key] = time_ms()
         step._tables, step._dev_tables = full, {}
         ms["pair_phase"] = ms["as_is"] - ms["no_pairs"]
         ms["ground_phase"] = ms["as_is"] - ms["no_ground"]
+        if m.tendons:
+            sys.path.insert(0, ROOT)
+            from chip_smoke import tendon_bound
+            ms["tendon_block"] = ms["as_is"] - ms["no_tendons"]
+            tendon = dict(tendon_bound=tendon_bound(m, step.n_steps, B))
     smem = getattr(step, "smem_bytes", 0)
     log = fused.build_library().log.splitlines()
     names = mangled(INSTANCE[args.task], smem)
@@ -333,7 +361,7 @@ def main() -> None:
                       "envs": B, "iters": args.iters, "ms": ms["as_is"],
                       "block": getattr(step, "block", 128), "smem_bytes": smem,
                       **({"layouts": turns} if turns else {}),
-                      **({"split_ms": ms} if args.split else {}), **stack,
+                      **({"split_ms": ms} if args.split else {}), **tendon, **stack,
                       "ptxas": inst}), flush=True)
 
 

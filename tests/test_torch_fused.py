@@ -10,9 +10,10 @@ planes sampled at the step's input q, frozen across the substeps) on Anymal
 over a TerrainGrid and on a single cylinder over a slope, whose rim shift
 pins the sampling point (the candidate before the shift). The pair mode
 (actor-pair contact and attractors) is held against its plain twin on
-BallBalance (the ball resting in the tray or pressed into a leg) and on the
+BallBalance (the ball resting in the tray or pressed into a leg), on the
 pair-capsule scene of tests/test_fused.py (sphere-capsule and capsule-capsule
-pairs against a fixed bar), and on a body held by two attractors. The box
+pairs against a fixed bar), on the same scene over the cylinder's sloped
+heightfield, and on a body held by two attractors. The box
 instance (block B6: sphere vs box, capsule vs box, box vs box) is held on the
 two-actor scenes of tests/test_fused.py's box-kind checks and a ball on a
 cube, and on AllegroHand (the cube on the palm and among the fingers, or
@@ -99,6 +100,11 @@ PAIR_BAR = """
 PAIR_POSES = ((0.0, 0.02, 0.78, 1, 0, 0, 0), (-0.02, 0.05, 0.75, 0.9238795, 0, 0.3826834, 0),
               (0.04, 0.03, 0.80, 1, 0, 0, 0), (0, 0, 0.6, 0.7071068, 0, 0.7071068, 0))
 PAIR_SP = dict(dt=1 / 60, substeps=2, contact_stiffness=2e4, contact_damping=500.0)
+# the scene over the cylinder-slope heightfield, placed so that capsule B's
+# lower end (resting on the bar) and capsule A's (hanging over the bar's end
+# in every fourth env) reach the ground in about half of the envs, up to 3 cm
+# deep; the fixed bar's right end lies in the slope
+PAIR_TERRAIN_ORIGIN = (-1.3, -1.2)
 # one free body held by two attractors: at an off-centre point (the gains below
 # their clamps to the point's effective mass I_min / |p|^2) and at its origin
 # (the body mass; the gains clamped), above the ground
@@ -364,8 +370,9 @@ static const uint32_t kCanary = 0x7fc0dead;
 extern "C" int host_launch(const int* mi, const float* mf, const float* hf, const float* in,
                            float* out, int B, int pairs, int threads, int smem) {
   blockDim.x = threads;
-  // the model tables first (header ints 44-45: their lengths), then the lanes
-  const int tables = smem ? mi[44] + mi[45] : 0, words = smem / 4;
+  // the model tables first (header ints 44-45: their lengths; without pairs
+  // only), then the lanes
+  const int tables = smem && !pairs ? mi[44] + mi[45] : 0, words = smem / 4;
   const int lane = (words - tables) / threads;
   int strays = 0;
   for (int b = 0; b < B; ++b) {
@@ -374,6 +381,8 @@ extern "C" int host_launch(const int* mi, const float* mf, const float* hf, cons
     for (int w = 0; w < words; ++w) std::memcpy(&sweep_smem[w], &kCanary, 4);
     if (hf && pairs == 2)
       fused_step_kernel<true, true, true, false>(mi, mf, hf, in, out, B);
+    else if (hf && pairs == 1 && smem)
+      fused_step_kernel<true, true, false, true>(mi, mf, hf, in, out, B);
     else if (hf && pairs == 1)
       fused_step_kernel<true, true, false, false>(mi, mf, hf, in, out, B);
     else if (hf && smem)
@@ -382,6 +391,8 @@ extern "C" int host_launch(const int* mi, const float* mf, const float* hf, cons
       fused_step_kernel<true, false, false, false>(mi, mf, hf, in, out, B);
     else if (pairs == 2)
       fused_step_kernel<false, true, true, false>(mi, mf, hf, in, out, B);
+    else if (pairs == 1 && smem)
+      fused_step_kernel<false, true, false, true>(mi, mf, hf, in, out, B);
     else if (pairs == 1)
       fused_step_kernel<false, true, false, false>(mi, mf, hf, in, out, B);
     else if (smem)
@@ -399,8 +410,9 @@ extern "C" int host_launch(const int* mi, const float* mf, const float* hf, cons
   return strays;
 }
 
-extern "C" int host_lane_words(int nb, int nj, int nq, int nv, int nc, int hf, int rows) {
-  return lane_words(nb, nj, nq, nv, nc, hf != 0, rows);
+extern "C" int host_lane_words(int nb, int nj, int nq, int nv, int nc, int hf, int rows,
+                               int npb) {
+  return lane_words(nb, nj, nq, nv, nc, hf != 0, rows, npb);
 }
 """
 
@@ -420,7 +432,7 @@ def host_kernel(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     lib.host_launch.restype = ctypes.c_int
-    lib.host_lane_words.argtypes = [ctypes.c_int] * 7
+    lib.host_lane_words.argtypes = [ctypes.c_int] * 8
     lib.host_lane_words.restype = ctypes.c_int
     return lib
 
@@ -453,17 +465,24 @@ def _model(name):
     if name == "tiny":
         return load_urdf(TINY_URDF), SimParams(**TINY_SP), None, 0.0
     if name == "cylinder_slope":
-        i, j = np.meshgrid(np.arange(40), np.arange(40), indexing="ij")
-        # a slope with bumps, so the plane depends on where it is sampled
-        h = 0.03 * i + 0.02 * j + 0.05 * np.sin(0.9 * i) * np.cos(0.7 * j)
-        hf = Heightfield(h.astype(np.float32), 0.1, origin=(-2.0, -2.0))
-        return load_urdf(CYL_URDF), SimParams(**TINY_SP), None, hf
+        return load_urdf(CYL_URDF), SimParams(**TINY_SP), None, slope_field((-2.0, -2.0))
+    if name == "pair_capsule_terrain":
+        return pair_capsule_scene(load_urdf, compose), SimParams(**PAIR_SP), None, \
+            slope_field(PAIR_TERRAIN_ORIGIN)
     if name == "anymal_terrain":
         task = Anymal(num_envs=B, device="cpu")
         sp = dataclasses.replace(task.sim_params, dt=0.02, substeps=4)
         return task.model, sp, task, TerrainGrid(num_levels=2, num_types=5, seed=0)
     task = {"cartpole": Cartpole, "ant": Ant}[name](num_envs=B, device="cpu")
     return task.model, task.sim_params, task, 0.0
+
+
+def slope_field(origin):
+    """The cylinder-slope case's heightfield at `origin`: a slope with bumps,
+    so the plane depends on where it is sampled."""
+    i, j = np.meshgrid(np.arange(40), np.arange(40), indexing="ij")
+    h = 0.03 * i + 0.02 * j + 0.05 * np.sin(0.9 * i) * np.cos(0.7 * j)
+    return Heightfield(h.astype(np.float32), 0.1, origin=origin)
 
 
 def _ground(ground, device):
@@ -479,7 +498,7 @@ def _inputs(name, model, task, device, ground=None):
     if name == "ball_balance":
         q = ball_balance_q(task, rng, B)
         qd = rng.normal(size=(B, model.nv)) * 0.3
-    elif name == "pair_capsule":
+    elif name in ("pair_capsule", "pair_capsule_terrain"):
         q = pair_capsule_q(rng, B)
         qd = rng.normal(size=(B, model.nv)) * 0.1
     elif name == "allegro_hand":
@@ -574,7 +593,9 @@ def _assert_close(a, b):
 STEPWISE = {"allegro_hand", "shadow_hand", "boxbox_terrain"}
 HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
               "ball_balance", "pair_capsule", "held", "boxbox", "capbox", "spherebox",
-              "allegro_hand", "tendon", "shadow_hand", "boxbox_terrain"]
+              "allegro_hand", "tendon", "shadow_hand", "boxbox_terrain", "pair_capsule_terrain"]
+# the heightfield cases with actor pairs: both the pairs and the ground touched
+PAIR_TERRAIN = {"boxbox_terrain": 2, "pair_capsule_terrain": 1}
 
 
 def _step(model, sp, task, ground, device, need_torque=True):
@@ -605,20 +626,23 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         if name in ("allegro_hand", "shadow_hand"):   # the share of envs whose cube is touched
             rows = rows[:, task.object_body]
         touched = max(touched, float(rows.float().mean()))
-        if name == "boxbox_terrain":
+        if name in PAIR_TERRAIN:
             fr = forward_kinematics(model, qb, qdb)
             pair_touched = max(pair_touched, float((torch.stack([c[5] for c in collide.candidates(
                 model, fr)], -1) > 0).any(-1).float().mean()))
             planes = step.sampler(qb).reshape(B, -1, 3)
             p, _ = fused.contact.candidate_points(model, fr)
             z = planes[..., 0] + planes[..., 1] * p[..., 0] + planes[..., 2] * p[..., 1]
-            ground_touched = max(ground_touched, float((z > p[..., 2] - torch.as_tensor(
-                fused.contact.candidates(model)["r"])).any(-1).float().mean()))
+            cand = fused.contact.candidates(model)
+            # the candidates of the free actors (a fixed one's lie where they lie in every env)
+            free = torch.as_tensor([model.roots_floating[model.actors[b]] for b in cand["body"]])
+            ground_touched = max(ground_touched, float(
+                ((z > p[..., 2] - torch.as_tensor(cand["r"])) & free).any(-1).float().mean()))
     if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
-                "shadow_hand", "boxbox_terrain", *BOX_POSES):
+                "shadow_hand", *PAIR_TERRAIN, *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
-    if name == "boxbox_terrain":                 # the heightfield box instance: ground and pair
-        assert step.hf is not None and step.pair_mode == 2
+    if name in PAIR_TERRAIN:                     # a heightfield pair instance: ground and pair
+        assert step.hf is not None and step.pair_mode == PAIR_TERRAIN[name]
         assert pair_touched > 0.1 and ground_touched > 0.1, (pair_touched, ground_touched)
     if model.tendons:                            # the tendon springs act, not in every env-tendon
         assert (sides > 0.1).all(), sides
@@ -637,9 +661,10 @@ def _bits(outs):
     return [o.contiguous().view(torch.int32) for o in outs]
 
 
-@pytest.mark.parametrize("name", ["ant", "anymal_terrain"])
+@pytest.mark.parametrize("name", ["ant", "anymal_terrain", "ball_balance", "pair_capsule"])
 def test_host_kernel_ragged_block(host_kernel, monkeypatch, name):
-    """The shared instance on the host over 37 distinct envs in blocks of
+    """A shared instance (without pairs, or with the round pairs and
+    attractors) on the host over 37 distinct envs in blocks of
     fused.BLOCK (a full block and a ragged edge): each env within
     test_fused's tolerances of the plain version, and the lane check of the
     host loop clean (``_host_call``). Permuting the envs permutes the outputs
@@ -680,21 +705,24 @@ def chain_model(n_bodies: int):
 
 def test_shared_budget_rule(host_kernel):
     """ops/fused.py shared_bytes, a pure function of the model's counts and
-    the block size: Ant and AnymalTerrain fit in blocks of 32 and not of 128,
-    with the lane words the kernel's own (``lane_words``, odd); a model of
-    HumanoidMJCF's counts (22 bodies, 21 joints, 43 ground candidates) does
-    not fit on either ground and takes the local-memory layout, which
-    matches the plain version."""
-    for name in ("ant", "anymal_terrain"):
+    the block size: Ant, AnymalTerrain and BallBalance (with its pair
+    bodies' sums) fit in blocks of 32 and not of 128, with the lane words
+    the kernel's own (``lane_words``, odd); a model of HumanoidMJCF's counts
+    (22 bodies, 21 joints, 43 ground candidates) does not fit on either
+    ground and takes the local-memory layout, which matches the plain
+    version."""
+    for name in ("ant", "anymal_terrain", "ball_balance"):
         model, sp, task, ground = _model(name)
         step = _step(model, sp, task, ground, "cpu")
         hf, rows, (mi, mf) = step.hf is not None, step.rows["total"], step._tables
         counts = (model.nb, model.nj, model.nq, model.nv, step._nc)
-        words = fused.sweep_lane_words(*counts, heightfield=hf, rows=rows)
-        assert words % 2 == 1 and words == host_kernel.host_lane_words(*counts, int(hf), rows)
-        kw = dict(heightfield=hf, rows=rows, tables=len(mi) + len(mf))
-        assert fused.shared_bytes(*counts, 32, **kw) == step.smem_bytes == 4 * (
-            len(mi) + len(mf) + 32 * words)
+        npb = len(fused.pair_bodies(model)) if step.pair_mode == 1 else 0
+        assert (name == "ball_balance") == (npb > 0)
+        words = fused.sweep_lane_words(*counts, heightfield=hf, rows=rows, pair_bodies=npb)
+        assert words % 2 == 1 and words == host_kernel.host_lane_words(*counts, int(hf), rows, npb)
+        tables = 0 if npb else len(mi) + len(mf)       # the pair instance reads them from device memory
+        kw = dict(heightfield=hf, rows=rows, tables=tables, pair_bodies=npb)
+        assert fused.shared_bytes(*counts, 32, **kw) == step.smem_bytes == 4 * (tables + 32 * words)
         assert 0 < step.smem_bytes <= fused.SMEM_BUDGET
         assert fused.shared_bytes(*counts, 128, **kw) == 0
     model = chain_model(22)
@@ -784,14 +812,16 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
     assert step.launches == 5
 
 
-def test_cuda_refused_shared_memory_raises(cuda_device, monkeypatch):
+@pytest.mark.parametrize("name", ["anymal_terrain", "ball_balance"])
+def test_cuda_refused_shared_memory_raises(cuda_device, monkeypatch, name):
     """A block asking for more dynamic shared memory than the card gives
-    (the budget lifted, AnymalTerrain in blocks of 64: about 450 KB) is
-    refused by cudaFuncSetAttribute, and FusedStep.launch raises; nothing
-    runs, and the next launch within the budget succeeds."""
-    model, sp, task, ground = _model("anymal_terrain")
+    (the budget lifted, in blocks of 64: AnymalTerrain about 450 KB,
+    BallBalance's pair instance about 310 KB) is refused by
+    cudaFuncSetAttribute, and FusedStep.launch raises; nothing runs, and the
+    next launch within the budget succeeds."""
+    model, sp, task, ground = _model(name)
     step = _step(model, sp, task, ground, cuda_device)
-    params, q, qd, ctrl, w = _inputs("anymal_terrain", model, task, cuda_device, ground)
+    params, q, qd, ctrl, w = _inputs(name, model, task, cuda_device, ground)
     packed = step.pack(params, q, qd, ctrl, w)
     budget = fused.SMEM_BUDGET
     monkeypatch.setattr(fused, "SMEM_BUDGET", 1 << 22)

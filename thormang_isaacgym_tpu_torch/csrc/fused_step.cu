@@ -48,10 +48,11 @@
 // are the template parameters kPA (pairs and attractors) and kBX (the box
 // kinds): the instances without them are the flat and heightfield kernels
 // (in the local layout 167 and 239 registers, 20,864- and 22,400-byte stacks
-// on sm_90a; see Design); the flat instance with pairs uses 249 registers and
-// a 24,320-byte stack, the box
-// instance 254 registers and a 24,640-byte stack (ptxas -v, CUDA 12.8): the
-// per-pair-body sums for up to 32 pair bodies take 3.5 kB of it.
+// on sm_90a; see Design); the flat instance with pairs uses, in the local
+// layout, 249 registers and a 24,320-byte stack, the box instance 254
+// registers and a 24,640-byte stack (ptxas -v, CUDA 12.8): the per-pair-body
+// sums for up to 32 pair bodies take 3.5 kB of it. In the shared layout the
+// pair instance keeps the sums of its own pair bodies in the env's slice.
 //
 // Heightfield ground (B7). The TPU kernel reads, per contact candidate, a
 // local ground plane z = c + gx x + gy y that a separate sampler computed at
@@ -88,39 +89,46 @@
 // per-env arrays are bounded by the compile-time caps below (bodies, roots);
 // the wrapper raises above them, and only the first nb entries of each array
 // are touched. Two layouts share the code (template parameter kSM):
-// - The pair and box instances, and a model without pairs whose slice (below)
-//   exceeds the block's shared memory: blocks of 128 threads (the flat and
-//   heightfield ones 32), the sweep state in per-thread local memory, the
-//   per-env rows read from the input slab in every substep.
-// - The shared instances (flat and heightfield ground without pairs: Ant,
-//   Anymal, AnymalTerrain, Cartpole): blocks of 32 threads, so 4096 envs are
-//   128 blocks, one warp on each of 128 of the H100's 132 SMs (blocks of 128
-//   put 4 warps on 32 SMs and left 100 idle). Each block's dynamic shared
-//   buffer (sized at launch by ops/fused.py shared_bytes, at most 227 KB)
-//   holds the model's two tables, copied once by the block, then one slice per
-//   env: its input rows, staged once per launch by cp.async and read by every
-//   substep; q, qd and the per-body and per-joint arrays the three tree sweeps
-//   walk (v, cb, pA, world poses, the 21-float articulated inertias, joint
-//   rotations, U, D^-1, ...); the heightfield's candidate planes; and what the
-//   ground contact's first pass computes for each candidate (point, radius,
-//   depth, normal), which the second pass reads instead of recomputing. An
+// - The box instance, and a model without the box kinds whose slice (below)
+//   exceeds the block's shared memory: the sweep state in per-thread local
+//   memory, the per-env rows read from the input slab in every substep, in
+//   blocks of 128 threads (the box instance) or 32.
+// - The shared instances (flat and heightfield ground, without pairs or with
+//   the round pairs and attractors: Ant, Anymal, AnymalTerrain, Cartpole,
+//   BallBalance): blocks of 32 threads, so 4096 envs are 128 blocks, one
+//   warp on each of 128 of the H100's 132 SMs (blocks of 128 put 4 warps on
+//   32 SMs and left 100 idle). Each block's dynamic shared buffer (sized at
+//   launch by ops/fused.py shared_bytes, at most 227 KB) holds, without
+//   pairs, the model's two tables, copied once by the block, then one slice
+//   per env: its input rows, staged once per launch by cp.async and read by
+//   every substep; q, qd and the per-body and per-joint arrays the three
+//   tree sweeps walk (v, cb, pA, world poses, the 21-float articulated
+//   inertias, joint rotations, U, D^-1, ...); the heightfield's candidate
+//   planes; what the ground contact's first pass computes for each candidate
+//   (point, radius, depth, normal), which the second pass reads instead of
+//   recomputing; and with pairs, each pair body's wrench and added-inertia
+//   sums (27 words). The pair instance reads its tables from device memory:
+//   their copy's __syncthreads held ptxas to 168 registers with spills (239
+//   without it), and BallBalance ran 4 % slower with them. An
 //   env's words are consecutive, so the kernel's structs keep their
 //   references and every offset inside a slice is an immediate, and the
 //   slice's length is odd, so the 32 lanes reading word w of their slices
 //   hit 32 different banks. A thread touches only its own slice. Like the box
-//   instance, a shared instance skips, warp by warp, the force of a ground
-//   candidate out of contact in every env of the warp (exact: it adds +0 or
-//   -0 to sums that start at +0), and keeps every thread of a ragged block
-//   alive (the vote and the table copy need them). AnymalTerrain takes
-//   225,584 bytes a block (1,745 words an env), Ant 147,368; HumanoidMJCF's
-//   22 bodies and about 806 input rows would take about 360 kB, so it takes
-//   the local layout. The shared instances use 166 registers and a 496-byte
+//   instance, a shared instance skips, warp by warp, the force of a ground or
+//   pair candidate out of contact in every env of the warp (exact: it adds
+//   +0 or -0 to sums that start at +0), and keeps every thread of a ragged
+//   block alive (the vote and the table copy need them). AnymalTerrain takes
+//   225,584 bytes a block (1,745 words an env), Ant 147,368, BallBalance
+//   153,984 (1,203 words, 8 pair bodies); HumanoidMJCF's 22 bodies and about
+//   806 input rows would take about 360 kB, so it takes the local layout.
+//   The shared instances use 166 registers (with pairs 239) and a 496-byte
 //   stack, which the first launch finds already reserved; the local ones 167
-//   (flat) and 239 (heightfield) and 20,864 and 22,400 bytes, for which the
-//   first launch reserves 5.4 and 5.8 GB of device memory.
+//   (flat), 239 (heightfield) and 249 (pairs) and 20,864, 22,400 and 24,320
+//   bytes, for which the first launch reserves 5.4, 5.8 and 6.3 GB of device
+//   memory.
 // The arithmetic is the same in both layouts and the outputs equal the
 // previous one-layout kernel's bit for bit (measured over 4096 envs of Ant,
-// Anymal and AnymalTerrain).
+// Anymal, AnymalTerrain, BallBalance and the pair-capsule scene).
 //
 // What bounds it. Per env and control step the kernel reads R rows and writes
 // out_rows rows once (Ant: 330 input + 56 output rows of 4 bytes), so at 4096
@@ -139,18 +147,21 @@
 // operations too: 67 us for 4.5 GFLOP. No bound is close. Measured on an
 // H100 80GB HBM3 at 700 W, ms per control step: AnymalTerrain 0.196-0.197
 // (0.369-0.375 in the local layout, blocks of 128), Ant 0.071 (0.120-0.121),
-// Anymal 0.082 (0.162), BallBalance 0.098, AllegroHand 0.79, ShadowHand
-// 1.10. What bounds the shared instances is the latency of one warp's
-// instruction stream: their 128
+// Anymal 0.082 (0.162), BallBalance 0.043 (0.099), the pair-capsule scene
+// 0.046 (0.074), AllegroHand 0.79, ShadowHand 1.10. What bounds the shared
+// instances is the latency of one warp's instruction stream: their 128
 // warps are all resident at once, one to an SM, so the kernel takes as long
 // as one warp, which issues each env's dependent operations one after
 // another with no other warp on its SM to hide a latency. Every step that
-// took a load off that chain gained: the SM's L1 to one warp (16 % and 15 %
-// for AnymalTerrain and Ant), the sweep state in shared memory (12 %, 1-4
-// %), the skipped ground forces (13 %, 10 %), the staged rows (8 %, 15 %)
-// and tables (6 %, 4 %), the kept candidate state (4 %, 2 %). Now the ground
-// contact is 0.069 ms of AnymalTerrain's 0.196 and 0.023 of Ant's 0.071,
-// the tree sweeps, drives and Euler the rest, 36x and 38x their bound. What
+// took a load off that chain gained: the SM's L1 to one warp (16 %, 15 % and
+// 28 % for AnymalTerrain, Ant and BallBalance), the sweep state in shared
+// memory (12 %, 1-4 %, 9 %), the skipped ground (and pair) forces (13 %,
+// 10 %, 25 %), the staged rows (8 %, 15 %, 12 %) and tables (6 %, 4 %; the
+// pair instance lost 4 %), the kept candidate state (4 %, 2 %). Now the
+// ground contact is 0.069 ms of AnymalTerrain's 0.196, 0.023 of Ant's 0.071
+// and 0.006 of BallBalance's 0.043 (its pairs another 0.006), the tree
+// sweeps, drives, attractors and Euler the rest, 36x, 38x and 24x their
+// bound. What
 // it leaves on the table: splitting an env's tree across the lanes of a
 // warp, so that more than one instruction stream per env runs at once, and
 // fusing the packing of the input slab into the kernel.
@@ -667,13 +678,14 @@ __device__ void box_box(V3 pa, Q4 qa, const float* ha, V3 pb, Q4 qb, const float
 // IA, n_active; per joint Rl, pl, U, invD, uj, tau, diag, quat_l, qdd; per
 // ground candidate the heightfield's plane, then what the contact's first
 // pass keeps for the second (point, radius, depth; over a heightfield also
-// the normal). The count is made odd, so for any word w the 32 lanes of a
-// warp hit 32 different banks (ops/fused.py sweep_lane_words is the same
-// function).
+// the normal); in the pair instance, per pair body its wrench and added
+// inertia sums (npb: 0 in the instances without pairs). The count is made
+// odd, so for any word w the 32 lanes of a warp hit 32 different banks
+// (ops/fused.py sweep_lane_words is the same function).
 __host__ __device__ __forceinline__ int lane_words(int nb, int nj, int nq, int nv, int nc, bool hf,
-                                                    int rows) {
+                                                    int rows, int npb) {
   return (rows + nq + nv + nb * (3 * 6 + 4 + 3 * 3 + 21 + 1) + nj * (9 + 3 + 6 + 4 + 4 + 1) +
-          nc * (hf ? 3 + 8 : 5)) | 1;
+          nc * (hf ? 3 + 8 : 5) + npb * (6 + 21)) | 1;
 }
 // dst[r] = src[r B] for r < n, by asynchronous copies (cp.async) into
 // shared memory, waited for by the calling thread alone
@@ -703,19 +715,20 @@ __device__ __forceinline__ auto as_array(T* p) -> T (&)[N] {
 
 // kHF: heightfield ground (the launcher picks it when it is given a table);
 // kPA: actor pairs and attractors, kBX: with the box kinds of the pair
-// narrowphase (the launcher picks both on the wrapper's flag); kSM (only
-// without pairs): the sweep state in dynamic shared memory, else in
+// narrowphase (the launcher picks both on the wrapper's flag); kSM (not with
+// the box kinds): the sweep state in dynamic shared memory, else in
 // per-thread local memory
 template <bool kHF, bool kPA, bool kBX, bool kSM>
 __global__ void __launch_bounds__(128)
 fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
                   const float* __restrict__ hf, const float* __restrict__ in,
                   float* __restrict__ out, int B) {
-  // the box and shared instances skip, warp by warp, the force of a ground
-  // candidate out of contact in every env of the warp (__any_sync), and the
-  // shared instances fill their tables with the whole block (__syncthreads),
-  // so none of their threads leaves early: a thread past the ragged edge
-  // runs the last env again and writes nothing
+  static_assert(!(kBX && kSM), "the box instance has the local layout only");
+  // the box and shared instances skip, warp by warp, the force of a ground or
+  // pair candidate out of contact in every env of the warp (__any_sync), and
+  // the shared instances without pairs fill their tables with the whole
+  // block (__syncthreads), so none of their threads leaves early: a thread
+  // past the ragged edge runs the last env again and writes nothing
   constexpr bool kVote = kBX || kSM;
   const int b_thread = blockIdx.x * blockDim.x + threadIdx.x;
   if (!kVote && b_thread >= B) return;
@@ -735,13 +748,16 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
     int* dst = reinterpret_cast<int*>(&rw);
     for (int k = 0; k < 27; ++k) dst[k] = mi[10 + k];
   }
-  // shared instances: the model's two tables (header ints 44-45: their
-  // lengths) copied once per block to the front of the shared buffer; every
-  // thread reads them at the same address
-  const int n_mi = kSM ? mi[44] : 0, n_mf = kSM ? mi[45] : 0;
+  // shared instances without pairs: the model's two tables (header ints
+  // 44-45: their lengths) copied once per block to the front of the shared
+  // buffer; every thread reads them at the same address. The pair instance
+  // reads them from device memory (its copy's barrier cost registers: see
+  // Design).
+  constexpr bool kTables = kSM && !kPA;
+  const int n_mi = kTables ? mi[44] : 0, n_mf = kTables ? mi[45] : 0;
   const int* mi_t = mi;
   const float* mf_t = mf;
-  if (kSM) {
+  if (kTables) {
     int* ti = reinterpret_cast<int*>(sweep_smem);
     float* tf = sweep_smem + n_mi;
 #ifdef __CUDA_ARCH__
@@ -793,7 +809,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   // else the rows are read from the input slab in every substep and the
   // sweep state is per-thread local arrays
   float* sp = kSM ? sweep_smem + n_mi + n_mf +
-                        threadIdx.x * lane_words(nb, nj, nq, nv, nc, kHF, rw.total)
+                        threadIdx.x * lane_words(nb, nj, nq, nv, nc, kHF, rw.total,
+                                                 kPA ? n_pair_bodies : 0)
                   : nullptr;
   float* const rows_s = kSM ? carve<1, float>(sp, rw.total) : nullptr;
   if (kSM) stage_rows(rows_s, in + b, rw.total, B);
@@ -842,8 +859,11 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   constexpr int kCandKept = kHF ? 8 : 5;  // per candidate: point, radius, depth (, normal)
   float* const cand_kept = kSM ? carve<kMaxCands * kCandKept, float>(sp, kCandKept * nc) : nullptr;
   // pair mode, per pair body: the pair wrench [torque, force] and added inertia
-  S6 pacc[kPA ? kMaxPairBodies : 1];
-  SymI dacc[kPA ? kMaxPairBodies : 1];
+  constexpr int kPB = kPA ? kMaxPairBodies : 1;
+  S6 pacc_l[kPB];
+  SymI dacc_l[kPB];
+  S6 (&pacc)[kPB] = kSM ? carve<kPB, S6>(sp, kPA ? n_pair_bodies : 0) : pacc_l;
+  SymI (&dacc)[kPB] = kSM ? carve<kPB, SymI>(sp, kPA ? n_pair_bodies : 0) : dacc_l;
 
   for (int step = 0; step < n_steps; ++step) {
     const float* jq = q + 7 * nf;
@@ -1030,10 +1050,10 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       // at once: the explicit force into pacc, the implicit reaction into dacc
       int ga = 0, gb = 0, ba = 0, bb = 0;
       auto contact = [&](V3 n, float depth, V3 cp) {
-        // box instance: a candidate out of contact in every env of the warp
-        // adds exact zeros to sums that start at +0, so it is skipped (a NaN
-        // depth runs, as it does without the skip)
-        if (kBX && !__any_sync(kFullWarp, !(depth <= 0.0f))) return;
+        // box and shared instances: a candidate out of contact in every env
+        // of the warp adds exact zeros to sums that start at +0, so it is
+        // skipped (a NaN depth runs, as it does without the skip)
+        if (kVote && !__any_sync(kFullWarp, !(depth <= 0.0f))) return;
         const bool active = depth > 0.0f;
         const float act = active ? 1.0f : 0.0f;
         const V3 arm_a = sub(cp, pos_w[ba]), arm_b = sub(cp, pos_w[bb]);
@@ -1375,17 +1395,17 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 // table in heightfield mode, else null; `pairs` picks the instance: 0
 // without the actor-pair and attractor blocks, 1 with them (the round
 // kinds), 2 with the box kinds too. `threads` is the block size; `smem`,
-// without pairs only, the dynamic shared bytes of the block's sweep state
-// (threads x lane_words x 4, ops/fused.py shared_bytes), or 0 for the
-// local-memory layout.
-template <bool kHF, bool kSM>
-int launch_no_pairs(const int* mi, const float* mf, const float* hf, const float* in, float* out,
-                    int B, int blocks, int threads, int smem, cudaStream_t s) {
+// without the box kinds only, the dynamic shared bytes of the block's sweep
+// state (ops/fused.py shared_bytes: without pairs the tables, and threads x
+// lane_words words), or 0 for the local-memory layout.
+template <bool kHF, bool kPA, bool kBX, bool kSM>
+int launch(const int* mi, const float* mf, const float* hf, const float* in, float* out, int B,
+           int blocks, int threads, int smem, cudaStream_t s) {
   if constexpr (kSM) {
     // the attribute is raised once per instance, to the most a block may use
     static int max_smem = 0;
     if (smem > max_smem) {
-      const cudaError_t e = cudaFuncSetAttribute(fused_step_kernel<kHF, false, false, kSM>,
+      const cudaError_t e = cudaFuncSetAttribute(fused_step_kernel<kHF, kPA, kBX, kSM>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) {
         cudaGetLastError();  // returned here, so it does not fail the next launch
@@ -1394,39 +1414,33 @@ int launch_no_pairs(const int* mi, const float* mf, const float* hf, const float
       max_smem = smem;
     }
   }
-  fused_step_kernel<kHF, false, false, kSM><<<blocks, threads, smem, s>>>(mi, mf, hf, in, out, B);
+  fused_step_kernel<kHF, kPA, kBX, kSM><<<blocks, threads, smem, s>>>(mi, mf, hf, in, out, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instances of one ground: without pairs or with the round kinds, in the
+// shared or the local layout, or with the box kinds (local only)
+template <bool kHF>
+int launch_ground(const int* mi, const float* mf, const float* hf, const float* in, float* out,
+                  int B, int pairs, int blocks, int threads, int smem, cudaStream_t s) {
+  if (pairs == 2) return launch<kHF, true, true, false>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
+  if (pairs == 1)
+    return smem ? launch<kHF, true, false, true>(mi, mf, hf, in, out, B, blocks, threads, smem, s)
+                : launch<kHF, true, false, false>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
+  return smem ? launch<kHF, false, false, true>(mi, mf, hf, in, out, B, blocks, threads, smem, s)
+              : launch<kHF, false, false, false>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
 }
 
 extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
                                  const void* in, void* out, int B, int pairs, int threads,
                                  int smem, void* stream) {
   if (B <= 0) return 0;
-  if (threads <= 0 || (pairs != 0 && smem != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (threads <= 0 || pairs < 0 || pairs > 2 || (pairs == 2 && smem != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + threads - 1) / threads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* mi_ = static_cast<const int*>(mi);
-  const float* mf_ = static_cast<const float*>(mf);
-  const float* hf_ = static_cast<const float*>(hf);
-  const float* in_ = static_cast<const float*>(in);
-  float* out_ = static_cast<float*>(out);
-  if (pairs == 0) {
-    if (hf_)
-      return smem ? launch_no_pairs<true, true>(mi_, mf_, hf_, in_, out_, B, blocks, threads, smem, s)
-                  : launch_no_pairs<true, false>(mi_, mf_, hf_, in_, out_, B, blocks, threads, 0, s);
-    return smem ? launch_no_pairs<false, true>(mi_, mf_, hf_, in_, out_, B, blocks, threads, smem, s)
-                : launch_no_pairs<false, false>(mi_, mf_, hf_, in_, out_, B, blocks, threads, 0, s);
-  }
-  if (hf_) {
-    if (pairs == 2)
-      fused_step_kernel<true, true, true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
-    else
-      fused_step_kernel<true, true, false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
-  } else {
-    if (pairs == 2)
-      fused_step_kernel<false, true, true, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
-    else
-      fused_step_kernel<false, true, false, false><<<blocks, threads, 0, s>>>(mi_, mf_, hf_, in_, out_, B);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const auto launch_on = hf ? launch_ground<true> : launch_ground<false>;
+  return launch_on(static_cast<const int*>(mi), static_cast<const float*>(mf),
+                   static_cast<const float*>(hf), static_cast<const float*>(in),
+                   static_cast<float*>(out), B, pairs, blocks, threads, smem,
+                   static_cast<cudaStream_t>(stream));
 }

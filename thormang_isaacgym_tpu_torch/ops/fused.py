@@ -34,10 +34,11 @@ for all substeps, as the TPU kernel holds the plane rows that
 structure: :func:`ground_plane_sampler` makes the (B, 3C) plane rows and the
 op path reads them.
 
-Without pairs, the kernel keeps each env's input rows and sweep state in
-the block's dynamic shared memory, in blocks of ``BLOCK`` envs, where the
-budget rule ``shared_bytes`` finds room; otherwise, and in the pair
-instances, the sweep state is per-thread local memory.
+Without the box kinds, the kernel keeps each env's input rows and sweep
+state (with pairs, also the pair bodies' sums) in the block's dynamic shared
+memory, in blocks of ``BLOCK`` envs, where the budget rule ``shared_bytes``
+finds room; otherwise, and in the box instance, the sweep state is
+per-thread local memory.
 
 The kernel is built at first use with ``nvcc`` alone (no PyTorch headers)
 into ``thormang_isaacgym_tpu_torch/_build/`` and loaded with ``ctypes``. For
@@ -87,9 +88,9 @@ MAX_ATTRACTORS = 64
 # the box instance's pair cull (csrc/fused_step.cu kCullMargin, kCullRel)
 CULL_MARGIN = 1e-3
 CULL_REL = 1e-5
-# launch geometry, one thread per env: the flat and heightfield instances
+# launch geometry, one thread per env: the instances without the box kinds
 # in blocks of BLOCK threads (4096 envs: 128 blocks, one on each of 128 of
-# the H100's 132 SMs), the pair and box instances in blocks of PAIR_BLOCK
+# the H100's 132 SMs), the box instance in blocks of PAIR_BLOCK
 BLOCK = 32
 PAIR_BLOCK = 128
 # the dynamic shared memory a block may use on sm_90 (227 KB)
@@ -158,28 +159,31 @@ def load_library() -> ctypes.CDLL:
 
 
 def sweep_lane_words(nb: int, nj: int, nq: int, nv: int, nc: int, *,
-                     heightfield: bool = False, rows: int = 0) -> int:
-    """Words of one env's slice of the flat and heightfield instances'
-    shared buffer (csrc/fused_step.cu ``lane_words``): its `rows` input rows;
-    q, qd; 53 per body (v, cb, pA, quat_w, pos_w, net_f, net_t, IA,
-    n_active); 27 per joint (Rl, pl, U, invD, uj, tau, diag, quat_l, qdd);
-    per ground candidate 5 (point, radius, depth), over a heightfield 11
-    (also the normal and the plane). Odd, so a warp's 32 lanes hit 32
+                     heightfield: bool = False, rows: int = 0, pair_bodies: int = 0) -> int:
+    """Words of one env's slice of the shared instances' buffer
+    (csrc/fused_step.cu ``lane_words``): its `rows` input rows; q, qd; 53
+    per body (v, cb, pA, quat_w, pos_w, net_f, net_t, IA, n_active); 27 per
+    joint (Rl, pl, U, invD, uj, tau, diag, quat_l, qdd); per ground
+    candidate 5 (point, radius, depth), over a heightfield 11 (also the
+    normal and the plane); 27 per pair body (its wrench and added-inertia
+    sums; the round-pair instance only). Odd, so a warp's 32 lanes hit 32
     different banks for any word."""
-    return (rows + nq + nv + 53 * nb + 27 * nj + (11 if heightfield else 5) * nc) | 1
+    return (rows + nq + nv + 53 * nb + 27 * nj + (11 if heightfield else 5) * nc
+            + 27 * pair_bodies) | 1
 
 
 def shared_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
-                 heightfield: bool = False, rows: int = 0, tables: int = 0) -> int:
-    """The budget rule of the flat and heightfield instances: the dynamic
+                 heightfield: bool = False, rows: int = 0, tables: int = 0,
+                 pair_bodies: int = 0) -> int:
+    """The budget rule of the instances without the box kinds: the dynamic
     shared bytes of a block of `block` envs, the model's two tables
-    (`tables` words, once per block) and each env's slice
+    (`tables` words, once per block; without pairs only) and each env's slice
     (``sweep_lane_words``); or 0 when that exceeds SMEM_BUDGET, and the
     model takes the local-memory layout (the same arithmetic, the sweep
     state in per-thread local memory, the rows and tables read from device
     memory)."""
     n = 4 * (tables + block * sweep_lane_words(nb, nj, nq, nv, nc, heightfield=heightfield,
-                                                rows=rows))
+                                                rows=rows, pair_bodies=pair_bodies))
     return n if n <= SMEM_BUDGET else 0
 
 
@@ -399,7 +403,7 @@ class FusedStep:
     kernel instance: 0 without pairs and attractors, 1 with them, 2 with a
     pair of a box kind. ``block`` is the launch's block size;
     ``smem_bytes`` the dynamic shared memory of a block (``shared_bytes``;
-    0 in the pair modes and for a model over the budget)."""
+    0 in the box mode and for a model over the budget)."""
 
     def __init__(self, model: RobotModel, sim_params: SimParams, *,
                  ground=0.0, attractors=None, need_torque=True):
@@ -413,8 +417,9 @@ class FusedStep:
         self.pair_mode = 2 if collide.has_box_pairs(model) else \
             int(collide.has_pairs(model) or bool(self.attractors))
         self.hf = ground if isinstance(ground, Heightfield) else None
-        self.block = PAIR_BLOCK if self.pair_mode else BLOCK
+        self.block = PAIR_BLOCK if self.pair_mode == 2 else BLOCK
         self._nc = len(contact.candidates(model)["geom"])
+        self._npb = len(pair_bodies(model)) if self.pair_mode == 1 else 0
         self.tq_bodies = norm_torque_bodies(need_torque, model.nb)
         self.rows = make_rows(model)
         self.out_rows = model.nq + model.nv + 3 * model.nb + 3 * len(self.tq_bodies)
@@ -428,13 +433,15 @@ class FusedStep:
 
     @property
     def smem_bytes(self) -> int:
-        if self.pair_mode:
+        if self.pair_mode == 2:
             return 0
         m = self.model
         mi, mf = self._tables
+        # the pair instance keeps its tables in device memory
         return shared_bytes(m.nb, m.nj, m.nq, m.nv, self._nc, self.block,
                             heightfield=self.hf is not None, rows=self.rows["total"],
-                            tables=len(mi) + len(mf))
+                            tables=0 if self.pair_mode else len(mi) + len(mf),
+                            pair_bodies=self._npb)
 
     def _on(self, dev):
         """(int table, float table, torque-body index) on `dev`, built once:
