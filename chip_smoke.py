@@ -10,7 +10,10 @@ Phases, one line each (any failure raises and exits non-zero):
     registers and spills as ptxas reports them).
  2. compare: the fused kernel against its plain PyTorch version on the card,
     at 4096 envs (the hands 16384) from seeded numpy states, 1 and 5
-    control steps: Cartpole and Ant (flat ground), the two-link tendon scene
+    control steps: Cartpole and Ant (flat ground), HumanoidMJCF (flat ground
+    in the local-memory layout: over the shared budget; its first launch
+    also measures the stack the CUDA runtime reserves for it, before any
+    other local instance has run), the two-link tendon scene
     of tests/test_fused.py (block B4b: its coupled length below, inside and
     above its bounds), AnymalTerrain
     (heightfield mode, bases placed on the terrain grid), BallBalance (pair
@@ -22,31 +25,41 @@ Phases, one line each (any failure raises and exits non-zero):
     pressed into the palm's edge) and ShadowHand (the same, with its four
     tendons on either side of their bounds); max abs error of q, qd and net against
     TOL, beside the largest |value| of each and the share of non-zero net
-    rows (AnymalTerrain also: the share of active contact candidates, the
+    rows, the layout (shared or local) and the launch's dynamic shared
+    bytes (AnymalTerrain also: the share of active contact candidates, the
     share of those on sloped cells, the largest |gx x| of a ground plane; the
     pair and box scenes: the share of active pair candidates, per kind in the
     box mode with the envs whose box-box edge-edge candidate is active, and
     the largest |dIA| entry; the tendon scenes: the share of env-tendons
     below and above their bounds).
- 3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain and
-    BallBalance at 4096 envs and AllegroHand and ShadowHand at 16384 (CUDA
+ 3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain,
+    BallBalance and HumanoidMJCF at 4096 envs and AllegroHand and ShadowHand
+    at 16384 (CUDA
     events after warm-up, ms per control step) beside the kernel's bound,
     with the launch's block size and dynamic shared bytes and ptxas'
     registers and stack of the instance; BallBalance and the hands also the
     share of pair candidates in contact, per env and per warp of 32, the
     hands also of the pairs that pass the box instance's cull
     (``cull_stats``); ShadowHand also the tendon block's own time (the
-    tendon loop cut out) beside its bound.
+    tendon loop cut out) beside its bound; HumanoidMJCF also the stack bytes
+    its first launch reserved (phase 2).
  4. train: make(task, cfg=cfg/task/<task>.yaml) at the YAML's numEnvs,
     PPO(PPOConfig.from_rlgames(cfg/train/<task>PPO.yaml)), 3
     train_iterations, for Ant (4096 envs, 3 x 16 kernel launches),
     AnymalTerrain (4096, 3 x 24), BallBalance (4096, 3 x 16), AllegroHand
-    (16384, 3 x 8 x 2) and ShadowHand (16384, 3 x 8 x 1); every metric
-    finite, obs finite of shape (envs, num_obs).
+    (16384, 3 x 8 x 2), ShadowHand (16384, 3 x 8 x 1) and HumanoidMJCF
+    (cfg/task/Humanoid.yaml and cfg/train/HumanoidPPO.yaml: 4096, 3 x 32);
+    every metric finite, obs finite of shape (envs, num_obs).
+ 5. cli: the training CLI in a subprocess, ``python3 -m
+    thormang_isaacgym_tpu_torch.runtime.train task=HumanoidMJCF
+    train=HumanoidPPO num_envs=4096 max_iterations=2`` into a temporary
+    output root, then ``test=true test_episodes=1`` on its last.ckpt; both
+    exit 0, metrics.jsonl holds a finite reward_mean and the play line a
+    finite play_mean_return.
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
-box modes, and its tendon block, timed on ShadowHand, with the block's own
-time and bound beside the instance's) and, last, the {"ok": true,
-"device": ...} line.
+box modes, its tendon block, timed on ShadowHand, with the block's own
+time and bound beside the instance's, and the flat mode's local-memory
+layout, on HumanoidMJCF) and, last, the {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -55,6 +68,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -138,6 +152,11 @@ ALSO_REPLACES = dict(pairs=["thormang_isaacgym_tpu/ops/fused.py:1323"],
                             "thormang_isaacgym_tpu/ops/fused.py:597",
                             "thormang_isaacgym_tpu/ops/fused.py:1235",
                             "thormang_isaacgym_tpu/ops/fused.py:1323"])
+REPLACES["flat_local"] = REPLACES["flat"]
+# the compare case whose first launch measures the local layout's stack
+# reservation: it runs before any other local-memory instance (Cartpole and
+# Ant take the shared layout)
+FIRST_LOCAL = "HumanoidMJCF"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -175,9 +194,9 @@ def phase_build() -> fused.BuildInfo:
 def _task(name: str, device):
     """The port's task at its width (ENVS, else B) with its cfg/task YAML's
     sim block."""
-    from thormang_isaacgym_tpu_torch.tasks import apply_cfg_sim, get_task_class
+    from thormang_isaacgym_tpu_torch.tasks import apply_cfg_sim, cfg_name, get_task_class
     task = get_task_class(name)(num_envs=ENVS.get(name, B), device=device)
-    with open(os.path.join(ROOT, "cfg", "task", f"{name}.yaml")) as f:
+    with open(os.path.join(ROOT, "cfg", "task", f"{cfg_name(name)}.yaml")) as f:
         apply_cfg_sim(task, yaml.safe_load(f)["sim"])
     return task
 
@@ -539,10 +558,26 @@ def pair_stats(step, params, q, qd) -> dict:
     return out
 
 
-def phase_compare(device) -> dict:
-    """Worst error of each kernel mode: {"flat": x, "heightfield": y,
-    "pairs": z, "boxes": w, "tendons": v}; a case whose model has tendons
-    counts for its mode and for "tendons".
+def first_launch_bytes(step, packed) -> int:
+    """Device memory that `step`'s first launch takes (torch.cuda.mem_get_info
+    before and after): the local memory the CUDA runtime reserves for the
+    per-thread stack frames. The output's block is allocated and freed
+    first, so the launch's own torch.empty reuses it."""
+    buf = torch.empty(step.out_rows, packed.shape[1], device=packed.device)
+    del buf
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    step.launch(packed)
+    torch.cuda.synchronize()
+    return free0 - torch.cuda.mem_get_info()[0]
+
+
+def phase_compare(device):
+    """Worst error of each kernel mode, {"flat": x, "flat_local": u,
+    "heightfield": y, "pairs": z, "boxes": w, "tendons": v}, and the stack
+    bytes of FIRST_LOCAL's first launch; a case whose model has tendons
+    counts for its mode and for "tendons", a flat case over the shared
+    budget (HumanoidMJCF) for "flat_local", with the flat mode's TOL.
 
     Cartpole, Ant, the two-link tendon scene, BallBalance and the capsule-box
     and sphere-box scenes are held against the plain version after 1 and 5
@@ -565,9 +600,11 @@ def phase_compare(device) -> dict:
     and edge-edge) must be in contact somewhere. Each tendon scene must have
     env-tendons below and above their bounds, and inside."""
     rng = np.random.default_rng(SEED)
-    worst = dict(flat=0.0, heightfield=0.0, pairs=0.0, boxes=0.0, tendons=0.0)
+    worst = dict(flat=0.0, flat_local=0.0, heightfield=0.0, pairs=0.0, boxes=0.0, tendons=0.0)
     box_active = {}
-    for name in ("Cartpole", "Ant", "AnymalTerrain", "BallBalance", "PairCapsule",
+    stack_bytes = None
+    local_launched = False
+    for name in ("Cartpole", "Ant", "HumanoidMJCF", "AnymalTerrain", "BallBalance", "PairCapsule",
                  "BoxBox", "CapBox", "SphereBox", "AllegroHand", "ShadowHand", "Tendon"):
         if name == "PairCapsule":
             task = PairCapsule()
@@ -587,6 +624,8 @@ def phase_compare(device) -> dict:
                                          need_torque=True)
         mode = "heightfield" if step.hf is not None else \
             ("flat", "pairs", "boxes")[step.pair_mode]
+        entry = "flat_local" if mode == "flat" and step.smem_bytes == 0 else mode
+        layout = "shared" if step.smem_bytes else "local"
         if mode == "boxes" and step.n_steps != 1:
             raise AssertionError("the box mode's tie analysis takes one substep per launch")
         if name == "PairCapsule":
@@ -595,9 +634,18 @@ def phase_compare(device) -> dict:
             params, q0, qd0, ctrl, wrench = tendon_inputs(task.model, rng, device)
         elif isinstance(task, BoxPair):
             params, q0, qd0, ctrl, wrench = box_pair_inputs(task, rng, device)
+        elif name == FIRST_LOCAL:
+            # its own stream, so the other cases keep the inputs they had
+            params, q0, qd0, ctrl, wrench = random_inputs(
+                task, np.random.default_rng(SEED + 2), device)
         else:
             params, q0, qd0, ctrl, wrench = random_inputs(task, rng, device)
         envs = q0.shape[0]
+        if name == FIRST_LOCAL:
+            if local_launched or layout != "local":
+                raise AssertionError(f"{name}'s first launch is not the first of a local instance")
+            stack_bytes = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
+        local_launched |= layout == "local"
         extra = ground_stats(step, q0) if mode == "heightfield" else \
             pair_stats(step, params, q0, qd0) if mode in ("pairs", "boxes") else {}
         if task.model.tendons:
@@ -639,8 +687,8 @@ def phase_compare(device) -> dict:
             free = _errors((qa, qda, na), (qb, qdb, nb_), TOL[mode])
             gate = free if stepwise is None else stepwise
             ok = gate["env_share_within_tol"] == 1.0 and outside == at_tie
-            for entry in (mode, "tendons") if task.model.tendons else (mode,):
-                worst[entry] = max([worst[entry], *gate["max_abs_err"].values()])
+            for key in (entry, "tendons") if task.model.tendons else (entry,):
+                worst[key] = max([worst[key], *gate["max_abs_err"].values()])
             nonzero = float((nb_.abs().amax(-1) > 0).float().mean())
             extra_n = {} if stepwise is None else dict(
                 stepwise=dict(max_abs_err=stepwise["max_abs_err"],
@@ -650,7 +698,9 @@ def phase_compare(device) -> dict:
                     env_share_within_tol=free["env_share_within_tol"]))
             if mode == "boxes":
                 extra_n.update(outside_tol_env_steps=outside, of_them_at_a_tie=at_tie)
-            log("compare", model=name, mode=mode, envs=envs, substeps=step.n_steps,
+            log("compare", model=name, mode=mode, layout=layout, smem_bytes=step.smem_bytes,
+                shared_layout_bytes=step.layout_bytes if step.pair_mode != 2 else None,
+                envs=envs, substeps=step.n_steps,
                 control_steps=n_ctrl, max_abs_err=gate["max_abs_err"], max_abs=free["max_abs"],
                 net_nonzero_row_share=nonzero,
                 tol={k: {"atol": v[0], "rtol": v[1]} for k, v in TOL[mode].items()},
@@ -658,7 +708,7 @@ def phase_compare(device) -> dict:
             if not ok:
                 raise AssertionError(f"fused kernel disagrees with the plain version: {name} "
                                      f"{gate['max_abs_err']}, {outside - at_tie} envs off a tie")
-        expected = 12 if name in STEPWISE else 6
+        expected = (12 if name in STEPWISE else 6) + (name == FIRST_LOCAL)
         if step.launches != expected:
             raise AssertionError(f"compare launched the kernel {step.launches} times, "
                                  f"expected {expected}")
@@ -666,7 +716,7 @@ def phase_compare(device) -> dict:
                if not box_active.get(k, 0) > 0]
     if missing:
         raise AssertionError(f"the box mode's compare touched no candidate of {missing}")
-    return worst
+    return worst, stack_bytes
 
 
 # fp32 operations of the formulas of one physics substep, as
@@ -873,12 +923,13 @@ def cull_stats(step, q, qd) -> dict:
     return out
 
 
-def phase_time(name: str, device) -> dict:
+def phase_time(name: str, device, stack_bytes=None) -> dict:
     """The kernel on `name`'s training inputs (torque rows of the task's
     sensor bodies, as VecEnv builds it), ms per control step; in the pair
     modes also what their skips see (``cull_stats``); with tendons also the
     tendon block's own time (the kernel with the tendon loop cut out, header
-    int 42 set to 0, subtracted) beside its bound (``tendon_bound``)."""
+    int 42 set to 0, subtracted) beside its bound (``tendon_bound``);
+    `stack_bytes`, the first launch's stack reservation, goes in the line."""
     task = _task(name, device)
     m = task.model
     hf = task.ground_height_fn() if hasattr(task, "ground_height_fn") else None
@@ -915,19 +966,23 @@ def phase_time(name: str, device) -> dict:
         out.update(tendon_block_ms=kernel_ms - no_tendons_ms, no_tendons_ms=no_tendons_ms,
                    tendon_bound_ms=tb["bound_ms"], tendon_bound_by=tb["bound_by"])
     cull = cull_stats(step, q, qd) if step.pair_mode else {}
+    if stack_bytes is not None:
+        out["first_launch_stack_bytes"] = stack_bytes
     log("time", model=name, envs=envs, substeps=step.n_steps, block=step.block,
-        smem_bytes=step.smem_bytes, ptxas=instance_ptxas(fused.build_library().log, step),
-        **out, **cull)
+        layout="shared" if step.smem_bytes else "local", smem_bytes=step.smem_bytes,
+        shared_layout_bytes=step.layout_bytes if step.pair_mode != 2 else None,
+        smem_budget=fused.SMEM_BUDGET, ptxas=instance_ptxas(fused.build_library().log, step), **out, **cull)
     return out
 
 
 def phase_train(name: str, device, card: str) -> dict:
     import thormang_isaacgym_tpu_torch as tgt
     from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig
+    from thormang_isaacgym_tpu_torch.tasks import cfg_name
 
-    with open(os.path.join(ROOT, "cfg", "task", f"{name}.yaml")) as f:
+    with open(os.path.join(ROOT, "cfg", "task", f"{cfg_name(name)}.yaml")) as f:
         task_cfg = yaml.safe_load(f)
-    with open(os.path.join(ROOT, "cfg", "train", f"{name}PPO.yaml")) as f:
+    with open(os.path.join(ROOT, "cfg", "train", f"{cfg_name(name)}PPO.yaml")) as f:
         train_cfg = yaml.safe_load(f)
     envs = int(task_cfg["env"]["numEnvs"])
     env = tgt.make(name, num_envs=envs, seed=SEED, cfg=task_cfg, device=device)
@@ -967,15 +1022,53 @@ def phase_train(name: str, device, card: str) -> dict:
     return out
 
 
+def phase_cli() -> dict:
+    """The training CLI as a user runs it, in subprocesses: 2 iterations of
+    HumanoidMJCF at 4096 envs into a temporary output root, then a
+    deterministic play of one episode per env from its last.ckpt. Raises
+    unless both exit 0 with a finite reward_mean in metrics.jsonl and a
+    finite play_mean_return."""
+    base = [sys.executable, "-m", "thormang_isaacgym_tpu_torch.runtime.train",
+            "task=HumanoidMJCF", "train=HumanoidPPO", "num_envs=4096"]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        runs = (("train", ["max_iterations=2", f"output_root={tmp}", "experiment=smoke"]),
+                ("play", [f"output_root={tmp}", "experiment=smoke", "test=true", "test_episodes=1",
+                          f"checkpoint={os.path.join(tmp, 'smoke', 'nn', 'last.ckpt')}"]))
+        for label, extra in runs:
+            t0 = time.perf_counter()
+            res = subprocess.run(base + extra, cwd=ROOT, capture_output=True, text=True,
+                                 timeout=600)
+            seconds = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"the CLI's {label} run exited {res.returncode}:\n"
+                                     f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+            out[label] = dict(seconds=seconds, stdout_tail=res.stdout.strip().splitlines()[-2:])
+        with open(os.path.join(tmp, "smoke", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        play = json.loads(out["play"]["stdout_tail"][-1])
+    if not rows or not all(np.isfinite(r["reward_mean"]) for r in rows):
+        raise AssertionError(f"metrics.jsonl holds no finite reward_mean: {rows}")
+    if not np.isfinite(play["play_mean_return"]) or play["episodes"] < 1:
+        raise AssertionError(f"play printed {play}")
+    out["train"].update(epochs=[r["epoch"] for r in rows],
+                        reward_mean=[r["reward_mean"] for r in rows], fps=[r["fps"] for r in rows])
+    out["play"].update(play)
+    log("cli", command=" ".join(["python3"] + base[1:]), **out)
+    return out
+
+
 def main() -> None:
     dev_info = phase_device()
     device = torch.device("cuda")
     phase_build()
-    max_err = phase_compare(device)
+    max_err, stack_bytes = phase_compare(device)
     modes = (("flat", "Ant"), ("heightfield", "AnymalTerrain"), ("pairs", "BallBalance"),
-             ("boxes", "AllegroHand"), ("tendons", "ShadowHand"))
-    timing = {mode: phase_time(name, device) for mode, name in modes}
+             ("boxes", "AllegroHand"), ("tendons", "ShadowHand"), ("flat_local", "HumanoidMJCF"))
+    timing = {mode: phase_time(name, device, stack_bytes if name == FIRST_LOCAL else None)
+              for mode, name in modes}
     train = {mode: phase_train(name, device, dev_info["kind"]) for mode, name in modes}
+    phase_cli()
     kernels = [dict(
         name=f"fused_step[{mode}]", route="cuda",
         source="thormang_isaacgym_tpu_torch/csrc/fused_step.cu",
@@ -984,7 +1077,9 @@ def main() -> None:
         bound_ms=timing[mode]["bound_ms"], bound_by=timing[mode]["bound_by"], library_ms=None,
         **({"also_replaces": ALSO_REPLACES[mode]} if mode in ALSO_REPLACES else {}),
         **({k: timing[mode][k] for k in ("tendon_block_ms", "tendon_bound_ms")}
-           if mode == "tendons" else {}))
+           if mode == "tendons" else {}),
+        **({"first_launch_stack_bytes": timing[mode]["first_launch_stack_bytes"]}
+           if mode == "flat_local" else {}))
         for mode, _ in modes]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_info["kind"],

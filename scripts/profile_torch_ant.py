@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where one PPO train iteration of the PyTorch/CUDA port spends its time:
 a task at its YAML's width (numEnvs: 4096, AllegroHand 16384),
-cfg/task/<task>.yaml + cfg/train/<task>PPO.yaml (Ant by default), on one GPU.
+cfg/task/<task>.yaml + cfg/train/<task>PPO.yaml (Ant by default; HumanoidMJCF
+reads Humanoid.yaml and HumanoidPPO.yaml), on one GPU.
 
 Run from the repository root:
-  python3 scripts/profile_torch_ant.py [--task AnymalTerrain|BallBalance|AllegroHand]
+  python3 scripts/profile_torch_ant.py [--task AnymalTerrain|BallBalance|AllegroHand|ShadowHand|HumanoidMJCF]
 
 Prints JSON lines: the card (nvidia-smi name and power limit); host-clock
 times, each closed by torch.cuda.synchronize(), of one rollout (horizon x
@@ -31,6 +32,7 @@ sys.path.insert(0, ROOT)
 
 import thormang_isaacgym_tpu_torch as tgt  # noqa: E402
 from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig  # noqa: E402
+from thormang_isaacgym_tpu_torch.tasks import cfg_name  # noqa: E402
 
 
 def main() -> None:
@@ -42,9 +44,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi, "task": task}), flush=True)
-    with open(os.path.join(ROOT, "cfg", "task", f"{task}.yaml")) as f:
+    with open(os.path.join(ROOT, "cfg", "task", f"{cfg_name(task)}.yaml")) as f:
         task_cfg = yaml.safe_load(f)
-    with open(os.path.join(ROOT, "cfg", "train", f"{task}PPO.yaml")) as f:
+    with open(os.path.join(ROOT, "cfg", "train", f"{cfg_name(task)}PPO.yaml")) as f:
         cfg = PPOConfig.from_rlgames(yaml.safe_load(f))
     B = int(task_cfg["env"]["numEnvs"])
     env = tgt.make(task, num_envs=B, seed=0, cfg=task_cfg, device="cuda")

@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
 """Time the fused CUDA kernel on Ant or Anymal (its flat instance),
+HumanoidMJCF (the flat instance in its local-memory layout: over the shared
+budget; cfg/task/Humanoid.yaml),
 AnymalTerrain (its heightfield instance), BallBalance (its pair instance,
 the round kinds and attractors), the pair-capsule scene of chip_smoke.py
 (the pair instance's sphere-capsule and capsule-capsule kinds, 4096 envs),
@@ -8,7 +10,7 @@ tendon block) at the task YAML's width (4096 envs; the hands 16384), from
 the port package found in a given source tree, so two trees (a change and
 its parent) can be compared on one card in one call.
 
-    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|Anymal|AnymalTerrain|BallBalance|PairCapsule|AllegroHand|ShadowHand]
+    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|Anymal|AnymalTerrain|BallBalance|PairCapsule|AllegroHand|ShadowHand|HumanoidMJCF]
         [--iters 300] [--envs N] [--block N [N ...]] [--local] [--split] [--stack] [--dump PATH]
     python3 scripts/time_flat_kernel.py --compare A.npy B.npy
 
@@ -23,7 +25,10 @@ legs' torque rows, as VecEnv builds them, with the ball pressed into the
 tray; the hands dt 0.01667 s with 2 substeps and the fingertips' torque rows,
 the cube pressed into the palm and fingers as tests/test_torch_fused.py
 places it; Anymal dt 0.02 s with 2 substeps on flat ground, placed as
-AnymalTerrain is), the block size and dynamic shared bytes of the launch,
+AnymalTerrain is; HumanoidMJCF dt 0.0166 s with 2 substeps and the feet's
+torque rows, standing at its spawn height with its joints and base tilted
+and efforts of its motor gears; a tree without HumanoidMJCF cannot time it),
+the block size and dynamic shared bytes of the launch,
 the options' results and the ptxas register and stack line of the
 instance. Run it for the two trees in turns (parent, change, change,
 parent) to see the spread.
@@ -75,8 +80,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # each task's instance (kHF, kPA, kBX)
 INSTANCE = {"Ant": (0, 0, 0), "Anymal": (0, 0, 0), "AnymalTerrain": (1, 0, 0),
             "BallBalance": (0, 1, 0), "PairCapsule": (0, 1, 0), "AllegroHand": (0, 1, 1),
-            "ShadowHand": (0, 1, 1)}
+            "ShadowHand": (0, 1, 1), "HumanoidMJCF": (0, 0, 0)}
 _HEADER = 48
+# the tasks whose cfg/task YAML carries another name (the port's tasks.CFG_NAMES;
+# a parent tree may not have it)
+CFG_NAMES = {"HumanoidMJCF": "Humanoid"}
 
 
 def mangled(flags, smem: int) -> tuple:
@@ -174,6 +182,15 @@ def task_inputs(name, task, B, rng):
         q[:, 3:7] = qr / np.linalg.norm(qr, axis=1, keepdims=True)
         q[:, 7:] = task._init_jq + rng.uniform(-0.2, 0.2, (B, m.nj))
         return q, rng.normal(size=(B, m.nv)) * 0.5, z, rng.uniform(-15, 15, (B, m.nj))
+    if name == "HumanoidMJCF":
+        q = np.zeros((B, m.nq), np.float32)
+        q[:, 2] = task.spawn_z + rng.uniform(-0.05, 0.05, B)
+        qr = rng.normal(size=(B, 4)) * 0.1 + [1.0, 0.0, 0.0, 0.0]
+        q[:, 3:7] = qr / np.linalg.norm(qr, axis=1, keepdims=True)
+        lo, hi = m._defaults["dof_lower"], m._defaults["dof_upper"]
+        q[:, 7:] = np.clip(task._init_jq + rng.uniform(-0.2, 0.2, (B, m.nj)), lo, hi)
+        gears = task.motor_efforts.cpu().numpy()
+        return q, rng.normal(size=(B, m.nv)) * 0.5, z, rng.uniform(-1, 1, (B, m.nj)) * gears
     if name in ("AllegroHand", "ShadowHand"):
         sys.path.insert(0, os.path.join(ROOT, "tests"))
         from test_torch_fused import allegro_contact_q, shadow_contact_q
@@ -256,7 +273,8 @@ def main() -> None:
         packed = step.pack(*chip_smoke.pair_capsule_inputs(m, np.random.default_rng(1), dev))
     else:
         import yaml
-        with open(os.path.join(ROOT, "cfg", "task", f"{args.task}.yaml")) as f:
+        with open(os.path.join(ROOT, "cfg", "task",
+                               f"{CFG_NAMES.get(args.task, args.task)}.yaml")) as f:
             cfg = yaml.safe_load(f)
         B = args.envs or int(cfg["env"]["numEnvs"])
         task = get_task_class(args.task)(num_envs=B, device=dev)
@@ -291,16 +309,9 @@ def main() -> None:
         step.block, fused.SMEM_BUDGET = next(iter(layouts.values()))
     stack = {}
     if args.stack:
-        # the output's block is allocated and freed first, so the launch's own
-        # torch.empty reuses it and the difference is the stack reservation alone
-        buf = torch.empty(step.out_rows, B, device=dev)
-        del buf
-        torch.cuda.synchronize()
-        free0 = torch.cuda.mem_get_info()[0]
-        step.launch(packed)
-        torch.cuda.synchronize()
-        free1 = torch.cuda.mem_get_info()[0]
-        stack = dict(first_launch_bytes=free0 - free1)
+        sys.path.insert(0, ROOT)
+        from chip_smoke import first_launch_bytes
+        stack = dict(first_launch_bytes=first_launch_bytes(step, packed))
     if args.dump:
         out = step.launch(packed)
         torch.cuda.synchronize()

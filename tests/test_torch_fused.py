@@ -20,7 +20,10 @@ cube, and on AllegroHand (the cube on the palm and among the fingers, or
 pressed into the palm's edge), step by step (``STEPWISE``). The tendon block
 (B4b) is held on the two-link tendon scene of tests/test_fused.py (the
 coupled length on both sides of each bound and inside) and on ShadowHand
-(four tendons, the cube on its palm), step by step. Tolerances of
+(four tendons, the cube on its palm), step by step. HumanoidMJCF (22 bodies,
+43 ground candidates: over the shared-memory budget) runs the flat instance in
+its local-memory layout, free running, its net also held at chip_smoke's
+flat-mode tolerance (atol 1e-2 N). Tolerances of
 tests/test_fused.py: q atol=rtol 2e-3, qd atol=rtol 2e-2, net atol 1.0 /
 rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine
 without it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
@@ -44,6 +47,7 @@ from thormang_isaacgym_tpu_torch.tasks.allegro_hand import AllegroHand
 from thormang_isaacgym_tpu_torch.tasks.ant import Ant
 from thormang_isaacgym_tpu_torch.tasks.anymal import Anymal
 from thormang_isaacgym_tpu_torch.tasks.cartpole import Cartpole
+from thormang_isaacgym_tpu_torch.tasks.humanoid import HumanoidMJCF
 from thormang_isaacgym_tpu_torch.tasks.shadow_hand import ShadowHand
 
 B = 64
@@ -458,6 +462,10 @@ def _model(name):
         return task.model, dataclasses.replace(task.sim_params, dt=0.01667), task, 0.0
     if name == "tendon":
         return tendon_scene(load_urdf), SimParams(**TENDON_SP), None, 0.0
+    if name == "humanoid_mjcf":
+        # the sim block of cfg/task/Humanoid.yaml: dt 0.0166 s, 2 substeps
+        task = HumanoidMJCF(num_envs=B, device="cpu")
+        return task.model, dataclasses.replace(task.sim_params, substeps=2), task, 0.0
     if name == "ball_balance":
         # the sim block of cfg/task/BallBalance.yaml: dt 0.01 s, 1 substep
         task = bb.BallBalance(num_envs=B, device="cpu")
@@ -593,7 +601,8 @@ def _assert_close(a, b):
 STEPWISE = {"allegro_hand", "shadow_hand", "boxbox_terrain"}
 HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
               "ball_balance", "pair_capsule", "held", "boxbox", "capbox", "spherebox",
-              "allegro_hand", "tendon", "shadow_hand", "boxbox_terrain", "pair_capsule_terrain"]
+              "allegro_hand", "tendon", "shadow_hand", "boxbox_terrain", "pair_capsule_terrain",
+              "humanoid_mjcf"]
 # the heightfield cases with actor pairs: both the pairs and the ground touched
 PAIR_TERRAIN = {"boxbox_terrain": 2, "pair_capsule_terrain": 1}
 
@@ -622,9 +631,13 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         qa, qda, na = _host_call(host_kernel, step, params, qa, qda, ctrl, w)
         qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, w)
         _assert_close((qa, qda, na), (qb, qdb, nb_))
+        if name == "humanoid_mjcf":              # chip_smoke's flat-mode net tolerance
+            np.testing.assert_allclose(na.numpy(), nb_.numpy(), atol=1e-2, rtol=5e-3)
         rows = nb_[..., :3].abs().amax(-1) > 0
         if name in ("allegro_hand", "shadow_hand"):   # the share of envs whose cube is touched
             rows = rows[:, task.object_body]
+        if name == "humanoid_mjcf":              # the share of envs with a body on the ground
+            rows = rows.any(-1)
         touched = max(touched, float(rows.float().mean()))
         if name in PAIR_TERRAIN:
             fr = forward_kinematics(model, qb, qdb)
@@ -639,8 +652,11 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
             ground_touched = max(ground_touched, float(
                 ((z > p[..., 2] - torch.as_tensor(cand["r"])) & free).any(-1).float().mean()))
     if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
-                "shadow_hand", *PAIR_TERRAIN, *BOX_POSES):
+                "shadow_hand", "humanoid_mjcf", *PAIR_TERRAIN, *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
+    if name == "humanoid_mjcf":                  # over the shared budget: the local layout
+        assert step.pair_mode == 0 and step.block == fused.BLOCK and step.smem_bytes == 0
+        assert step.layout_bytes == 363_568 > fused.SMEM_BUDGET
     if name in PAIR_TERRAIN:                     # a heightfield pair instance: ground and pair
         assert step.hf is not None and step.pair_mode == PAIR_TERRAIN[name]
         assert pair_touched > 0.1 and ground_touched > 0.1, (pair_touched, ground_touched)

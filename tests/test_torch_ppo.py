@@ -4,7 +4,9 @@ entropy, GAE (with the timeout bootstrap), ``_loss`` and its gradients, one
 optimizer step (global-norm clip + Adam) from a carried-over Adam state, and
 the adaptive learning rate agree on identical batches (float32,
 mixed_precision=False; rtol 1e-5 with atol 1e-5, gradients atol 1e-4).
-Then a few Cartpole ``train_iteration``s on the CPU give finite metrics."""
+Then a few Cartpole ``train_iteration``s on the CPU give finite metrics, the
+Cartpole learning curve of tests/test_ppo.py is reached (marked slow), and
+``act_deterministic`` is the clamped policy mean."""
 import dataclasses
 
 import jax
@@ -241,3 +243,45 @@ def test_cartpole_train_iterations_finite():
             assert np.isfinite(float(v)), (k, v)
     assert ts.epoch == 3 and ts.adam_step == 3 * 2 * 2
     assert not torch.equal(w0, ts.model.mu.weight)
+
+
+@pytest.mark.slow
+def test_cartpole_learns():
+    """(slow: about 30-50 s on the CPU, most of it the Cartpole op path's 1920
+    env steps.) The learning curve of tests/test_ppo.py's ``test_cartpole_learns`` on
+    the port, with its config (128 envs, horizon 32, minibatch 2048, 4
+    mini-epochs, lr 3e-4, units (64, 64), KL threshold 0.008, reward scale
+    1.0, 60 epochs, logged every 5): the best reward_mean above 0.85 (a
+    random policy gives about 0.3-0.6 a step), and fewer early dones at the
+    end than at the start."""
+    env = tgt.make("Cartpole", num_envs=128, seed=0, device="cpu")
+    ppo = tppo.PPO(env, tppo.PPOConfig(horizon_length=32, minibatch_size=2048, mini_epochs=4,
+                                       learning_rate=3e-4, units=(64, 64), kl_threshold=0.008,
+                                       mixed_precision=False, reward_shaper_scale=1.0),
+                   device="cpu")
+    ts, state = ppo.init(3), env.reset(3)
+    history = []
+    for epoch in range(60):
+        ts, state, metrics = ppo.train_iteration(ts, state)
+        if epoch % 5 == 0 or epoch == 59:
+            history.append({k: float(metrics[k]) for k in ("reward_mean", "episode_done_frac")})
+    first, best = history[0]["reward_mean"], max(h["reward_mean"] for h in history)
+    assert best > 0.85, (first, best, [h["reward_mean"] for h in history])
+    last_done = history[-1]["episode_done_frac"]
+    assert last_done < history[0]["episode_done_frac"] + 1e-6 or last_done < 0.01
+
+
+def test_act_deterministic_bounded_and_mean():
+    """act_deterministic: the policy mean on normalized obs, clamped to
+    [-1, 1], as JAX's (tests/test_ppo.py ``test_deterministic_play_action_bounded``)."""
+    env = tgt.make("Cartpole", num_envs=8, seed=0, device="cpu")
+    ppo = tppo.PPO(env, tppo.PPOConfig(units=(64, 64), mixed_precision=False,
+                                       normalize_input=True), device="cpu")
+    ts = ppo.init(0)
+    obs = torch.as_tensor(np.random.RandomState(0).randn(8, 4).astype(np.float32)) * 10
+    with torch.no_grad():
+        ts.model.mu.weight.mul_(50.0)                # push some means past the bounds
+    act = ppo.act_deterministic(ts, obs)
+    mu, _, _ = ppo._policy(ts, obs)
+    assert float(act.abs().max()) <= 1.0 and float(mu.abs().max()) > 1.0
+    torch.testing.assert_close(act, torch.clamp(mu, -1.0, 1.0), rtol=0, atol=0)

@@ -184,6 +184,15 @@ class PPO:
             value = rms_denormalize(ts.value_rms, value)
         return mu, log_std, value
 
+    @torch.no_grad()
+    def act_deterministic(self, ts: TrainState, obs):
+        """Play-mode action: the mean of the policy on the (normalized) obs,
+        clamped to [-1, 1]."""
+        if self.cfg.normalize_input:
+            obs = rms_normalize(ts.obs_rms, obs)
+        mu, _, _ = self._apply(ts, obs)
+        return torch.clamp(mu, -1.0, 1.0)
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def rollout(self, ts: TrainState, env_state: EnvState):

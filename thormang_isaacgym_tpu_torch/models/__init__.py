@@ -11,3 +11,4 @@ from thormang_isaacgym_tpu_torch.models.shadow_hand import (  # noqa: F401
     ACTUATED_DOF_NAMES, FINGERTIP_BODIES, load_shadow_hand, make_block_urdf,
     make_shadow_hand_urdf,
 )
+from thormang_isaacgym_tpu_torch.models.mjcf import load_mjcf  # noqa: F401

@@ -172,18 +172,23 @@ def sweep_lane_words(nb: int, nj: int, nq: int, nv: int, nc: int, *,
             + 27 * pair_bodies) | 1
 
 
-def shared_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
+def layout_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
                  heightfield: bool = False, rows: int = 0, tables: int = 0,
                  pair_bodies: int = 0) -> int:
-    """The budget rule of the instances without the box kinds: the dynamic
-    shared bytes of a block of `block` envs, the model's two tables
-    (`tables` words, once per block; without pairs only) and each env's slice
-    (``sweep_lane_words``); or 0 when that exceeds SMEM_BUDGET, and the
+    """The dynamic shared bytes the shared layout takes for a block of
+    `block` envs: the model's two tables (`tables` words, once per block;
+    without pairs only) and each env's slice (``sweep_lane_words``)."""
+    return 4 * (tables + block * sweep_lane_words(nb, nj, nq, nv, nc, heightfield=heightfield,
+                                                   rows=rows, pair_bodies=pair_bodies))
+
+
+def shared_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, **kw) -> int:
+    """The budget rule of the instances without the box kinds: the
+    ``layout_bytes`` of a block, or 0 when they exceed SMEM_BUDGET, and the
     model takes the local-memory layout (the same arithmetic, the sweep
     state in per-thread local memory, the rows and tables read from device
     memory)."""
-    n = 4 * (tables + block * sweep_lane_words(nb, nj, nq, nv, nc, heightfield=heightfield,
-                                                rows=rows, pair_bodies=pair_bodies))
+    n = layout_bytes(nb, nj, nq, nv, nc, block, **kw)
     return n if n <= SMEM_BUDGET else 0
 
 
@@ -432,16 +437,23 @@ class FusedStep:
         self.launches = 0
 
     @property
-    def smem_bytes(self) -> int:
-        if self.pair_mode == 2:
-            return 0
+    def layout_bytes(self) -> int:
+        """The bytes a block of the shared layout would take (over
+        SMEM_BUDGET, the launch takes the local layout instead)."""
         m = self.model
         mi, mf = self._tables
         # the pair instance keeps its tables in device memory
-        return shared_bytes(m.nb, m.nj, m.nq, m.nv, self._nc, self.block,
+        return layout_bytes(m.nb, m.nj, m.nq, m.nv, self._nc, self.block,
                             heightfield=self.hf is not None, rows=self.rows["total"],
                             tables=0 if self.pair_mode else len(mi) + len(mf),
                             pair_bodies=self._npb)
+
+    @property
+    def smem_bytes(self) -> int:
+        if self.pair_mode == 2:
+            return 0
+        n = self.layout_bytes
+        return n if n <= SMEM_BUDGET else 0
 
     def _on(self, dev):
         """(int table, float table, torque-body index) on `dev`, built once:

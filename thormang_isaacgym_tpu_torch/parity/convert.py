@@ -10,14 +10,18 @@ the JAX package:
 - :func:`rms_state` — ``RMSState`` (mean, var, count);
 - :func:`train_state` — a JAX PPO ``TrainState`` (params, optax Adam
   moments and count, lr, normalizers, epoch) into a port TrainState;
+- :func:`train_state_from_leaves` — the same from the ordered leaves of a
+  JAX checkpoint (``jax.tree.leaves(TrainState)``, npz ``arr_0..arr_N``);
 - :func:`heightfield` — an ``engine.terrain.Heightfield`` (heights, scales,
   origin) -> the port's Heightfield on `device`;
 - :func:`anymal_terrain_task_state` — an ``AnymalTerrainTaskState`` -> the
-  port's (terrain level and type as int32).
+  port's (terrain level and type as int32);
+- :func:`humanoid_task_state` — a ``HumanoidTaskState`` -> the port's.
 """
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -108,6 +112,59 @@ def train_state(ppo, jax_ts):
     return ts
 
 
+def _flax_leaves(model: ActorCritic) -> list:
+    """(name, shape) of the flax params' leaves in ``jax.tree.leaves``
+    order (dict keys sorted; a Dense layer's bias before its kernel)."""
+    out = []
+    for name, lin in sorted(_named_linears(model).items()):
+        out.append(((name, "bias"), tuple(lin.bias.shape)))
+        out.append(((name, "kernel"), tuple(lin.weight.shape[::-1])))
+    out.append((("log_std",), tuple(model.log_std.shape)))
+    return sorted(out)
+
+
+def train_state_from_leaves(ppo, leaves):
+    """The leaves of a JAX PPO checkpoint (``runtime/checkpoint.py``: the
+    ``TrainState`` leaves in ``jax.tree.leaves`` order, numpy) -> the port's
+    TrainState for `ppo`. The order: params; the Adam state's count, mu and
+    nu (each shaped like params); lr; obs_rms, value_rms and states_rms
+    (mean, var, count); epoch. A leaf count or shape that does not match
+    `ppo`'s config raises ValueError."""
+    template = ppo.init(ppo.cfg.seed).model
+    params = _flax_leaves(template)
+    states = max(int(getattr(ppo.env.task, "num_states", 0) or 0), 1)
+    n_obs = ppo.env.num_obs
+    shapes = ([s for _, s in params] + [()] + [s for _, s in params] * 2 + [()]
+              + [(n_obs,), (n_obs,), (), (), (), (), (states,), (states,), (), ()])
+    leaves = [np.asarray(x) for x in leaves]
+    if len(leaves) != len(shapes):
+        raise ValueError(f"checkpoint has {len(leaves)} leaves, template expects "
+                         f"{len(shapes)} — config/model mismatch")
+    for i, (x, shape) in enumerate(zip(leaves, shapes)):
+        if x.shape != shape:
+            raise ValueError(f"checkpoint leaf {i} has shape {x.shape}, template expects "
+                             f"{shape} — config/model mismatch")
+    it = iter(leaves)
+
+    def tree():
+        t = {}
+        for path, _ in params:
+            node = t
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = next(it)
+        return {"params": t}
+
+    p = tree()
+    count = next(it)
+    adam = SimpleNamespace(count=count, mu=tree(), nu=tree())
+    lr = next(it)
+    rms = [SimpleNamespace(mean=next(it), var=next(it), count=next(it)) for _ in range(3)]
+    jax_ts = SimpleNamespace(params=p, opt_state=(adam,), lr=lr, obs_rms=rms[0],
+                             value_rms=rms[1], epoch=next(it))
+    return train_state(ppo, jax_ts)
+
+
 def heightfield(hf, device="cpu") -> Heightfield:
     """hf: an object with the JAX Heightfield's fields (heights, h_scale,
     v_scale, origin)."""
@@ -124,3 +181,12 @@ def anymal_terrain_task_state(leaves, device="cpu"):
     return AnymalTerrainTaskState(**{
         f.name: _leaf(get(f.name), device, torch.int32 if f.name in ints else torch.float32)
         for f in dataclasses.fields(AnymalTerrainTaskState)})
+
+
+def humanoid_task_state(leaves, device="cpu"):
+    """leaves: a JAX HumanoidTaskState (numpy leaves) or a dict of its
+    fields."""
+    from thormang_isaacgym_tpu_torch.tasks.humanoid import HumanoidTaskState
+    get = leaves.get if isinstance(leaves, dict) else (lambda k: getattr(leaves, k))
+    return HumanoidTaskState(**{f.name: _leaf(get(f.name), device, torch.float32)
+                                for f in dataclasses.fields(HumanoidTaskState)})

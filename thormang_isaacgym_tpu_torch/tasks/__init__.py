@@ -14,12 +14,24 @@ import numpy as np
 TASK_MAP = {
     "Cartpole": ("thormang_isaacgym_tpu_torch.tasks.cartpole", "Cartpole"),
     "Ant": ("thormang_isaacgym_tpu_torch.tasks.ant", "Ant"),
+    "Humanoid": ("thormang_isaacgym_tpu_torch.tasks.humanoid", "Humanoid"),
+    "HumanoidMJCF": ("thormang_isaacgym_tpu_torch.tasks.humanoid", "HumanoidMJCF"),
     "Anymal": ("thormang_isaacgym_tpu_torch.tasks.anymal", "Anymal"),
     "AnymalTerrain": ("thormang_isaacgym_tpu_torch.tasks.anymal_terrain", "AnymalTerrain"),
     "BallBalance": ("thormang_isaacgym_tpu_torch.tasks.ball_balance", "BallBalance"),
     "AllegroHand": ("thormang_isaacgym_tpu_torch.tasks.allegro_hand", "AllegroHand"),
     "ShadowHand": ("thormang_isaacgym_tpu_torch.tasks.shadow_hand", "ShadowHand"),
 }
+
+
+# tasks whose reference config files carry another name: HumanoidMJCF is the
+# reference's Humanoid task (cfg/task/Humanoid.yaml, cfg/train/HumanoidPPO.yaml)
+CFG_NAMES = {"HumanoidMJCF": "Humanoid"}
+
+
+def cfg_name(task_name: str) -> str:
+    """The name of `task_name`'s cfg/task/<name>.yaml and cfg/train/<name>PPO.yaml."""
+    return CFG_NAMES.get(task_name, task_name)
 
 
 def get_task_class(name: str):
@@ -45,10 +57,6 @@ _ATTR_ALIASES = {
     "clipObservations": "clip_obs",
     "clipActions": "clip_actions",
     "controlFrequencyInv": "control_freq_inv",
-    # Ant.yaml cost weights (attributes of tasks/ant.py)
-    "actionsCost": "actions_cost_scale",
-    "energyCost": "energy_cost_scale",
-    "jointsAtLimitCost": "joints_at_limit_cost_scale",
     # ShadowHand / AllegroHand env-block keys (tasks/shadow_hand.py reads
     # these under other snake-case names than camel -> snake gives)
     "fallDistance": "fall_dist",
@@ -86,14 +94,16 @@ def apply_cfg_env(task, env_cfg: dict, *, warn_unknown: bool = True):
     """Drive task attributes from a reference-shaped task YAML env block
     (`cfg/task/<X>.yaml: env:`): every key maps to the camelCase->snake_case
     attribute when the task defines it (distRewardScale -> dist_reward_scale,
-    ...), plus the alias table above. Keys that match nothing are WARNED
+    ...), plus the alias table above and the task's own ``cfg_aliases``.
+    Keys that match nothing are WARNED
     about (config drift is otherwise invisible — a typo'd YAML key silently
     no-ops)."""
     import warnings
+    aliases = {**_ATTR_ALIASES, **getattr(task, "cfg_aliases", {})}
     for k, v in (env_cfg or {}).items():
         if isinstance(v, dict) or k in _CONSUMED_KEYS:
             continue
-        attr = _ATTR_ALIASES.get(k, _camel_to_snake(k))
+        attr = aliases.get(k, _camel_to_snake(k))
         if hasattr(task, attr) and not callable(getattr(task, attr)):
             setattr(task, attr, v)
         elif warn_unknown:

@@ -127,6 +127,11 @@ class Ant(Task):
     joints_at_limit_cost_scale = 0.1
     death_cost = -2.0
     termination_height = 0.31
+    # Ant.yaml's cost keys name these attributes (tasks.apply_cfg_env); the
+    # JAX registry has no such aliases and leaves them at their defaults
+    cfg_aliases = {"actionsCost": "actions_cost_scale",
+                   "energyCost": "energy_cost_scale",
+                   "jointsAtLimitCost": "joints_at_limit_cost_scale"}
 
     def __init__(self, num_envs: int = 4096, seed: int = 42, device=None, **_):
         super().__init__(num_envs, seed, device)
