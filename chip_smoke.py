@@ -11,9 +11,13 @@ Phases, one line each (any failure raises and exits non-zero):
  2. compare: the fused kernel against its plain PyTorch version on the card,
     at 4096 envs (the hands 16384) from seeded numpy states, 1 and 5
     control steps: Cartpole and Ant (flat ground), HumanoidMJCF (flat ground
-    in the local-memory layout: over the shared budget; its first launch
-    also measures the stack the CUDA runtime reserves for it, before any
-    other local instance has run), the two-link tendon scene
+    in the split layout: over the shared budget; its first launch also
+    measures the stack the CUDA runtime reserves for it, before any local
+    instance has run), HumanoidMJCF again with the local layout forced (the
+    budget rule's SMEM_BUDGET set to 0, the layout of a model over even the
+    split layout's budget; the first local launch, which measures the local
+    layout's stack; its first step's outputs bit for bit the split
+    layout's), the two-link tendon scene
     of tests/test_fused.py (block B4b: its coupled length below, inside and
     above its bounds), AnymalTerrain
     (heightfield mode, bases placed on the terrain grid), BallBalance (pair
@@ -25,16 +29,16 @@ Phases, one line each (any failure raises and exits non-zero):
     pressed into the palm's edge) and ShadowHand (the same, with its four
     tendons on either side of their bounds); max abs error of q, qd and net against
     TOL, beside the largest |value| of each and the share of non-zero net
-    rows, the layout (shared or local) and the launch's dynamic shared
-    bytes (AnymalTerrain also: the share of active contact candidates, the
+    rows, the layout (shared, split or local), the launch's dynamic shared
+    bytes and ptxas' registers and stack of the instance (AnymalTerrain also: the share of active contact candidates, the
     share of those on sloped cells, the largest |gx x| of a ground plane; the
     pair and box scenes: the share of active pair candidates, per kind in the
     box mode with the envs whose box-box edge-edge candidate is active, and
     the largest |dIA| entry; the tendon scenes: the share of env-tendons
     below and above their bounds).
  3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain,
-    BallBalance and HumanoidMJCF at 4096 envs and AllegroHand and ShadowHand
-    at 16384 (CUDA
+    BallBalance and HumanoidMJCF (split, and local forced) at 4096 envs and
+    AllegroHand and ShadowHand at 16384 (CUDA
     events after warm-up, ms per control step) beside the kernel's bound,
     with the launch's block size and dynamic shared bytes and ptxas'
     registers and stack of the instance; BallBalance and the hands also the
@@ -42,14 +46,18 @@ Phases, one line each (any failure raises and exits non-zero):
     hands also of the pairs that pass the box instance's cull
     (``cull_stats``); ShadowHand also the tendon block's own time (the
     tendon loop cut out) beside its bound; HumanoidMJCF also the stack bytes
-    its first launch reserved (phase 2).
+    each layout's first launch reserved (phase 2) and, in the split layout,
+    the share of ground candidates in contact per env and per warp of 32
+    (``ground_skip_stats``: what its warp-level ground skip sees).
  4. train: make(task, cfg=cfg/task/<task>.yaml) at the YAML's numEnvs,
     PPO(PPOConfig.from_rlgames(cfg/train/<task>PPO.yaml)), 3
     train_iterations, for Ant (4096 envs, 3 x 16 kernel launches),
     AnymalTerrain (4096, 3 x 24), BallBalance (4096, 3 x 16), AllegroHand
     (16384, 3 x 8 x 2), ShadowHand (16384, 3 x 8 x 1) and HumanoidMJCF
-    (cfg/task/Humanoid.yaml and cfg/train/HumanoidPPO.yaml: 4096, 3 x 32);
-    every metric finite, obs finite of shape (envs, num_obs).
+    (cfg/task/Humanoid.yaml and cfg/train/HumanoidPPO.yaml: 4096, 3 x 32),
+    in its split layout (also the ground skip's contact shares on the state
+    its last iteration ends in) and with the local layout forced; every
+    metric finite, obs finite of shape (envs, num_obs).
  5. cli: the training CLI in a subprocess, ``python3 -m
     thormang_isaacgym_tpu_torch.runtime.train task=HumanoidMJCF
     train=HumanoidPPO num_envs=4096 max_iterations=2`` into a temporary
@@ -58,11 +66,13 @@ Phases, one line each (any failure raises and exits non-zero):
     finite play_mean_return.
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
 box modes, its tendon block, timed on ShadowHand, with the block's own
-time and bound beside the instance's, and the flat mode's local-memory
-layout, on HumanoidMJCF) and, last, the {"ok": true, "device": ...} line.
+time and bound beside the instance's, and the flat mode's local-memory and
+split layouts, on HumanoidMJCF) and, last, the {"ok": true, "device": ...}
+line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -152,11 +162,13 @@ ALSO_REPLACES = dict(pairs=["thormang_isaacgym_tpu/ops/fused.py:1323"],
                             "thormang_isaacgym_tpu/ops/fused.py:597",
                             "thormang_isaacgym_tpu/ops/fused.py:1235",
                             "thormang_isaacgym_tpu/ops/fused.py:1323"])
-REPLACES["flat_local"] = REPLACES["flat"]
-# the compare case whose first launch measures the local layout's stack
-# reservation: it runs before any other local-memory instance (Cartpole and
-# Ant take the shared layout)
-FIRST_LOCAL = "HumanoidMJCF"
+REPLACES["flat_local"] = REPLACES["flat_split"] = REPLACES["flat"]
+# the compare case whose first launch measures the split layout's stack
+# reservation, before any local instance has run (Cartpole and Ant take the
+# shared layout), and the one whose first launch measures the local
+# layout's: it runs before any other local-memory instance
+FIRST_SPLIT = "HumanoidMJCF"
+FIRST_LOCAL = "HumanoidMJCF:local"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -164,6 +176,20 @@ FP32_FLOP_PER_S = 67e12
 
 def log(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+@contextlib.contextmanager
+def local_layout(forced: bool):
+    """With `forced`, the local layout forced on the flat instance (the
+    budget rule's SMEM_BUDGET set to 0), as a model over even the split
+    layout's budget takes it."""
+    budget = fused.SMEM_BUDGET
+    if forced:
+        fused.SMEM_BUDGET = 0
+    try:
+        yield
+    finally:
+        fused.SMEM_BUDGET = budget
 
 
 def phase_device() -> dict:
@@ -573,11 +599,17 @@ def first_launch_bytes(step, packed) -> int:
 
 
 def phase_compare(device):
-    """Worst error of each kernel mode, {"flat": x, "flat_local": u,
-    "heightfield": y, "pairs": z, "boxes": w, "tendons": v}, and the stack
-    bytes of FIRST_LOCAL's first launch; a case whose model has tendons
-    counts for its mode and for "tendons", a flat case over the shared
-    budget (HumanoidMJCF) for "flat_local", with the flat mode's TOL.
+    """Worst error of each kernel mode, {"flat": x, "flat_split": s,
+    "flat_local": u, "heightfield": y, "pairs": z, "boxes": w, "tendons":
+    v}, and the stack bytes of the first launch of FIRST_SPLIT and of
+    FIRST_LOCAL, {"flat_split": a, "flat_local": b} (b what the local
+    layout's first launch adds to the split layout's reservation, which a
+    process keeps); a case whose model has tendons counts for its mode and
+    for "tendons", a flat case over the shared budget (HumanoidMJCF) for
+    its layout's entry, with the flat mode's TOL. HumanoidMJCF runs twice on
+    the same inputs: in the split layout and with the local layout forced,
+    whose first control step must give the split layout's outputs bit for
+    bit.
 
     Cartpole, Ant, the two-link tendon scene, BallBalance and the capsule-box
     and sphere-box scenes are held against the plain version after 1 and 5
@@ -600,12 +632,18 @@ def phase_compare(device):
     and edge-edge) must be in contact somewhere. Each tendon scene must have
     env-tendons below and above their bounds, and inside."""
     rng = np.random.default_rng(SEED)
-    worst = dict(flat=0.0, flat_local=0.0, heightfield=0.0, pairs=0.0, boxes=0.0, tendons=0.0)
+    worst = dict(flat=0.0, flat_split=0.0, flat_local=0.0, heightfield=0.0, pairs=0.0, boxes=0.0,
+                 tendons=0.0)
     box_active = {}
-    stack_bytes = None
+    stack_bytes = {}
     local_launched = False
-    for name in ("Cartpole", "Ant", "HumanoidMJCF", "AnymalTerrain", "BallBalance", "PairCapsule",
-                 "BoxBox", "CapBox", "SphereBox", "AllegroHand", "ShadowHand", "Tendon"):
+    split_first = None                    # the split layout's first control step, kernel outputs
+    budget = fused.SMEM_BUDGET
+    for case in ("Cartpole", "Ant", FIRST_SPLIT, FIRST_LOCAL, "AnymalTerrain", "BallBalance",
+                 "PairCapsule", "BoxBox", "CapBox", "SphereBox", "AllegroHand", "ShadowHand",
+                 "Tendon"):
+        name = case.split(":")[0]
+        fused.SMEM_BUDGET = 0 if case == FIRST_LOCAL else budget     # the local layout forced
         if name == "PairCapsule":
             task = PairCapsule()
         elif name == "Tendon":
@@ -624,8 +662,11 @@ def phase_compare(device):
                                          need_torque=True)
         mode = "heightfield" if step.hf is not None else \
             ("flat", "pairs", "boxes")[step.pair_mode]
-        entry = "flat_local" if mode == "flat" and step.smem_bytes == 0 else mode
-        layout = "shared" if step.smem_bytes else "local"
+        layout = step.layout
+        entry = f"flat_{layout}" if mode == "flat" and layout != "shared" else mode
+        if case in (FIRST_SPLIT, FIRST_LOCAL) and \
+                layout != ("local" if case == FIRST_LOCAL else "split"):
+            raise AssertionError(f"{case} took the {layout} layout")
         if mode == "boxes" and step.n_steps != 1:
             raise AssertionError("the box mode's tie analysis takes one substep per launch")
         if name == "PairCapsule":
@@ -634,17 +675,18 @@ def phase_compare(device):
             params, q0, qd0, ctrl, wrench = tendon_inputs(task.model, rng, device)
         elif isinstance(task, BoxPair):
             params, q0, qd0, ctrl, wrench = box_pair_inputs(task, rng, device)
-        elif name == FIRST_LOCAL:
-            # its own stream, so the other cases keep the inputs they had
+        elif name == FIRST_SPLIT:
+            # its own stream (the same for both layouts), so the other cases
+            # keep the inputs they had
             params, q0, qd0, ctrl, wrench = random_inputs(
                 task, np.random.default_rng(SEED + 2), device)
         else:
             params, q0, qd0, ctrl, wrench = random_inputs(task, rng, device)
         envs = q0.shape[0]
-        if name == FIRST_LOCAL:
-            if local_launched or layout != "local":
-                raise AssertionError(f"{name}'s first launch is not the first of a local instance")
-            stack_bytes = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
+        if case in (FIRST_SPLIT, FIRST_LOCAL):
+            if local_launched:
+                raise AssertionError(f"{case}'s first launch comes after a local instance's")
+            stack_bytes[entry] = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
         local_launched |= layout == "local"
         extra = ground_stats(step, q0) if mode == "heightfield" else \
             pair_stats(step, params, q0, qd0) if mode in ("pairs", "boxes") else {}
@@ -667,6 +709,8 @@ def phase_compare(device):
                     # the kernel from the plain version's state of this step
                     k_out = step(params, qb, qdb, ctrl, wrench)
                 qa, qda, na = step(params, qa, qda, ctrl, wrench)
+                if case == FIRST_SPLIT and n_ctrl == 1:
+                    split_first = (qa, qda, na)
                 q_in, qd_in = qb, qdb
                 qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, wrench)
                 if name in STEPWISE:
@@ -698,8 +742,20 @@ def phase_compare(device):
                     env_share_within_tol=free["env_share_within_tol"]))
             if mode == "boxes":
                 extra_n.update(outside_tol_env_steps=outside, of_them_at_a_tie=at_tie)
+            if case == FIRST_LOCAL and n_ctrl == 1:
+                same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                           for a, b in zip((qa, qda, na), split_first))
+                extra_n.update(bitwise_equal_to_split_layout=same)
+                if not same:
+                    raise AssertionError(f"{name}: the local and split layouts disagree")
+            if case in (FIRST_SPLIT, FIRST_LOCAL):
+                # a process keeps its largest reservation: the local layout's
+                # first launch adds what its frame needs beyond the split's
+                extra_n.update(first_launch_stack_bytes=stack_bytes[entry],
+                               stack_reserved_bytes=sum(stack_bytes.values()))
             log("compare", model=name, mode=mode, layout=layout, smem_bytes=step.smem_bytes,
                 shared_layout_bytes=step.layout_bytes if step.pair_mode != 2 else None,
+                ptxas=instance_ptxas(fused.build_library().log, step),
                 envs=envs, substeps=step.n_steps,
                 control_steps=n_ctrl, max_abs_err=gate["max_abs_err"], max_abs=free["max_abs"],
                 net_nonzero_row_share=nonzero,
@@ -708,10 +764,11 @@ def phase_compare(device):
             if not ok:
                 raise AssertionError(f"fused kernel disagrees with the plain version: {name} "
                                      f"{gate['max_abs_err']}, {outside - at_tie} envs off a tie")
-        expected = (12 if name in STEPWISE else 6) + (name == FIRST_LOCAL)
+        expected = (12 if name in STEPWISE else 6) + (case in (FIRST_SPLIT, FIRST_LOCAL))
         if step.launches != expected:
             raise AssertionError(f"compare launched the kernel {step.launches} times, "
                                  f"expected {expected}")
+    fused.SMEM_BUDGET = budget
     missing = [k for k in ("sphere_box", "capbox", "boxbox_corner", "boxbox_edge", "edge_edge_envs")
                if not box_active.get(k, 0) > 0]
     if missing:
@@ -874,9 +931,10 @@ def tendon_bound(model, n_steps: int, envs: int) -> dict:
 
 def instance_ptxas(log: str, step) -> list:
     """ptxas' register and stack lines for the kernel instance `step`
-    launches (template flags kHF, kPA, kBX, kSM)."""
-    flags = (step.hf is not None, step.pair_mode > 0, step.pair_mode == 2, step.smem_bytes > 0)
-    name = "kernelI" + "".join(f"Lb{int(f)}E" for f in flags) + "EEv"
+    launches (template flags kHF, kPA, kBX and its layout's code)."""
+    flags = (step.hf is not None, step.pair_mode > 0, step.pair_mode == 2)
+    name = "kernelI" + "".join(f"Lb{int(f)}E" for f in flags) + \
+        f"Li{fused.LAYOUTS.index(step.layout)}E" + "EEv"
     lines = log.splitlines()
     at = [i for i, ln in enumerate(lines) if "Compiling entry" in ln and name in ln]
     if not at:
@@ -897,6 +955,35 @@ def _time_cuda(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def contact_shares(active: torch.Tensor, w: int = 32) -> tuple:
+    """(share of entries of the (envs, candidates) mask `active` that are
+    set, share of warp-candidates with any env of the warp set: the warps
+    of `w` envs whose force block runs for that candidate)."""
+    n = active.shape[0] // w * w
+    warp = active[:n].reshape(n // w, w, -1).any(1)
+    return float(active.float().mean()), float(warp.float().mean())
+
+
+def ground_skip_stats(model, q) -> dict:
+    """What the flat instance's warp-level ground skip sees at q (a control
+    step's input state; flat ground at z 0): the share of ground candidates
+    in contact per env and per warp of 32."""
+    frames = forward_kinematics(model, q, q.new_zeros(q.shape[0], model.nv))
+    p, gq = fused.contact.candidate_points(model, frames)
+    c = fused.contact.candidates(model)
+    r = torch.as_tensor(c["r"], device=q.device)
+    rim = torch.as_tensor(c["rim"], device=q.device) > 0
+    # a cylinder's rim candidate: its lowest rim point, radius 0 (ops/contact.py)
+    zhat = p.new_tensor([0.0, 0.0, 1.0])
+    a = Q.rotate(gq, zhat)
+    perp = zhat - a * a[..., 2:3]
+    u = -perp / torch.clamp(perp.norm(dim=-1, keepdim=True), min=1e-6)
+    p = torch.where(rim[:, None], p + r[:, None] * u, p)
+    depth = 0.0 - (p[..., 2] - torch.where(rim, torch.zeros_like(r), r))
+    env, warp = contact_shares(depth > 0)
+    return dict(ground_candidate_contact_share=env, ground_candidate_contact_share_warp=warp)
+
+
 def cull_stats(step, q, qd) -> dict:
     """What the pair instances' skips see at (q, qd): the share of pair
     candidates in contact per env and per warp of 32 (any of its envs: the
@@ -908,27 +995,22 @@ def cull_stats(step, q, qd) -> dict:
     m = step.model
     f = forward_kinematics(m, q, qd)
     active = torch.stack([c[5] for c in collide.candidates(m, f)], -1) > 0
-    w = 32
-    n = q.shape[0] // w * w
-
-    def share(x, warp=False):
-        x = x[:n].reshape(n // w, w, -1).any(1) if warp else x
-        return float(x.float().mean())
-
-    out = dict(active_candidate_share=share(active),
-               active_candidate_share_warp=share(active, True))
+    out = dict(zip(("active_candidate_share", "active_candidate_share_warp"),
+                   contact_shares(active)))
     if step.pair_mode == 2:
         near = ~fused.pairs_apart(m, f)
-        out.update(pair_pass_share=share(near), pair_pass_share_warp=share(near, True))
+        out.update(zip(("pair_pass_share", "pair_pass_share_warp"), contact_shares(near)))
     return out
 
 
 def phase_time(name: str, device, stack_bytes=None) -> dict:
     """The kernel on `name`'s training inputs (torque rows of the task's
     sensor bodies, as VecEnv builds it), ms per control step; in the pair
-    modes also what their skips see (``cull_stats``); with tendons also the
-    tendon block's own time (the kernel with the tendon loop cut out, header
-    int 42 set to 0, subtracted) beside its bound (``tendon_bound``);
+    modes also what their skips see (``cull_stats``), on flat ground
+    without pairs what the ground skip sees (``ground_skip_stats``; not in
+    the local layout, which does not skip); with tendons also the tendon
+    block's own time (the kernel with the tendon loop cut out, header int 42
+    set to 0, subtracted) beside its bound (``tendon_bound``);
     `stack_bytes`, the first launch's stack reservation, goes in the line."""
     task = _task(name, device)
     m = task.model
@@ -965,17 +1047,21 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
         tb = tendon_bound(m, step.n_steps, envs)
         out.update(tendon_block_ms=kernel_ms - no_tendons_ms, no_tendons_ms=no_tendons_ms,
                    tendon_bound_ms=tb["bound_ms"], tendon_bound_by=tb["bound_by"])
-    cull = cull_stats(step, q, qd) if step.pair_mode else {}
+    cull = cull_stats(step, q, qd) if step.pair_mode else \
+        ground_skip_stats(m, q) if hf is None and step.layout != "local" else {}
     if stack_bytes is not None:
         out["first_launch_stack_bytes"] = stack_bytes
     log("time", model=name, envs=envs, substeps=step.n_steps, block=step.block,
-        layout="shared" if step.smem_bytes else "local", smem_bytes=step.smem_bytes,
+        layout=step.layout, smem_bytes=step.smem_bytes,
         shared_layout_bytes=step.layout_bytes if step.pair_mode != 2 else None,
         smem_budget=fused.SMEM_BUDGET, ptxas=instance_ptxas(fused.build_library().log, step), **out, **cull)
     return out
 
 
 def phase_train(name: str, device, card: str) -> dict:
+    """3 training iterations of `name` at its YAML's width; on flat ground
+    without pairs (not in the local layout) also what the ground skip sees
+    on the state the last iteration ends in."""
     import thormang_isaacgym_tpu_torch as tgt
     from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig
     from thormang_isaacgym_tpu_torch.tasks import cfg_name
@@ -1011,14 +1097,17 @@ def phase_train(name: str, device, card: str) -> dict:
             not bool(torch.isfinite(env_state.obs).all()):
         raise AssertionError("observations are not finite of shape (B, num_obs)")
     steady = times[1:]
+    step = env.physics_step
     out = dict(launches=launches, expected_launches=expected,
                s_per_iter=times,
                env_steps_per_s=envs * cfg.horizon_length / (sum(steady) / len(steady)),
                card=card, metrics=metrics)
-    log("train", task=name, envs=envs, dt=env.task.sim_params.dt,
+    skip = ground_skip_stats(env.task.model, env_state.q) \
+        if step.hf is None and step.pair_mode == 0 and step.layout != "local" else {}
+    log("train", task=name, envs=envs, layout=step.layout, dt=env.task.sim_params.dt,
         substeps=env.task.sim_params.substeps, horizon=cfg.horizon_length,
         minibatch=cfg.minibatch_size, mini_epochs=cfg.mini_epochs,
-        mixed_precision=cfg.mixed_precision, **out)
+        mixed_precision=cfg.mixed_precision, **out, **{f"end_state_{k}": v for k, v in skip.items()})
     return out
 
 
@@ -1064,11 +1153,19 @@ def main() -> None:
     phase_build()
     max_err, stack_bytes = phase_compare(device)
     modes = (("flat", "Ant"), ("heightfield", "AnymalTerrain"), ("pairs", "BallBalance"),
-             ("boxes", "AllegroHand"), ("tendons", "ShadowHand"), ("flat_local", "HumanoidMJCF"))
-    timing = {mode: phase_time(name, device, stack_bytes if name == FIRST_LOCAL else None)
-              for mode, name in modes}
-    train = {mode: phase_train(name, device, dev_info["kind"]) for mode, name in modes}
+             ("boxes", "AllegroHand"), ("tendons", "ShadowHand"), ("flat_split", "HumanoidMJCF"),
+             ("flat_local", "HumanoidMJCF"))
+    timing, train = {}, {}
+    for mode, name in modes:
+        with local_layout(mode == "flat_local"):
+            timing[mode] = phase_time(name, device, stack_bytes.get(mode))
+    for mode, name in modes:
+        with local_layout(mode == "flat_local"):
+            train[mode] = phase_train(name, device, dev_info["kind"])
     phase_cli()
+    # the split layout's first launch ran first; the local one's adds to it
+    reserved = dict(flat_split=stack_bytes["flat_split"],
+                    flat_local=stack_bytes["flat_split"] + stack_bytes["flat_local"])
     kernels = [dict(
         name=f"fused_step[{mode}]", route="cuda",
         source="thormang_isaacgym_tpu_torch/csrc/fused_step.cu",
@@ -1078,8 +1175,8 @@ def main() -> None:
         **({"also_replaces": ALSO_REPLACES[mode]} if mode in ALSO_REPLACES else {}),
         **({k: timing[mode][k] for k in ("tendon_block_ms", "tendon_bound_ms")}
            if mode == "tendons" else {}),
-        **({"first_launch_stack_bytes": timing[mode]["first_launch_stack_bytes"]}
-           if mode == "flat_local" else {}))
+        **({"first_launch_stack_bytes": stack_bytes[mode], "stack_reserved_bytes": reserved[mode]}
+           if mode in reserved else {}))
         for mode, _ in modes]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_info["kind"],

@@ -1,21 +1,37 @@
 #!/usr/bin/env python3
 """Write a copy of the port package whose CUDA kernel leaves out, or adds,
 named parts of the shared round-pair instance (``fused_step_kernel`` with
-kPA and kSM in csrc/fused_step.cu), so that each part of its design can be
-timed against the whole, on one card in one call:
+kPA and kSM in csrc/fused_step.cu), or places the split layout's state
+otherwise, so that each part of a design can be timed against the whole, on
+one card in one call:
 
-    python3 scripts/kernel_variant.py --out DIR [--tree SRC] [--drop skip rows] [--add tables]
-    python3 scripts/time_flat_kernel.py --tree DIR --task BallBalance
+    python3 scripts/kernel_variant.py --out DIR [--tree SRC] [--drop skip rows split_skip]
+        [--add tables] [--place A|B]
+    python3 scripts/time_flat_kernel.py --tree DIR --task BallBalance|HumanoidMJCF
 
 Parts it can leave out:
   skip    the warp-level skip of a ground or pair candidate out of contact in
           every env of the warp (the candidate's force block runs for all)
   rows    the staging of the env's input rows in shared memory (every
           substep reads them from the input slab)
+  split_skip   the split instance's warp-level skip of a ground candidate
+          out of contact in every env of the warp
 Part it can add:
   tables  the copy of the model's two tables to the front of the block's
           shared memory, behind a barrier, as the instances without pairs
           do (the wrapper's shared bytes count them)
+Other placements of the split layout (``kSplit``: the model's tables,
+the sweep state and the candidates' kept state in shared memory, but the
+articulated inertias IA, 21 words a body, in per-thread local memory, and
+the input rows in device memory):
+  B       IA in shared memory, the joint rotations Rl (9 words a joint)
+          local, the tables in device memory
+  C       IA in shared memory, the tables in device memory, the
+          candidates' state recomputed in the contact's second pass: the
+          sweep state alone in shared memory, no local array
+  notables   the tables in device memory
+  rows    the body rows (mass, com, inertia, gravity scale: 11 a body)
+          staged in shared memory too, the other rows in device memory
 
 Every other instance compiles from the same source as in SRC (default: this
 repository), and the variant computes the same outputs bit for bit (the
@@ -48,6 +64,47 @@ DROP = {
          f"#define RD(r) ((kSM && !{PAIR_SM}) ? rows_s[r] : in[(size_t)(r) * B + b])"),
     ],
 }
+DROP["split_skip"] = [
+    (KERNEL, "if (kVote && phase == 1 && !((touch[c >> 5] >> (c & 31)) & 1u)) continue;",
+     "if (kVote && kLayout != kSplit && phase == 1 && !((touch[c >> 5] >> (c & 31)) & 1u)) continue;"),
+]
+# the split layout's placement (csrc/fused_step.cu, ops/fused.py): the
+# articulated inertias local, the tables and the candidates' kept state in
+# shared memory, the input rows in device memory
+IA_LOCAL = (KERNEL, "SymI (&IA)[MAXB] = kSM ? carve", "SymI (&IA)[MAXB] = kSW ? carve")
+NO_TABLES = (KERNEL, "constexpr bool kTables = kSW && !kPA;", "constexpr bool kTables = kSM && !kPA;")
+SPLIT_WORDS = (KERNEL, "  return (lane_words(nb, nj, nq, nv, nc, false, 0, 0) - 21 * nb) | 1;")
+SPLIT_WORDS_PY = (WRAPPER, "    return (sweep_lane_words(nb, nj, nq, nv, nc) - 21 * nb) | 1")
+SPLIT_TABLES_PY = (WRAPPER, "    return 4 * (tables + block * split_lane_words(nb, nj, nq, nv, nc))",
+                   "    return 4 * block * split_lane_words(nb, nj, nq, nv, nc)")
+PLACE = {
+    "B": [
+        IA_LOCAL, NO_TABLES, SPLIT_TABLES_PY,
+        (KERNEL, "float (&Rl)[MAXB][9] = kSW ? carve", "float (&Rl)[MAXB][9] = kSM ? carve"),
+        (*SPLIT_WORDS, "  return (lane_words(nb, nj, nq, nv, nc, false, 0, 0) - 9 * nj) | 1;"),
+        (*SPLIT_WORDS_PY, "    return (sweep_lane_words(nb, nj, nq, nv, nc) - 9 * nj) | 1"),
+    ],
+    "C": [
+        IA_LOCAL, NO_TABLES, SPLIT_TABLES_PY,
+        (KERNEL, "constexpr bool kKept = kSW;", "constexpr bool kKept = kSM;"),
+        (*SPLIT_WORDS, "  return lane_words(nb, nj, nq, nv, 0, false, 0, 0);"),
+        (*SPLIT_WORDS_PY, "    return sweep_lane_words(nb, nj, nq, nv, 0)"),
+    ],
+    "notables": [NO_TABLES, SPLIT_TABLES_PY],
+    "rows": [
+        (KERNEL, "float* const rows_s = kSM ? carve<1, float>(sp, rw.total) : nullptr;",
+         "float* const rows_s = kSM ? carve<1, float>(sp, rw.total)\n"
+         "                           : kSW ? carve<1, float>(sp, 11 * nb) : nullptr;"),
+        (KERNEL, "if (kSM) stage_rows(rows_s, in + b, rw.total, B);",
+         "if (kSM) stage_rows(rows_s, in + b, rw.total, B);\n"
+         "  else if (kSW) stage_rows(rows_s, in + (size_t)rw.mass * B + b, 11 * nb, B);"),
+        (KERNEL, "#define RD(r) (kSM ? rows_s[r] : in[(size_t)(r) * B + b])",
+         "#define RD(r) (kSM ? rows_s[r] : (kSW && (unsigned)((r) - rw.mass) < 11u * nb) "
+         "? rows_s[(r) - rw.mass] : in[(size_t)(r) * B + b])"),
+        (*SPLIT_WORDS, "  return (lane_words(nb, nj, nq, nv, nc, false, 11 * nb, 0) - 21 * nb) | 1;"),
+        (*SPLIT_WORDS_PY, "    return (sweep_lane_words(nb, nj, nq, nv, nc, rows=11 * nb) - 21 * nb) | 1"),
+    ],
+}
 ADD = {
     "tables": [
         (KERNEL, "constexpr bool kTables = kSM && !kPA;", "constexpr bool kTables = kSM;"),
@@ -57,16 +114,18 @@ ADD = {
 }
 
 
-def make_variant(src_tree: str, out: str, drop=(), add=()) -> str:
-    """Copy src_tree's package to out (its build directory left behind) and
-    apply the edits of each part in `drop` and `add`; returns the edited
-    kernel source's path."""
+def make_variant(src_tree: str, out: str, drop=(), add=(), place=None) -> str:
+    """Copy src_tree's package and assets to out (its build directory left behind) and
+    apply the edits of each part in `drop` and `add` and of the placement
+    `place`; returns the edited kernel source's path."""
     dst = os.path.join(out, PACKAGE)
     if os.path.exists(dst):
         shutil.rmtree(dst)
     shutil.copytree(os.path.join(src_tree, PACKAGE), dst,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for part in [*(DROP[p] for p in drop), *(ADD[p] for p in add)]:
+    # the tasks' model files (HumanoidMJCF's MJCF), found beside the package
+    shutil.copytree(os.path.join(src_tree, "assets"), os.path.join(out, "assets"), dirs_exist_ok=True)
+    for part in [*(DROP[p] for p in drop), *(ADD[p] for p in add), *([PLACE[place]] if place else [])]:
         for rel, old, new in part:
             path = os.path.join(dst, rel)
             with open(path) as f:
@@ -84,8 +143,10 @@ def main() -> None:
     ap.add_argument("--out", required=True)
     ap.add_argument("--drop", nargs="+", choices=sorted(DROP), default=[])
     ap.add_argument("--add", nargs="+", choices=sorted(ADD), default=[])
+    ap.add_argument("--place", choices=sorted(PLACE))
     args = ap.parse_args()
-    print(make_variant(os.path.abspath(args.tree), os.path.abspath(args.out), args.drop, args.add))
+    print(make_variant(os.path.abspath(args.tree), os.path.abspath(args.out), args.drop, args.add,
+                       args.place))
 
 
 if __name__ == "__main__":

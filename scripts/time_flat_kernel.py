@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the fused CUDA kernel on Ant or Anymal (its flat instance),
-HumanoidMJCF (the flat instance in its local-memory layout: over the shared
-budget; cfg/task/Humanoid.yaml),
+HumanoidMJCF (the flat instance in its split layout: over the shared
+budget; cfg/task/Humanoid.yaml; the local layout in a tree without it),
 AnymalTerrain (its heightfield instance), BallBalance (its pair instance,
 the round kinds and attractors), the pair-capsule scene of chip_smoke.py
 (the pair instance's sphere-capsule and capsule-capsule kinds, 4096 envs),
@@ -28,7 +28,7 @@ places it; Anymal dt 0.02 s with 2 substeps on flat ground, placed as
 AnymalTerrain is; HumanoidMJCF dt 0.0166 s with 2 substeps and the feet's
 torque rows, standing at its spawn height with its joints and base tilted
 and efforts of its motor gears; a tree without HumanoidMJCF cannot time it),
-the block size and dynamic shared bytes of the launch,
+the block size, layout and dynamic shared bytes of the launch,
 the options' results and the ptxas register and stack line of the
 instance. Run it for the two trees in turns (parent, change, change,
 parent) to see the spread.
@@ -41,7 +41,7 @@ Options:
              rule; ``ms`` is the first one's first reading.
   --local    also time each block size with the budget set to 0, the
              local-memory route of a model over the budget (in turns with
-             the shared layout).
+             the layout the budget rule picks).
   --split    also time the same inputs with the pair table cut out (header
              int 39 set to 0), with the ground candidates cut out (header
              int 7), and with both: copies of the model tables, the kernel's
@@ -61,8 +61,9 @@ Options:
              block of rows (q, qd, net force, torque), and whether they are
              equal bit for bit. Needs no card.
   --sass P   save ``cuobjdump -sass`` of the tree's kernel library to P.
-  --compare-sass A B   per instance (its template flags, kSM = 0 where a
-             tree has no such flag), whether two such files hold the same
+  --compare-sass A B   per instance (its template flags, the layout last:
+             0 local, 1 shared, 2 split; a tree with a bool kSM flag gives 0
+             or 1, one without it 0), whether two such files hold the same
              instructions, the function names aside. Needs no card.
 """
 from __future__ import annotations
@@ -82,17 +83,21 @@ INSTANCE = {"Ant": (0, 0, 0), "Anymal": (0, 0, 0), "AnymalTerrain": (1, 0, 0),
             "BallBalance": (0, 1, 0), "PairCapsule": (0, 1, 0), "AllegroHand": (0, 1, 1),
             "ShadowHand": (0, 1, 1), "HumanoidMJCF": (0, 0, 0)}
 _HEADER = 48
+# the kernel's layouts by their codes (kLocal, kShared, kSplit in csrc/fused_step.cu)
+LAYOUT_CODES = {"local": 0, "shared": 1, "split": 2}
 # the tasks whose cfg/task YAML carries another name (the port's tasks.CFG_NAMES;
 # a parent tree may not have it)
 CFG_NAMES = {"HumanoidMJCF": "Humanoid"}
 
 
-def mangled(flags, smem: int) -> tuple:
+def mangled(flags, layout: str) -> tuple:
     """The instance's mangled name in any tree: the template <kHF, kPA>,
-    <kHF, kPA, kBX> or, with the shared layout's flag, <kHF, kPA, kBX, kSM>."""
-    def name(fl):
-        return "kernelI" + "".join(f"Lb{int(f)}E" for f in fl) + "EEv"
-    return name(flags[:2]), name(flags), name((*flags, smem > 0))
+    <kHF, kPA, kBX>, with the shared layout's flag <kHF, kPA, kBX, bool kSM>,
+    or with the layout's code <kHF, kPA, kBX, int kLayout>."""
+    def name(fl, last=""):
+        return "kernelI" + "".join(f"Lb{int(f)}E" for f in fl) + last + "EEv"
+    return (name(flags[:2]), name(flags), name((*flags, layout == "shared")),
+            name(flags, f"Li{LAYOUT_CODES[layout]}E"))
 
 
 def strip_tables(mi: np.ndarray, mf: np.ndarray, *, pairs: bool, ground: bool):
@@ -151,13 +156,14 @@ def compare(a_path: str, b_path: str) -> dict:
 
 
 def sass_instances(path: str) -> dict:
-    """{template flags: instruction lines} of a ``cuobjdump -sass`` file;
-    an instance without the kSM flag counts as kSM = 0."""
+    """{template arguments: instruction lines} of a ``cuobjdump -sass``
+    file, the layout last (a bool kSM as 0 or 1, the same codes as the int
+    kLayout's local and shared; an instance without either counts as 0)."""
     out, key = {}, None
     for ln in open(path):
         if "Function :" in ln:
-            flags = re.search(r"kernelI((?:Lb[01]E)+)E", ln).group(1)
-            key = "".join(flags[2::4]).ljust(4, "0")
+            args = re.search(r"kernelI((?:L[bi]\d+E)+)E", ln).group(1)
+            key = "".join(re.findall(r"L[bi](\d+)E", args)).ljust(4, "0")
             out[key] = []
         elif key is not None and ln.strip():
             out[key].append(ln.strip())
@@ -335,7 +341,8 @@ def main() -> None:
     turns = {}
     for key in [*layouts, *reversed(layouts)]:
         step.block, fused.SMEM_BUDGET = layouts[key]
-        turns.setdefault(key, dict(smem_bytes=step.smem_bytes, ms=[]))["ms"].append(time_ms())
+        turns.setdefault(key, dict(layout=getattr(step, "layout", None), smem_bytes=step.smem_bytes,
+                                   ms=[]))["ms"].append(time_ms())
     if layouts:
         step.block, fused.SMEM_BUDGET = layouts[next(iter(layouts))]
     ms = {"as_is": next(iter(turns.values()))["ms"][0] if turns else time_ms()}
@@ -362,15 +369,16 @@ def main() -> None:
             ms["tendon_block"] = ms["as_is"] - ms["no_tendons"]
             tendon = dict(tendon_bound=tendon_bound(m, step.n_steps, B))
     smem = getattr(step, "smem_bytes", 0)
+    layout = getattr(step, "layout", "shared" if smem else "local")
     log = fused.build_library().log.splitlines()
-    names = mangled(INSTANCE[args.task], smem)
+    names = mangled(INSTANCE[args.task], layout)
     at = [i for i, ln in enumerate(log) if "Compiling entry" in ln
           and any(n in ln for n in names)]
     inst = [ln.strip() for ln in log[at[0]:at[0] + 4] if "stack" in ln or "registers" in ln] \
         if at else []
     print(json.dumps({"tree": os.path.relpath(tree, ROOT), "card": card, "task": args.task,
                       "envs": B, "iters": args.iters, "ms": ms["as_is"],
-                      "block": getattr(step, "block", 128), "smem_bytes": smem,
+                      "block": getattr(step, "block", 128), "layout": layout, "smem_bytes": smem,
                       **({"layouts": turns} if turns else {}),
                       **({"split_ms": ms} if args.split else {}), **tendon, **stack,
                       "ptxas": inst}), flush=True)

@@ -22,8 +22,8 @@ pressed into the palm's edge), step by step (``STEPWISE``). The tendon block
 coupled length on both sides of each bound and inside) and on ShadowHand
 (four tendons, the cube on its palm), step by step. HumanoidMJCF (22 bodies,
 43 ground candidates: over the shared-memory budget) runs the flat instance in
-its local-memory layout, free running, its net also held at chip_smoke's
-flat-mode tolerance (atol 1e-2 N). Tolerances of
+its split layout (the sweep state alone in shared memory), free running, its
+net also held at chip_smoke's flat-mode tolerance (atol 1e-2 N). Tolerances of
 tests/test_fused.py: q atol=rtol 2e-3, qd atol=rtol 2e-2, net atol 1.0 /
 rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine
 without it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
@@ -362,7 +362,7 @@ static HostDim blockIdx, threadIdx, blockDim;
 inline bool __any_sync(unsigned, bool p) { return p; }
 """
 # One CUDA thread per call, blockDim.x = the launch's block size. The shared
-# instances' buffer is a static array: before each thread every word is set
+# and split instances' buffer is a static array: before each thread every word is set
 # to a NaN canary, and after it every word outside the thread's lane
 # (threadIdx.x x lane words, the lane words) must still hold it, so a lane
 # that strays out of its slice is counted (the return value), and one that
@@ -372,11 +372,11 @@ float sweep_smem[232448 / 4];
 static const uint32_t kCanary = 0x7fc0dead;
 
 extern "C" int host_launch(const int* mi, const float* mf, const float* hf, const float* in,
-                           float* out, int B, int pairs, int threads, int smem) {
+                           float* out, int B, int pairs, int threads, int layout, int smem) {
   blockDim.x = threads;
-  // the model tables first (header ints 44-45: their lengths; without pairs
-  // only), then the lanes
-  const int tables = smem && !pairs ? mi[44] + mi[45] : 0, words = smem / 4;
+  // the model tables first (header ints 44-45: their lengths; the shared and
+  // split layouts without pairs only), then the lanes
+  const int tables = layout != kLocal && !pairs ? mi[44] + mi[45] : 0, words = smem / 4;
   const int lane = (words - tables) / threads;
   int strays = 0;
   for (int b = 0; b < B; ++b) {
@@ -384,25 +384,27 @@ extern "C" int host_launch(const int* mi, const float* mf, const float* hf, cons
     threadIdx.x = b % threads;
     for (int w = 0; w < words; ++w) std::memcpy(&sweep_smem[w], &kCanary, 4);
     if (hf && pairs == 2)
-      fused_step_kernel<true, true, true, false>(mi, mf, hf, in, out, B);
-    else if (hf && pairs == 1 && smem)
-      fused_step_kernel<true, true, false, true>(mi, mf, hf, in, out, B);
+      fused_step_kernel<true, true, true, kLocal>(mi, mf, hf, in, out, B);
+    else if (hf && pairs == 1 && layout == kShared)
+      fused_step_kernel<true, true, false, kShared>(mi, mf, hf, in, out, B);
     else if (hf && pairs == 1)
-      fused_step_kernel<true, true, false, false>(mi, mf, hf, in, out, B);
-    else if (hf && smem)
-      fused_step_kernel<true, false, false, true>(mi, mf, hf, in, out, B);
+      fused_step_kernel<true, true, false, kLocal>(mi, mf, hf, in, out, B);
+    else if (hf && layout == kShared)
+      fused_step_kernel<true, false, false, kShared>(mi, mf, hf, in, out, B);
     else if (hf)
-      fused_step_kernel<true, false, false, false>(mi, mf, hf, in, out, B);
+      fused_step_kernel<true, false, false, kLocal>(mi, mf, hf, in, out, B);
     else if (pairs == 2)
-      fused_step_kernel<false, true, true, false>(mi, mf, hf, in, out, B);
-    else if (pairs == 1 && smem)
-      fused_step_kernel<false, true, false, true>(mi, mf, hf, in, out, B);
+      fused_step_kernel<false, true, true, kLocal>(mi, mf, hf, in, out, B);
+    else if (pairs == 1 && layout == kShared)
+      fused_step_kernel<false, true, false, kShared>(mi, mf, hf, in, out, B);
     else if (pairs == 1)
-      fused_step_kernel<false, true, false, false>(mi, mf, hf, in, out, B);
-    else if (smem)
-      fused_step_kernel<false, false, false, true>(mi, mf, hf, in, out, B);
+      fused_step_kernel<false, true, false, kLocal>(mi, mf, hf, in, out, B);
+    else if (layout == kShared)
+      fused_step_kernel<false, false, false, kShared>(mi, mf, hf, in, out, B);
+    else if (layout == kSplit)
+      fused_step_kernel<false, false, false, kSplit>(mi, mf, hf, in, out, B);
     else
-      fused_step_kernel<false, false, false, false>(mi, mf, hf, in, out, B);
+      fused_step_kernel<false, false, false, kLocal>(mi, mf, hf, in, out, B);
     for (int w = 0; w < words; ++w) {
       uint32_t x;
       std::memcpy(&x, &sweep_smem[w], 4);
@@ -417,6 +419,10 @@ extern "C" int host_launch(const int* mi, const float* mf, const float* hf, cons
 extern "C" int host_lane_words(int nb, int nj, int nq, int nv, int nc, int hf, int rows,
                                int npb) {
   return lane_words(nb, nj, nq, nv, nc, hf != 0, rows, npb);
+}
+
+extern "C" int host_split_lane_words(int nb, int nj, int nq, int nv, int nc) {
+  return split_lane_words(nb, nj, nq, nv, nc);
 }
 """
 
@@ -434,10 +440,12 @@ def host_kernel(tmp_path_factory):
     subprocess.run([cxx, "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
                     "-o", str(so), str(cpp)], check=True)
     lib = ctypes.CDLL(str(so))
-    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     lib.host_launch.restype = ctypes.c_int
     lib.host_lane_words.argtypes = [ctypes.c_int] * 8
     lib.host_lane_words.restype = ctypes.c_int
+    lib.host_split_lane_words.argtypes = [ctypes.c_int] * 5
+    lib.host_split_lane_words.restype = ctypes.c_int
     return lib
 
 
@@ -582,7 +590,8 @@ def _host_call(lib, step, params, q, qd, ctrl, wrench):
     hf = step.hf.table.data_ptr() if step.hf is not None else None
     out = torch.full((step.out_rows, q.shape[0]), float("nan"))
     strays = lib.host_launch(mi.data_ptr(), mf.data_ptr(), hf, packed.data_ptr(), out.data_ptr(),
-                             q.shape[0], int(step.pair_mode), step.block, step.smem_bytes)
+                             q.shape[0], int(step.pair_mode), step.block,
+                             fused.LAYOUTS.index(step.layout), step.smem_bytes)
     assert strays == 0, f"{strays} shared words written outside their lane"
     return step.unpack(out, q.shape[0])
 
@@ -654,9 +663,12 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
     if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
                 "shadow_hand", "humanoid_mjcf", *PAIR_TERRAIN, *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
-    if name == "humanoid_mjcf":                  # over the shared budget: the local layout
-        assert step.pair_mode == 0 and step.block == fused.BLOCK and step.smem_bytes == 0
+    if name == "humanoid_mjcf":                  # over the shared budget: the split layout
+        assert step.pair_mode == 0 and step.block == fused.BLOCK and step.layout == "split"
         assert step.layout_bytes == 363_568 > fused.SMEM_BUDGET
+        mi, mf = step._tables
+        assert step.smem_bytes == fused.split_bytes(model.nb, model.nj, model.nq, model.nv, step._nc,
+                                                    fused.BLOCK, tables=len(mi) + len(mf)) == 201_264
     if name in PAIR_TERRAIN:                     # a heightfield pair instance: ground and pair
         assert step.hf is not None and step.pair_mode == PAIR_TERRAIN[name]
         assert pair_touched > 0.1 and ground_touched > 0.1, (pair_touched, ground_touched)
@@ -677,28 +689,34 @@ def _bits(outs):
     return [o.contiguous().view(torch.int32) for o in outs]
 
 
-@pytest.mark.parametrize("name", ["ant", "anymal_terrain", "ball_balance", "pair_capsule"])
+@pytest.mark.parametrize("name", ["ant", "anymal_terrain", "ball_balance", "pair_capsule",
+                                  "humanoid_mjcf"])
 def test_host_kernel_ragged_block(host_kernel, monkeypatch, name):
     """A shared instance (without pairs, or with the round pairs and
-    attractors) on the host over 37 distinct envs in blocks of
-    fused.BLOCK (a full block and a ragged edge): each env within
-    test_fused's tolerances of the plain version, and the lane check of the
-    host loop clean (``_host_call``). Permuting the envs permutes the outputs
-    bit for bit, and the local layout (the budget set to 0, blocks of 32)
-    gives the same bits."""
+    attractors), or HumanoidMJCF's split instance, on the host over 37
+    distinct envs in blocks of fused.BLOCK (a full block and a ragged
+    edge): each env within test_fused's tolerances of the plain version
+    (HumanoidMJCF's net also within chip_smoke's flat 1e-2 N), and the lane
+    check of the host loop clean (``_host_call``). Permuting the envs
+    permutes the outputs bit for bit, and the local layout (the budget set
+    to 0, blocks of 32) gives the same bits."""
     model, sp, task, ground = _model(name)
     step = _step(model, sp, task, ground, "cpu")
     assert step.block == fused.BLOCK == 32 and step.smem_bytes > 0
+    assert step.layout == ("split" if name == "humanoid_mjcf" else "shared")
     params, q, qd, ctrl, w = _first(RAGGED, model, *_inputs(name, model, task, "cpu", ground)[1:])
     got = _host_call(host_kernel, step, params, q, qd, ctrl, w)
-    _assert_close(got, step.plain(params, q, qd, ctrl, w))
+    want = step.plain(params, q, qd, ctrl, w)
+    _assert_close(got, want)
+    if name == "humanoid_mjcf":
+        np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), atol=1e-2, rtol=5e-3)
     perm = torch.as_tensor(np.random.default_rng(5).permutation(RAGGED))
     got_p = _host_call(host_kernel, step, params, q[perm], qd[perm],
                        Controls(*(c[perm] for c in ctrl)), w[perm])
     for a, b in zip(_bits(got_p), _bits(got)):
         assert torch.equal(a, b[perm])
     monkeypatch.setattr(fused, "SMEM_BUDGET", 0)
-    assert step.smem_bytes == 0
+    assert step.layout == "local" and step.smem_bytes == 0
     local = _host_call(host_kernel, step, params, q, qd, ctrl, w)
     for a, b in zip(_bits(local), _bits(got)):
         assert torch.equal(a, b)
@@ -720,13 +738,17 @@ def chain_model(n_bodies: int):
 
 
 def test_shared_budget_rule(host_kernel):
-    """ops/fused.py shared_bytes, a pure function of the model's counts and
+    """ops/fused.py pick_layout, a pure function of the model's counts and
     the block size: Ant, AnymalTerrain and BallBalance (with its pair
-    bodies' sums) fit in blocks of 32 and not of 128, with the lane words
-    the kernel's own (``lane_words``, odd); a model of HumanoidMJCF's counts
-    (22 bodies, 21 joints, 43 ground candidates) does not fit on either
-    ground and takes the local-memory layout, which matches the plain
-    version."""
+    bodies' sums) fit the shared layout in blocks of 32 and no layout in
+    blocks of 128, with the lane words the kernel's own (``lane_words``,
+    odd). A chain of HumanoidMJCF's counts (22 bodies, 21 joints, 43 ground
+    candidates) does not fit the shared layout on either ground: on flat
+    ground it takes the split layout (its tables and each env's slice
+    without rows and articulated inertias, the kernel's
+    ``split_lane_words``), over a heightfield the local one. A chain of 40
+    bodies exceeds even the split layout's budget and takes the local
+    layout. Both chains match the plain version."""
     for name in ("ant", "anymal_terrain", "ball_balance"):
         model, sp, task, ground = _model(name)
         step = _step(model, sp, task, ground, "cpu")
@@ -737,30 +759,40 @@ def test_shared_budget_rule(host_kernel):
         words = fused.sweep_lane_words(*counts, heightfield=hf, rows=rows, pair_bodies=npb)
         assert words % 2 == 1 and words == host_kernel.host_lane_words(*counts, int(hf), rows, npb)
         tables = 0 if npb else len(mi) + len(mf)       # the pair instance reads them from device memory
-        kw = dict(heightfield=hf, rows=rows, tables=tables, pair_bodies=npb)
-        assert fused.shared_bytes(*counts, 32, **kw) == step.smem_bytes == 4 * (tables + 32 * words)
+        kw = dict(pairs=npb > 0, heightfield=hf, rows=rows, tables=tables, pair_bodies=npb)
+        assert fused.pick_layout(*counts, 32, **kw) == ("shared", step.smem_bytes)
+        assert step.layout == "shared" and step.smem_bytes == 4 * (tables + 32 * words)
         assert 0 < step.smem_bytes <= fused.SMEM_BUDGET
-        assert fused.shared_bytes(*counts, 128, **kw) == 0
-    model = chain_model(22)
-    step = fused.build_fused_step_fn(model, SimParams(**TINY_SP))
-    counts = (model.nb, model.nj, model.nq, model.nv, step._nc)
-    assert counts == (22, 21, 28, 27, 43)
-    for hf in (False, True):
-        assert fused.shared_bytes(*counts, 32, heightfield=hf, rows=step.rows["total"]) == 0
-    assert step.smem_bytes == 0 and step.block == fused.BLOCK
+        assert fused.pick_layout(*counts, 128, **kw) == ("local", 0)
     rng = np.random.default_rng(4)
-    n = 8
-    q = np.zeros((n, model.nq))
-    q[:, 2] = rng.uniform(0.8, 1.6, n)
-    q[:, 3] = 1.0
-    q[:, 7:] = rng.uniform(-0.5, 0.5, (n, model.nj))
-    t = lambda x: torch.as_tensor(np.asarray(x, np.float32))  # noqa: E731
-    args = (model.default_params("cpu").batch(n), t(q), t(rng.normal(size=(n, model.nv)) * 0.5),
-            Controls(t(rng.normal(size=(n, model.nj)) * 0.1), t(np.zeros((n, model.nj))),
-                     t(rng.uniform(-5, 5, (n, model.nj)))), t(np.zeros((n, model.nb, 6))))
-    got = _host_call(host_kernel, step, *args)
-    _assert_close(got, step.plain(*args))
-    assert float(got[2][..., 2].abs().amax()) > 0        # the chain's lowest links touch the ground
+    for n_bodies, layout in ((22, "split"), (40, "local")):
+        model = chain_model(n_bodies)
+        step = fused.build_fused_step_fn(model, SimParams(**TINY_SP))
+        counts = (model.nb, model.nj, model.nq, model.nv, step._nc)
+        assert counts[4] == 2 * n_bodies - 1
+        if n_bodies == 22:
+            assert counts == (22, 21, 28, 27, 43)
+        rows, tables = step.rows["total"], sum(len(t) for t in step._tables)
+        assert fused.layout_bytes(*counts, 32, rows=rows, tables=tables) > fused.SMEM_BUDGET
+        assert fused.pick_layout(*counts, 32, heightfield=True, rows=rows, tables=tables) == ("local", 0)
+        words = fused.split_lane_words(*counts)
+        assert words % 2 == 1 and words == host_kernel.host_split_lane_words(*counts)
+        split = fused.split_bytes(*counts, 32, tables=tables)
+        assert split == 4 * (tables + 32 * words) and (split <= fused.SMEM_BUDGET) == (layout == "split")
+        assert step.layout == layout and step.block == fused.BLOCK
+        assert step.smem_bytes == (split if layout == "split" else 0)
+        n = 8
+        q = np.zeros((n, model.nq))
+        q[:, 2] = rng.uniform(0.8, 1.6, n)
+        q[:, 3] = 1.0
+        q[:, 7:] = rng.uniform(-0.5, 0.5, (n, model.nj))
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32))  # noqa: E731
+        args = (model.default_params("cpu").batch(n), t(q), t(rng.normal(size=(n, model.nv)) * 0.5),
+                Controls(t(rng.normal(size=(n, model.nj)) * 0.1), t(np.zeros((n, model.nj))),
+                         t(rng.uniform(-5, 5, (n, model.nj)))), t(np.zeros((n, model.nb, 6))))
+        got = _host_call(host_kernel, step, *args)
+        _assert_close(got, step.plain(*args))
+        assert float(got[2][..., 2].abs().amax()) > 0    # the chain's lowest links touch the ground
 
 
 def test_kernel_caps_raise():
@@ -828,21 +860,23 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
     assert step.launches == 5
 
 
-@pytest.mark.parametrize("name", ["anymal_terrain", "ball_balance"])
+@pytest.mark.parametrize("name", ["anymal_terrain", "ball_balance", "humanoid_mjcf"])
 def test_cuda_refused_shared_memory_raises(cuda_device, monkeypatch, name):
     """A block asking for more dynamic shared memory than the card gives
     (the budget lifted, in blocks of 64: AnymalTerrain about 450 KB,
-    BallBalance's pair instance about 310 KB) is refused by
+    BallBalance's pair instance about 310 KB; HumanoidMJCF's split layout,
+    the budget set under its shared layout's bytes, 399 KB) is refused by
     cudaFuncSetAttribute, and FusedStep.launch raises; nothing runs, and the
     next launch within the budget succeeds."""
     model, sp, task, ground = _model(name)
     step = _step(model, sp, task, ground, cuda_device)
+    layout = step.layout
     params, q, qd, ctrl, w = _inputs(name, model, task, cuda_device, ground)
     packed = step.pack(params, q, qd, ctrl, w)
     budget = fused.SMEM_BUDGET
-    monkeypatch.setattr(fused, "SMEM_BUDGET", 1 << 22)
     step.block = 64
-    assert step.smem_bytes > budget
+    monkeypatch.setattr(fused, "SMEM_BUDGET", 1 << 22 if layout == "shared" else step.layout_bytes - 4)
+    assert step.layout == layout and step.smem_bytes > budget
     with pytest.raises(RuntimeError, match="launch failed"):
         step.launch(packed)
     assert step.launches == 0

@@ -160,7 +160,7 @@ def test_make_with_humanoid_yaml_warns_like_jax():
     for attr in ("death_cost", "termination_height", "power_scale", "up_weight", "heading_weight",
                  "max_episode_length", "clip_actions"):
         assert getattr(env.task, attr) == getattr(jenv.task, attr), attr
-    assert env.physics_step.pair_mode == 0 and env.physics_step.smem_bytes == 0
+    assert env.physics_step.pair_mode == 0 and env.physics_step.layout == "split"
 
 
 def test_zero_actions_keep_standing():

@@ -88,17 +88,17 @@
 // (nq + nv + 3 nb + 3 ntq, B) has the same layout. One thread per env. The
 // per-env arrays are bounded by the compile-time caps below (bodies, roots);
 // the wrapper raises above them, and only the first nb entries of each array
-// are touched. Two layouts share the code (template parameter kSM):
-// - The box instance, and a model without the box kinds whose slice (below)
-//   exceeds the block's shared memory: the sweep state in per-thread local
-//   memory, the per-env rows read from the input slab in every substep, in
-//   blocks of 128 threads (the box instance) or 32.
-// - The shared instances (flat and heightfield ground, without pairs or with
+// are touched. Three layouts share the code (template parameter kLayout):
+// - The local layout: the box instance, and a model without the box kinds
+//   whose sweep state (below) exceeds the block's shared memory: the sweep
+//   state in per-thread local memory, the per-env rows read from the input
+//   slab in every substep, in blocks of 128 threads (the box instance) or 32.
+// - The shared layout (flat and heightfield ground, without pairs or with
 //   the round pairs and attractors: Ant, Anymal, AnymalTerrain, Cartpole,
 //   BallBalance): blocks of 32 threads, so 4096 envs are 128 blocks, one
 //   warp on each of 128 of the H100's 132 SMs (blocks of 128 put 4 warps on
 //   32 SMs and left 100 idle). Each block's dynamic shared buffer (sized at
-//   launch by ops/fused.py shared_bytes, at most 227 KB) holds, without
+//   launch by ops/fused.py pick_layout, at most 227 KB) holds, without
 //   pairs, the model's two tables, copied once by the block, then one slice
 //   per env: its input rows, staged once per launch by cp.async and read by
 //   every substep; q, qd and the per-body and per-joint arrays the three
@@ -119,16 +119,35 @@
 //   +0 or -0 to sums that start at +0), and keeps every thread of a ragged
 //   block alive (the vote and the table copy need them). AnymalTerrain takes
 //   225,584 bytes a block (1,745 words an env), Ant 147,368, BallBalance
-//   153,984 (1,203 words, 8 pair bodies); HumanoidMJCF's 22 bodies and about
-//   806 input rows would take about 360 kB, so it takes the local layout.
-//   The shared instances use 166 registers (with pairs 239) and a 496-byte
-//   stack, which the first launch finds already reserved; the local ones 167
-//   (flat), 239 (heightfield) and 249 (pairs) and 20,864, 22,400 and 24,320
-//   bytes, for which the first launch reserves 5.4, 5.8 and 6.3 GB of device
-//   memory.
-// The arithmetic is the same in both layouts and the outputs equal the
+//   153,984 (1,203 words, 8 pair bodies).
+// - The split layout (the flat instance without pairs, for a model whose
+//   whole slice exceeds the budget but whose split slice fits): blocks of
+//   32; the model's tables at the front of the buffer, then each lane's
+//   slice: the shared layout's without the input rows, which every substep
+//   reads from device memory as in the local layout, and without the
+//   articulated inertias IA (21 words a body), which stay in per-thread
+//   local memory (split_lane_words); it votes and skips as the shared
+//   instances do. HumanoidMJCF (22 bodies, 21 joints, 43 ground candidates,
+//   806 input rows) would take 363,568 bytes a block in the shared layout
+//   and takes 201,264 in the split one (1,541 words an env and 4,016 bytes
+//   of tables): 0.188 ms per control step at 4096 envs against 0.363 in
+//   the local layout (an H100 at 700 W), bit for bit. Two other placements
+//   fit and gave the same bits but ran 5-7 % slower: IA in shared memory
+//   with the tables in device memory and the candidates' state recomputed
+//   (the sweep state alone, 228,992 bytes, no local array), or with the
+//   joint rotations local instead (232,320 bytes); the shared tables are
+//   worth 4 %, the warp-level ground skip 19 %. scripts/kernel_variant.py
+//   --place writes them (PERF.md).
+// The shared instances use 166 registers (with pairs 239) and a 496-byte
+// stack, which the first launch finds already reserved; the split one 128
+// and 5,872 bytes (IA at the body cap: 1.31 GB reserved); the local ones
+// 167 (flat), 239 (heightfield) and 249 (pairs) and 20,864, 22,400 and
+// 24,320 bytes, for which the first launch reserves 5.4, 5.8 and 6.3 GB of
+// device memory.
+// The arithmetic is the same in every layout and the outputs equal the
 // previous one-layout kernel's bit for bit (measured over 4096 envs of Ant,
-// Anymal, AnymalTerrain, BallBalance and the pair-capsule scene).
+// Anymal, AnymalTerrain, BallBalance, the pair-capsule scene and
+// HumanoidMJCF).
 //
 // What bounds it. Per env and control step the kernel reads R rows and writes
 // out_rows rows once (Ant: 330 input + 56 output rows of 4 bytes), so at 4096
@@ -687,6 +706,13 @@ __host__ __device__ __forceinline__ int lane_words(int nb, int nj, int nq, int n
   return (rows + nq + nv + nb * (3 * 6 + 4 + 3 * 3 + 21 + 1) + nj * (9 + 3 + 6 + 4 + 4 + 1) +
           nc * (hf ? 3 + 8 : 5) + npb * (6 + 21)) | 1;
 }
+// The split layout's slice (the flat instance without pairs; the model's
+// tables at the front of the buffer): the shared layout's without the input
+// rows and without the articulated inertias IA, which stay in per-thread
+// local memory (ops/fused.py split_lane_words is the same function)
+__host__ __device__ __forceinline__ int split_lane_words(int nb, int nj, int nq, int nv, int nc) {
+  return (lane_words(nb, nj, nq, nv, nc, false, 0, 0) - 21 * nb) | 1;
+}
 // dst[r] = src[r B] for r < n, by asynchronous copies (cp.async) into
 // shared memory, waited for by the calling thread alone
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int n, int B) {
@@ -713,23 +739,35 @@ __device__ __forceinline__ auto as_array(T* p) -> T (&)[N] {
   return *reinterpret_cast<T (*)[N]>(p);
 }
 
+// the layouts (template parameter kLayout; ops/fused.py LAYOUTS): the sweep
+// state in per-thread local memory; everything per env in the block's
+// dynamic shared memory; or, for the flat instance without pairs, the sweep
+// state alone in shared memory, the rest as in the local layout
+constexpr int kLocal = 0, kShared = 1, kSplit = 2;
+
 // kHF: heightfield ground (the launcher picks it when it is given a table);
 // kPA: actor pairs and attractors, kBX: with the box kinds of the pair
-// narrowphase (the launcher picks both on the wrapper's flag); kSM (not with
-// the box kinds): the sweep state in dynamic shared memory, else in
-// per-thread local memory
-template <bool kHF, bool kPA, bool kBX, bool kSM>
+// narrowphase (the launcher picks both on the wrapper's flag); kLayout (kLocal
+// only with the box kinds, kSplit only without pairs on flat ground): where
+// the per-env state lives
+template <bool kHF, bool kPA, bool kBX, int kLayout>
 __global__ void __launch_bounds__(128)
 fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
                   const float* __restrict__ hf, const float* __restrict__ in,
                   float* __restrict__ out, int B) {
-  static_assert(!(kBX && kSM), "the box instance has the local layout only");
-  // the box and shared instances skip, warp by warp, the force of a ground or
-  // pair candidate out of contact in every env of the warp (__any_sync), and
-  // the shared instances without pairs fill their tables with the whole
-  // block (__syncthreads), so none of their threads leaves early: a thread
-  // past the ragged edge runs the last env again and writes nothing
-  constexpr bool kVote = kBX || kSM;
+  // kSM: the rows, the candidates' kept state (and without pairs the tables)
+  // in shared memory too; kSW: the sweep state in shared memory
+  constexpr bool kSM = kLayout == kShared;
+  constexpr bool kSW = kLayout != kLocal;
+  static_assert(!(kBX && kSW), "the box instance has the local layout only");
+  static_assert(kLayout != kSplit || !(kHF || kPA), "the split layout is the flat instance's");
+  // the box and shared-memory instances skip, warp by warp, the force of a
+  // ground or pair candidate out of contact in every env of the warp
+  // (__any_sync), and the shared instances without pairs fill their tables
+  // with the whole block (__syncthreads), so none of their threads leaves
+  // early: a thread past the ragged edge runs the last env again and writes
+  // nothing
+  constexpr bool kVote = kBX || kSW;
   const int b_thread = blockIdx.x * blockDim.x + threadIdx.x;
   if (!kVote && b_thread >= B) return;
   const int b = kVote ? min(b_thread, B - 1) : b_thread;
@@ -748,12 +786,12 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
     int* dst = reinterpret_cast<int*>(&rw);
     for (int k = 0; k < 27; ++k) dst[k] = mi[10 + k];
   }
-  // shared instances without pairs: the model's two tables (header ints
-  // 44-45: their lengths) copied once per block to the front of the shared
-  // buffer; every thread reads them at the same address. The pair instance
-  // reads them from device memory (its copy's barrier cost registers: see
-  // Design).
-  constexpr bool kTables = kSM && !kPA;
+  // shared and split instances without pairs: the model's two tables
+  // (header ints 44-45: their lengths) copied once per block to the front of
+  // the shared buffer; every thread reads them at the same address. The pair
+  // instance reads them from device memory (its copy's barrier cost
+  // registers: see Design).
+  constexpr bool kTables = kSW && !kPA;
   const int n_mi = kTables ? mi[44] : 0, n_mf = kTables ? mi[45] : 0;
   const int* mi_t = mi;
   const float* mf_t = mf;
@@ -806,19 +844,21 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 
   // kSM: the env's input rows, staged once, and the sweep state below are
   // this lane's slice of the shared buffer (carved in lane_words' order);
-  // else the rows are read from the input slab in every substep and the
-  // sweep state is per-thread local arrays
-  float* sp = kSM ? sweep_smem + n_mi + n_mf +
-                        threadIdx.x * lane_words(nb, nj, nq, nv, nc, kHF, rw.total,
-                                                 kPA ? n_pair_bodies : 0)
+  // else the rows are read from the input slab in every substep, and the
+  // sweep state is the lane's slice (kSW: the split layout's, all of it but
+  // the articulated inertias) or per-thread local arrays
+  float* sp = kSW ? sweep_smem + n_mi + n_mf +
+                        threadIdx.x * (kSM ? lane_words(nb, nj, nq, nv, nc, kHF, rw.total,
+                                                        kPA ? n_pair_bodies : 0)
+                                           : split_lane_words(nb, nj, nq, nv, nc))
                   : nullptr;
   float* const rows_s = kSM ? carve<1, float>(sp, rw.total) : nullptr;
   if (kSM) stage_rows(rows_s, in + b, rw.total, B);
 #define RD(r) (kSM ? rows_s[r] : in[(size_t)(r) * B + b])
 
   float q_l[MAXQ], qd_l[MAXV];
-  float (&q)[MAXQ] = kSM ? carve<MAXQ, float>(sp, nq) : q_l;
-  float (&qd)[MAXV] = kSM ? carve<MAXV, float>(sp, nv) : qd_l;
+  float (&q)[MAXQ] = kSW ? carve<MAXQ, float>(sp, nq) : q_l;
+  float (&qd)[MAXV] = kSW ? carve<MAXV, float>(sp, nv) : qd_l;
   for (int i = 0; i < nq; ++i) q[i] = RD(rw.q + i);
   for (int i = 0; i < nv; ++i) qd[i] = RD(rw.qd + i);
   int fidx[kMaxRoots];
@@ -835,35 +875,40 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   V3 pl_l[MAXB];
   float U_l[MAXB][6], invD_l[MAXB], uj_l[MAXB], tau_l[MAXB], diag_l[MAXB];
   float gpl_l[kHF ? 3 * kMaxCands : 1];  // heightfield mode: (c, gx, gy) per candidate
-  S6 (&v)[MAXB] = kSM ? carve<MAXB, S6>(sp, nb) : v_l;
-  S6 (&cb)[MAXB] = kSM ? carve<MAXB, S6>(sp, nb) : cb_l;
-  S6 (&pA)[MAXB] = kSM ? carve<MAXB, S6>(sp, nb) : pA_l;
-  Q4 (&quat_w)[MAXB] = kSM ? carve<MAXB, Q4>(sp, nb) : quat_w_l;
-  V3 (&pos_w)[MAXB] = kSM ? carve<MAXB, V3>(sp, nb) : pos_w_l;
-  V3 (&net_f)[MAXB] = kSM ? carve<MAXB, V3>(sp, nb) : net_f_l;
-  V3 (&net_t)[MAXB] = kSM ? carve<MAXB, V3>(sp, nb) : net_t_l;
+  S6 (&v)[MAXB] = kSW ? carve<MAXB, S6>(sp, nb) : v_l;
+  S6 (&cb)[MAXB] = kSW ? carve<MAXB, S6>(sp, nb) : cb_l;
+  S6 (&pA)[MAXB] = kSW ? carve<MAXB, S6>(sp, nb) : pA_l;
+  Q4 (&quat_w)[MAXB] = kSW ? carve<MAXB, Q4>(sp, nb) : quat_w_l;
+  V3 (&pos_w)[MAXB] = kSW ? carve<MAXB, V3>(sp, nb) : pos_w_l;
+  V3 (&net_f)[MAXB] = kSW ? carve<MAXB, V3>(sp, nb) : net_f_l;
+  V3 (&net_t)[MAXB] = kSW ? carve<MAXB, V3>(sp, nb) : net_t_l;
+  // the split layout keeps the articulated inertias local, to make room for
+  // the tables and the candidates' kept state
   SymI (&IA)[MAXB] = kSM ? carve<MAXB, SymI>(sp, nb) : IA_l;
-  float (&n_active)[MAXB] = kSM ? carve<MAXB, float>(sp, nb) : n_active_l;
-  float (&Rl)[MAXB][9] = kSM ? carve<MAXB, float[9]>(sp, nj) : Rl_l;
-  V3 (&pl)[MAXB] = kSM ? carve<MAXB, V3>(sp, nj) : pl_l;
-  float (&U)[MAXB][6] = kSM ? carve<MAXB, float[6]>(sp, nj) : U_l;
-  float (&invD)[MAXB] = kSM ? carve<MAXB, float>(sp, nj) : invD_l;
-  float (&uj)[MAXB] = kSM ? carve<MAXB, float>(sp, nj) : uj_l;
-  float (&tau)[MAXB] = kSM ? carve<MAXB, float>(sp, nj) : tau_l;
-  float (&diag)[MAXB] = kSM ? carve<MAXB, float>(sp, nj) : diag_l;
+  float (&n_active)[MAXB] = kSW ? carve<MAXB, float>(sp, nb) : n_active_l;
+  float (&Rl)[MAXB][9] = kSW ? carve<MAXB, float[9]>(sp, nj) : Rl_l;
+  V3 (&pl)[MAXB] = kSW ? carve<MAXB, V3>(sp, nj) : pl_l;
+  float (&U)[MAXB][6] = kSW ? carve<MAXB, float[6]>(sp, nj) : U_l;
+  float (&invD)[MAXB] = kSW ? carve<MAXB, float>(sp, nj) : invD_l;
+  float (&uj)[MAXB] = kSW ? carve<MAXB, float>(sp, nj) : uj_l;
+  float (&tau)[MAXB] = kSW ? carve<MAXB, float>(sp, nj) : tau_l;
+  float (&diag)[MAXB] = kSW ? carve<MAXB, float>(sp, nj) : diag_l;
   // the two arrays the substep loop declares: joint local rotations, accelerations
-  Q4* const quat_l_s = kSM ? carve<MAXB, Q4>(sp, nj) : nullptr;
-  float* const qdd_s = kSM ? carve<MAXB, float>(sp, nj) : nullptr;
+  Q4* const quat_l_s = kSW ? carve<MAXB, Q4>(sp, nj) : nullptr;
+  float* const qdd_s = kSW ? carve<MAXB, float>(sp, nj) : nullptr;
   float (&gpl)[kHF ? 3 * kMaxCands : 1] =
-      kSM ? carve<kHF ? 3 * kMaxCands : 1, float>(sp, kHF ? 3 * nc : 0) : gpl_l;
+      kSW ? carve<kHF ? 3 * kMaxCands : 1, float>(sp, kHF ? 3 * nc : 0) : gpl_l;
+  // the shared and split layouts: what the ground contact's first pass
+  // computes for a candidate, kept for the second
+  constexpr bool kKept = kSW;
   constexpr int kCandKept = kHF ? 8 : 5;  // per candidate: point, radius, depth (, normal)
-  float* const cand_kept = kSM ? carve<kMaxCands * kCandKept, float>(sp, kCandKept * nc) : nullptr;
+  float* const cand_kept = kKept ? carve<kMaxCands * kCandKept, float>(sp, kCandKept * nc) : nullptr;
   // pair mode, per pair body: the pair wrench [torque, force] and added inertia
   constexpr int kPB = kPA ? kMaxPairBodies : 1;
   S6 pacc_l[kPB];
   SymI dacc_l[kPB];
-  S6 (&pacc)[kPB] = kSM ? carve<kPB, S6>(sp, kPA ? n_pair_bodies : 0) : pacc_l;
-  SymI (&dacc)[kPB] = kSM ? carve<kPB, SymI>(sp, kPA ? n_pair_bodies : 0) : dacc_l;
+  S6 (&pacc)[kPB] = kSW ? carve<kPB, S6>(sp, kPA ? n_pair_bodies : 0) : pacc_l;
+  SymI (&dacc)[kPB] = kSW ? carve<kPB, SymI>(sp, kPA ? n_pair_bodies : 0) : dacc_l;
 
   for (int step = 0; step < n_steps; ++step) {
     const float* jq = q + 7 * nf;
@@ -890,7 +935,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
     }
     // ---- joint local poses + pass 1 (outward): link velocities, world poses ----
     Q4 quat_l_l[MAXB];
-    Q4 (&quat_l)[MAXB] = kSM ? as_array<MAXB>(quat_l_s) : quat_l_l;
+    Q4 (&quat_l)[MAXB] = kSW ? as_array<MAXB>(quat_l_s) : quat_l_l;
     for (int r = 0; r < nr; ++r) {
       v[r] = {root_wb[r], qrotinv(root_quat[r], root_vw[r])};
       cb[r] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
@@ -930,9 +975,9 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       net_t[bi] = {0.0f, 0.0f, 0.0f};
       n_active[bi] = 0.0f;
     }
-    // box and shared instances: bit c set when candidate c is in contact in
-    // some env of the warp (phase 0); the others add exact zeros, so phase 1
-    // skips them
+    // box, shared and split instances: bit c set when candidate c is in
+    // contact in some env of the warp (phase 0); the others add exact zeros,
+    // so phase 1 skips them
     unsigned touch[kVote ? kMaxCands / 32 : 1];
     for (int w = 0; kVote && w < kMaxCands / 32; ++w) touch[w] = 0u;
     for (int phase = 0; phase < 2; ++phase) {
@@ -943,10 +988,10 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
         V3 pc;
         float eff_r, depth;
         V3 n = {0.0f, 0.0f, 1.0f};  // ground normal
-        // shared instances: the first pass keeps the candidate's point,
+        // shared and split instances: the first pass keeps the candidate's point,
         // radius, depth (and normal) for the second
-        float* const kept = kSM ? cand_kept + kCandKept * c : nullptr;
-        if (kSM && phase == 1) {
+        float* const kept = kKept ? cand_kept + kCandKept * c : nullptr;
+        if (kKept && phase == 1) {
           pc = {kept[0], kept[1], kept[2]};
           eff_r = kept[3];
           depth = kept[4];
@@ -977,7 +1022,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
           } else {
             depth = ground_z - (pc.z - eff_r);
           }
-          if (kSM) {
+          if (kKept) {
             kept[0] = pc.x; kept[1] = pc.y; kept[2] = pc.z;
             kept[3] = eff_r;
             kept[4] = depth;
@@ -1314,7 +1359,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
       }
     }
     float qdd_l[MAXB];
-    float (&qdd)[MAXB] = kSM ? as_array<MAXB>(qdd_s) : qdd_l;
+    float (&qdd)[MAXB] = kSW ? as_array<MAXB>(qdd_s) : qdd_l;
     for (int bi = nr; bi < nb; ++bi) {
       const int j = bi - nr, p = parent[bi];
       const S6 ap = add6(motion_to_child(Rl[j], pl[j], v[p]), cb[bi]);
@@ -1394,18 +1439,19 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 // success); the launch is asynchronous on `stream`. `hf` is the heightfield
 // table in heightfield mode, else null; `pairs` picks the instance: 0
 // without the actor-pair and attractor blocks, 1 with them (the round
-// kinds), 2 with the box kinds too. `threads` is the block size; `smem`,
-// without the box kinds only, the dynamic shared bytes of the block's sweep
-// state (ops/fused.py shared_bytes: without pairs the tables, and threads x
-// lane_words words), or 0 for the local-memory layout.
-template <bool kHF, bool kPA, bool kBX, bool kSM>
+// kinds), 2 with the box kinds too. `threads` is the block size; `layout`
+// kLocal, kShared or kSplit (ops/fused.py LAYOUTS: kLocal with the box kinds,
+// kSplit only without pairs on flat ground); `smem` the dynamic shared bytes
+// of a block (ops/fused.py layout_bytes: in the shared layout without pairs
+// the tables, and threads x lane_words words), 0 in the local layout.
+template <bool kHF, bool kPA, bool kBX, int kLayout>
 int launch(const int* mi, const float* mf, const float* hf, const float* in, float* out, int B,
            int blocks, int threads, int smem, cudaStream_t s) {
-  if constexpr (kSM) {
+  if constexpr (kLayout != kLocal) {
     // the attribute is raised once per instance, to the most a block may use
     static int max_smem = 0;
     if (smem > max_smem) {
-      const cudaError_t e = cudaFuncSetAttribute(fused_step_kernel<kHF, kPA, kBX, kSM>,
+      const cudaError_t e = cudaFuncSetAttribute(fused_step_kernel<kHF, kPA, kBX, kLayout>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) {
         cudaGetLastError();  // returned here, so it does not fail the next launch
@@ -1414,33 +1460,42 @@ int launch(const int* mi, const float* mf, const float* hf, const float* in, flo
       max_smem = smem;
     }
   }
-  fused_step_kernel<kHF, kPA, kBX, kSM><<<blocks, threads, smem, s>>>(mi, mf, hf, in, out, B);
+  fused_step_kernel<kHF, kPA, kBX, kLayout><<<blocks, threads, smem, s>>>(mi, mf, hf, in, out, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the instances of one ground: without pairs or with the round kinds, in the
-// shared or the local layout, or with the box kinds (local only)
+// shared or the local layout (on flat ground without pairs also the split
+// one), or with the box kinds (local only)
 template <bool kHF>
 int launch_ground(const int* mi, const float* mf, const float* hf, const float* in, float* out,
-                  int B, int pairs, int blocks, int threads, int smem, cudaStream_t s) {
-  if (pairs == 2) return launch<kHF, true, true, false>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
+                  int B, int pairs, int blocks, int threads, int layout, int smem, cudaStream_t s) {
+  if (pairs == 2) return launch<kHF, true, true, kLocal>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
   if (pairs == 1)
-    return smem ? launch<kHF, true, false, true>(mi, mf, hf, in, out, B, blocks, threads, smem, s)
-                : launch<kHF, true, false, false>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
-  return smem ? launch<kHF, false, false, true>(mi, mf, hf, in, out, B, blocks, threads, smem, s)
-              : launch<kHF, false, false, false>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
+    return layout == kShared
+               ? launch<kHF, true, false, kShared>(mi, mf, hf, in, out, B, blocks, threads, smem, s)
+               : launch<kHF, true, false, kLocal>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
+  if constexpr (!kHF)
+    if (layout == kSplit)
+      return launch<false, false, false, kSplit>(mi, mf, hf, in, out, B, blocks, threads, smem, s);
+  return layout == kShared
+             ? launch<kHF, false, false, kShared>(mi, mf, hf, in, out, B, blocks, threads, smem, s)
+             : launch<kHF, false, false, kLocal>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
 }
 
 extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
                                  const void* in, void* out, int B, int pairs, int threads,
-                                 int smem, void* stream) {
+                                 int layout, int smem, void* stream) {
   if (B <= 0) return 0;
-  if (threads <= 0 || pairs < 0 || pairs > 2 || (pairs == 2 && smem != 0))
+  const bool bad_layout = layout < kLocal || layout > kSplit || (layout == kLocal) != (smem == 0) ||
+                          (pairs == 2 && layout != kLocal) ||
+                          (layout == kSplit && (pairs != 0 || hf != nullptr));
+  if (threads <= 0 || pairs < 0 || pairs > 2 || bad_layout)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + threads - 1) / threads;
   const auto launch_on = hf ? launch_ground<true> : launch_ground<false>;
   return launch_on(static_cast<const int*>(mi), static_cast<const float*>(mf),
                    static_cast<const float*>(hf), static_cast<const float*>(in),
-                   static_cast<float*>(out), B, pairs, blocks, threads, smem,
+                   static_cast<float*>(out), B, pairs, blocks, threads, layout, smem,
                    static_cast<cudaStream_t>(stream));
 }

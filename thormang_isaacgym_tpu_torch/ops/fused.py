@@ -36,9 +36,12 @@ op path reads them.
 
 Without the box kinds, the kernel keeps each env's input rows and sweep
 state (with pairs, also the pair bodies' sums) in the block's dynamic shared
-memory, in blocks of ``BLOCK`` envs, where the budget rule ``shared_bytes``
-finds room; otherwise, and in the box instance, the sweep state is
-per-thread local memory.
+memory, in blocks of ``BLOCK`` envs, where the budget rule ``pick_layout``
+finds room (the shared layout). On flat ground without pairs, a model whose
+slice does not fit may still keep there all of it but its input rows, read
+from device memory, and its articulated inertias, kept in per-thread local
+memory (the split layout). Otherwise, and in the box instance, the sweep
+state is per-thread local memory (the local layout).
 
 The kernel is built at first use with ``nvcc`` alone (no PyTorch headers)
 into ``thormang_isaacgym_tpu_torch/_build/`` and loaded with ``ctypes``. For
@@ -95,6 +98,9 @@ BLOCK = 32
 PAIR_BLOCK = 128
 # the dynamic shared memory a block may use on sm_90 (227 KB)
 SMEM_BUDGET = 232_448
+# the kernel's layouts, in the order of their codes in csrc/fused_step.cu
+# (kLocal, kShared, kSplit)
+LAYOUTS = ("local", "shared", "split")
 _HEADER = 48
 _KIND = {"sphere": 0, "capcap": 1, "capbox": 2, "boxbox": 3}
 
@@ -153,7 +159,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     lib = ctypes.CDLL(build_library().path)
     fn = lib.fused_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -182,14 +188,39 @@ def layout_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
                                                    rows=rows, pair_bodies=pair_bodies))
 
 
-def shared_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, **kw) -> int:
-    """The budget rule of the instances without the box kinds: the
-    ``layout_bytes`` of a block, or 0 when they exceed SMEM_BUDGET, and the
-    model takes the local-memory layout (the same arithmetic, the sweep
-    state in per-thread local memory, the rows and tables read from device
-    memory)."""
-    n = layout_bytes(nb, nj, nq, nv, nc, block, **kw)
-    return n if n <= SMEM_BUDGET else 0
+def split_lane_words(nb: int, nj: int, nq: int, nv: int, nc: int) -> int:
+    """Words of one env's slice of the split layout (csrc/fused_step.cu
+    ``split_lane_words``): the flat instance's ``sweep_lane_words`` without
+    the input rows, which stay in device memory, and without the 21 words a
+    body of the articulated inertias, which stay in per-thread local memory;
+    odd."""
+    return (sweep_lane_words(nb, nj, nq, nv, nc) - 21 * nb) | 1
+
+
+def split_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
+                tables: int = 0) -> int:
+    """The dynamic shared bytes the split layout takes for a block: the
+    model's two tables (`tables` words, once per block) and each env's
+    slice (``split_lane_words``)."""
+    return 4 * (tables + block * split_lane_words(nb, nj, nq, nv, nc))
+
+
+def pick_layout(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
+                pairs: bool = False, heightfield: bool = False, **kw) -> tuple:
+    """The budget rule of the instances without the box kinds, a pure
+    function of the model's counts: (layout, dynamic shared bytes of a
+    block). The shared layout where its ``layout_bytes`` fit SMEM_BUDGET;
+    else, on flat ground without pairs (`pairs`: the round-pair instance),
+    the split layout where its ``split_bytes`` fit; else the local layout
+    (the same arithmetic, the sweep state in per-thread local memory, the
+    rows and tables read from device memory) and 0."""
+    n = layout_bytes(nb, nj, nq, nv, nc, block, heightfield=heightfield, **kw)
+    if n <= SMEM_BUDGET:
+        return "shared", n
+    split = split_bytes(nb, nj, nq, nv, nc, block, tables=kw.get("tables", 0))
+    if not (pairs or heightfield) and split <= SMEM_BUDGET:
+        return "split", split
+    return "local", 0
 
 
 def make_rows(model: RobotModel, ground_rows: int = 0) -> dict:
@@ -406,9 +437,10 @@ class FusedStep:
     target, kp, kd) tuples. ``launches`` counts kernel launches (CPU calls
     run the plain version and do not count). ``pair_mode`` picks the
     kernel instance: 0 without pairs and attractors, 1 with them, 2 with a
-    pair of a box kind. ``block`` is the launch's block size;
-    ``smem_bytes`` the dynamic shared memory of a block (``shared_bytes``;
-    0 in the box mode and for a model over the budget)."""
+    pair of a box kind. ``block`` is the launch's block size; ``layout``
+    the layout the launch takes (``pick_layout``; "local" in the box mode)
+    and ``smem_bytes`` its dynamic shared memory of a block (0 in the local
+    layout)."""
 
     def __init__(self, model: RobotModel, sim_params: SimParams, *,
                  ground=0.0, attractors=None, need_torque=True):
@@ -436,24 +468,34 @@ class FusedStep:
         self.sampler = ground_plane_sampler(model, self.hf) if self.hf is not None else None
         self.launches = 0
 
+    def _layout_kw(self) -> dict:
+        mi, mf = self._tables
+        # the pair instance keeps its tables in device memory
+        return dict(heightfield=self.hf is not None, rows=self.rows["total"],
+                    tables=0 if self.pair_mode else len(mi) + len(mf), pair_bodies=self._npb)
+
     @property
     def layout_bytes(self) -> int:
         """The bytes a block of the shared layout would take (over
-        SMEM_BUDGET, the launch takes the local layout instead)."""
+        SMEM_BUDGET, the launch takes the split or local layout instead)."""
         m = self.model
-        mi, mf = self._tables
-        # the pair instance keeps its tables in device memory
-        return layout_bytes(m.nb, m.nj, m.nq, m.nv, self._nc, self.block,
-                            heightfield=self.hf is not None, rows=self.rows["total"],
-                            tables=0 if self.pair_mode else len(mi) + len(mf),
-                            pair_bodies=self._npb)
+        return layout_bytes(m.nb, m.nj, m.nq, m.nv, self._nc, self.block, **self._layout_kw())
+
+    def _layout(self) -> tuple:
+        """(layout, dynamic shared bytes of a block) under the budget rule."""
+        if self.pair_mode == 2:
+            return "local", 0
+        m = self.model
+        return pick_layout(m.nb, m.nj, m.nq, m.nv, self._nc, self.block,
+                           pairs=bool(self.pair_mode), **self._layout_kw())
+
+    @property
+    def layout(self) -> str:
+        return self._layout()[0]
 
     @property
     def smem_bytes(self) -> int:
-        if self.pair_mode == 2:
-            return 0
-        n = self.layout_bytes
-        return n if n <= SMEM_BUDGET else 0
+        return self._layout()[1]
 
     def _on(self, dev):
         """(int table, float table, torque-body index) on `dev`, built once:
@@ -541,13 +583,14 @@ class FusedStep:
         B = packed.shape[1]
         out = torch.empty(self.out_rows, B, device=dev, dtype=torch.float32)
         fn = load_library().fused_step_launch
+        layout, smem = self._layout()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(mi_t.data_ptr(), mf_t.data_ptr(), hf_ptr, packed.data_ptr(),
-                     out.data_ptr(), B, self.pair_mode, self.block, self.smem_bytes, stream)
+            err = fn(mi_t.data_ptr(), mf_t.data_ptr(), hf_ptr, packed.data_ptr(), out.data_ptr(),
+                     B, self.pair_mode, self.block, LAYOUTS.index(layout), smem, stream)
         if err != 0:
             raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err} "
-                               f"(block {self.block}, {self.smem_bytes} shared bytes)")
+                               f"(block {self.block}, {layout} layout, {smem} shared bytes)")
         self.launches += 1
         return out
 
