@@ -9,7 +9,8 @@ Phases, one line each (any failure raises and exits non-zero):
  1. build: compiles csrc/fused_step.cu with nvcc for sm_90a (build seconds,
     registers and spills as ptxas reports them).
  2. compare: the fused kernel against its plain PyTorch version on the card,
-    at 4096 envs (the hands 16384) from seeded numpy states, 1 and 5
+    at 4096 envs (the hands 16384, FrankaCubeStack 8192, the Factory tasks
+    128) from seeded numpy states, 1 and 5
     control steps: Cartpole and Ant (flat ground), HumanoidMJCF (flat ground
     in the split layout: over the shared budget; its first launch also
     measures the stack the CUDA runtime reserves for it, before any local
@@ -26,8 +27,14 @@ Phases, one line each (any failure raises and exits non-zero):
     (sphere-capsule and capsule-capsule pairs), and in the box mode (block
     B6) the box-box and capsule-box scenes of tests/test_fused.py, a ball on
     a cube, AllegroHand (the cube on the palm and among the fingers, or
-    pressed into the palm's edge) and ShadowHand (the same, with its four
-    tendons on either side of their bounds); max abs error of q, qd and net against
+    pressed into the palm's edge), ShadowHand (the same, with its four
+    tendons on either side of their bounds), the Franka arm alone (flat
+    mode) and the Franka family's contact states (FRANKA_CONTACT: the finger
+    pads around FrankaCabinet's handle bar, on cube A under cube B on
+    FrankaCubeStack's table, on the Factory nut on its table, on the Screw
+    task's threaded nut with its tendon on and beside its bound; the box
+    instance's first launch, on the box-box scene, measures its stack
+    reservation); max abs error of q, qd and net against
     TOL, beside the largest |value| of each and the share of non-zero net
     rows, the layout (shared, split or local), the launch's dynamic shared
     bytes and ptxas' registers and stack of the instance (AnymalTerrain also: the share of active contact candidates, the
@@ -37,11 +44,13 @@ Phases, one line each (any failure raises and exits non-zero):
     the largest |dIA| entry; the tendon scenes: the share of env-tendons
     below and above their bounds).
  3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain,
-    BallBalance and HumanoidMJCF (split, and local forced) at 4096 envs and
-    AllegroHand and ShadowHand at 16384 (CUDA
+    BallBalance and HumanoidMJCF (split, and local forced) at 4096 envs,
+    AllegroHand and ShadowHand at 16384, and FrankaCabinet (4096),
+    FrankaCubeStack (8192) and FactoryTaskNutBoltPick (128) (CUDA
     events after warm-up, ms per control step) beside the kernel's bound,
-    with the launch's block size and dynamic shared bytes and ptxas'
-    registers and stack of the instance; BallBalance and the hands also the
+    with the launch's block size, the blocks it runs beside the card's SM
+    count, its dynamic shared bytes and ptxas'
+    registers and stack of the instance; BallBalance, the hands and the Franka family also the
     share of pair candidates in contact, per env and per warp of 32, the
     hands also of the pairs that pass the box instance's cull
     (``cull_stats``); ShadowHand also the tendon block's own time (the
@@ -56,8 +65,10 @@ Phases, one line each (any failure raises and exits non-zero):
     (16384, 3 x 8 x 2), ShadowHand (16384, 3 x 8 x 1) and HumanoidMJCF
     (cfg/task/Humanoid.yaml and cfg/train/HumanoidPPO.yaml: 4096, 3 x 32),
     in its split layout (also the ground skip's contact shares on the state
-    its last iteration ends in) and with the local layout forced; every
-    metric finite, obs finite of shape (envs, num_obs).
+    its last iteration ends in) and with the local layout forced,
+    FrankaCabinet (4096, 3 x 16), FrankaCubeStack (8192, osc, 3 x 32) and
+    FactoryTaskNutBoltPick (128, 3 x 120); every metric finite, obs finite
+    of shape (envs, num_obs); blocks beside the SM count.
  5. cli: the training CLI in a subprocess, ``python3 -m
     thormang_isaacgym_tpu_torch.runtime.train task=HumanoidMJCF
     train=HumanoidPPO num_envs=4096 max_iterations=2`` into a temporary
@@ -65,7 +76,8 @@ Phases, one line each (any failure raises and exits non-zero):
     exit 0, metrics.jsonl holds a finite reward_mean and the play line a
     finite play_mean_return.
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
-box modes, its tendon block, timed on ShadowHand, with the block's own
+box modes, the box mode's launches those of AllegroHand and the Franka
+family, its tendon block, timed on ShadowHand, with the block's own
 time and bound beside the instance's, and the flat mode's local-memory and
 split layouts, on HumanoidMJCF) and, last, the {"ok": true, "device": ...}
 line.
@@ -87,6 +99,7 @@ import yaml
 
 from thormang_isaacgym_tpu_torch.core import quat as Q
 from thormang_isaacgym_tpu_torch.models import load_urdf
+from thormang_isaacgym_tpu_torch.models.franka import load_franka
 from thormang_isaacgym_tpu_torch.models.scene import compose
 from thormang_isaacgym_tpu_torch.ops import collide, fused
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
@@ -98,11 +111,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 from test_torch_fused import (  # noqa: E402
     BOX_POSES, BOX_SP, PAIR_POSES, PAIR_SP, TENDON_SP, allegro_contact_q, ball_balance_q,
-    box_pair_scene, pair_capsule_scene, shadow_contact_q, tendon_length, tendon_q, tendon_scene,
+    box_pair_scene, factory_pick_contact_q, factory_screw_contact_q, franka_arm_q,
+    franka_cabinet_contact_q, franka_cube_contact_q, pair_capsule_scene, shadow_contact_q,
+    tendon_length, tendon_q, tendon_scene,
 )
 B = 4096
 # tasks whose published width is not B (cfg/task/<task>.yaml numEnvs)
-ENVS = {"AllegroHand": 16384, "ShadowHand": 16384}
+ENVS = {"AllegroHand": 16384, "ShadowHand": 16384, "FrankaCubeStack": 8192,
+        "FactoryTaskNutBoltPick": 128, "FactoryTaskNutBoltScrew": 128}
+# the Franka family's contact states (tests/test_torch_fused.py): the finger
+# pads around FrankaCabinet's handle bar, on cube A under cube B on the
+# table, on the Factory nut on the table, on the Screw task's threaded nut
+FRANKA_CONTACT = {"FrankaCabinet": franka_cabinet_contact_q, "FrankaCubeStack": franka_cube_contact_q,
+                  "FactoryTaskNutBoltPick": factory_pick_contact_q,
+                  "FactoryTaskNutBoltScrew": factory_screw_contact_q}
+# the Franka family's tasks timed and trained at their YAML widths, through
+# the box instance; their launches join its entry of the kernels line
+FRANKA_TASKS = ("FrankaCabinet", "FrankaCubeStack", "FactoryTaskNutBoltPick")
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
 # (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
@@ -145,9 +170,9 @@ TOL = dict(flat=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1e-2, 5e-3)),
            pairs=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.1, 5e-3)),
            boxes=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1.0, 5e-3)))
 # cases held against the plain version step by step (see phase_compare)
-STEPWISE = {"AnymalTerrain", "PairCapsule", "BoxBox", "AllegroHand", "ShadowHand"}
+STEPWISE = {"AnymalTerrain", "PairCapsule", "BoxBox", "AllegroHand", "ShadowHand", *FRANKA_CONTACT}
 # cases held substep by substep (a one-substep build of the kernel; see phase_compare)
-SUBSTEPWISE = {"AllegroHand", "ShadowHand"}
+SUBSTEPWISE = {"AllegroHand", "ShadowHand", *FRANKA_CONTACT}
 # the TPU kernel's call and the blocks the heightfield, pair and box modes
 # replace (the pair modes: the pair force block and the attractor block; the
 # box mode also the box narrowphase: sphere-box, capsule-box, box-box), and
@@ -169,6 +194,9 @@ REPLACES["flat_local"] = REPLACES["flat_split"] = REPLACES["flat"]
 # layout's: it runs before any other local-memory instance
 FIRST_SPLIT = "HumanoidMJCF"
 FIRST_LOCAL = "HumanoidMJCF:local"
+# the box instance's first launch (after the local layout's), whose stack
+# reservation the Franka family's lines carry
+FIRST_BOX = "BoxBox"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -236,7 +264,15 @@ def random_inputs(task, rng: np.random.Generator, device):
     hi = m._defaults["dof_upper"]
     targets = None                        # drawn last, as before, off the terrain
     zero_wrench = False
-    if hasattr(task, "fingertip_ids"):
+    if type(task).__name__ in FRANKA_CONTACT:
+        # the pads on the handle bar, cube or nut; position targets near the
+        # state, efforts of up to 5 N m on the effort-driven joints, no wrench
+        q = FRANKA_CONTACT[type(task).__name__](task, rng, B)
+        qd = rng.normal(size=(B, m.nv)) * 0.05
+        targets = q[:, 7 * m.n_floating:] + rng.normal(size=(B, nj)) * 0.01
+        effort = rng.uniform(-5.0, 5.0, (B, nj))
+        zero_wrench = True
+    elif hasattr(task, "fingertip_ids"):
         # the hands: the cube in contact with the palm and fingers (ShadowHand's
         # tendons on either side of their bounds), targets inside the joint
         # ranges, no wrench (forceScale 0, as in training)
@@ -362,6 +398,27 @@ def pair_capsule_inputs(model, rng: np.random.Generator, device):
     return model.default_params(device).batch(B), t(q), t(qd), Controls(z, z, z), t(wrench)
 
 
+class FrankaArm:
+    """The Franka arm alone as a task-like case (tests/test_fused.py's
+    fixed-base check): 2 substeps of 1/120 s, the drives holding 0."""
+    attractors = ()
+
+    def __init__(self):
+        self.model = load_franka()
+        self.sim_params = SimParams(dt=1 / 60, substeps=2)
+
+
+def franka_arm_inputs(model, rng: np.random.Generator, device):
+    """tests/test_fused.py's inputs: q 0.3 x a standard normal, at rest, no
+    controls and no wrench."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    z = t(np.zeros((B, model.nj)))
+    return (model.default_params(device).batch(B), t(franka_arm_q(model, rng, B)),
+            t(np.zeros((B, model.nv))), Controls(z, z, z), t(np.zeros((B, model.nb, 6))))
+
+
 class TwoLinkTendon:
     """The two-link tendon scene of tests/test_fused.py as a task-like case: a
     fixed base and two links whose tendon holds q1 - q2 in [-0.05, 0.05]."""
@@ -388,9 +445,12 @@ def tendon_inputs(model, rng: np.random.Generator, device):
 
 
 def tendon_stats(model, q) -> dict:
-    """The share of env-tendons below and above their bounds at q."""
-    L = tendon_length(model, q[:, 7 * model.n_floating:].double().cpu().numpy())
-    lo, hi = (np.array([t[k] for t in model.tendons]) for k in (1, 2))
+    """The share of env-tendons below and above their bounds at q, their
+    lengths summed as the kernel sums them (``dynamics.tendon_sums``: the
+    Screw thread's lies on its bound 0 exactly in a third of the envs)."""
+    from thormang_isaacgym_tpu_torch.ops.dynamics import tendon_sums
+    L = tendon_sums(model.tendons, q[:, 7 * model.n_floating:]).cpu().numpy()
+    lo, hi = (np.array([t[k] for t in model.tendons], np.float32) for k in (1, 2))
     return dict(tendon_below_share=float((L < lo).mean()), tendon_above_share=float((L > hi).mean()))
 
 
@@ -601,21 +661,25 @@ def first_launch_bytes(step, packed) -> int:
 def phase_compare(device):
     """Worst error of each kernel mode, {"flat": x, "flat_split": s,
     "flat_local": u, "heightfield": y, "pairs": z, "boxes": w, "tendons":
-    v}, and the stack bytes of the first launch of FIRST_SPLIT and of
-    FIRST_LOCAL, {"flat_split": a, "flat_local": b} (b what the local
-    layout's first launch adds to the split layout's reservation, which a
-    process keeps); a case whose model has tendons counts for its mode and
+    v}, and the stack bytes of the first launch of FIRST_SPLIT, FIRST_LOCAL
+    and FIRST_BOX, {"flat_split": a, "flat_local": b, "boxes": c} (b what
+    the local layout's first launch adds to the split layout's reservation,
+    which a process keeps, c what the box instance's adds to both); a case
+    whose model has tendons counts for its mode and
     for "tendons", a flat case over the shared budget (HumanoidMJCF) for
     its layout's entry, with the flat mode's TOL. HumanoidMJCF runs twice on
     the same inputs: in the split layout and with the local layout forced,
     whose first control step must give the split layout's outputs bit for
     bit.
 
-    Cartpole, Ant, the two-link tendon scene, BallBalance and the capsule-box
-    and sphere-box scenes are held against the plain version after 1 and 5
-    free running control steps.
-    AnymalTerrain, the pair-capsule scene, the box-box scene and the hands
-    are held against it step by step: at each of the 5 steps both start from
+    Cartpole, Ant, the two-link tendon scene, BallBalance, the capsule-box
+    and sphere-box scenes and the Franka arm alone are held against the
+    plain version after 1 and 5 free running control steps.
+    AnymalTerrain, the pair-capsule scene, the box-box scene, the hands and
+    the Franka family's contact states (FRANKA_CONTACT: two fixed roots, the
+    tables' ground height, 340 pair candidates, the Screw thread's tendon of
+    coefficients 1 and pitch / (2 pi) on and beside its bound) are held
+    against it step by step: at each of the 5 steps both start from
     the plain version's state. Their stiff contact (over terrain; a stack of
     bodies on a bar; a cube on a cube, turned 5 degrees: its edge-edge
     candidate sits near the 0.99 activation threshold) amplifies last-bit
@@ -623,7 +687,7 @@ def phase_compare(device):
     in one version and not the other (the damper makes the force jump at
     contact onset), so the free running trajectories part after a few steps
     in some envs; their errors and the share of envs still within TOL are
-    printed, not gated. The hands are held substep by substep, through a
+    printed, not gated. The hands and the Franka family are held substep by substep, through a
     one-substep build of the same kernel: a 1.6e-4 m/s difference after one
     substep grows ~1500x in the next (the cube's 7.6e-5 kg m^2 against 617 N
     s/m of contact damping at 3 cm lever arms). In the box mode an env outside
@@ -641,13 +705,15 @@ def phase_compare(device):
     budget = fused.SMEM_BUDGET
     for case in ("Cartpole", "Ant", FIRST_SPLIT, FIRST_LOCAL, "AnymalTerrain", "BallBalance",
                  "PairCapsule", "BoxBox", "CapBox", "SphereBox", "AllegroHand", "ShadowHand",
-                 "Tendon"):
+                 "Tendon", "FrankaArm", *FRANKA_CONTACT):
         name = case.split(":")[0]
         fused.SMEM_BUDGET = 0 if case == FIRST_LOCAL else budget     # the local layout forced
         if name == "PairCapsule":
             task = PairCapsule()
         elif name == "Tendon":
             task = TwoLinkTendon()
+        elif name == "FrankaArm":
+            task = FrankaArm()
         elif name in ("BoxBox", "CapBox", "SphereBox"):
             task = BoxPair(name.lower())
         else:
@@ -673,6 +739,8 @@ def phase_compare(device):
             params, q0, qd0, ctrl, wrench = pair_capsule_inputs(task.model, rng, device)
         elif name == "Tendon":
             params, q0, qd0, ctrl, wrench = tendon_inputs(task.model, rng, device)
+        elif name == "FrankaArm":
+            params, q0, qd0, ctrl, wrench = franka_arm_inputs(task.model, rng, device)
         elif isinstance(task, BoxPair):
             params, q0, qd0, ctrl, wrench = box_pair_inputs(task, rng, device)
         elif name == FIRST_SPLIT:
@@ -683,8 +751,8 @@ def phase_compare(device):
         else:
             params, q0, qd0, ctrl, wrench = random_inputs(task, rng, device)
         envs = q0.shape[0]
-        if case in (FIRST_SPLIT, FIRST_LOCAL):
-            if local_launched:
+        if case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX):
+            if local_launched and case != FIRST_BOX:
                 raise AssertionError(f"{case}'s first launch comes after a local instance's")
             stack_bytes[entry] = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
         local_launched |= layout == "local"
@@ -748,9 +816,10 @@ def phase_compare(device):
                 extra_n.update(bitwise_equal_to_split_layout=same)
                 if not same:
                     raise AssertionError(f"{name}: the local and split layouts disagree")
-            if case in (FIRST_SPLIT, FIRST_LOCAL):
+            if case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX):
                 # a process keeps its largest reservation: the local layout's
-                # first launch adds what its frame needs beyond the split's
+                # first launch adds what its frame needs beyond the split's,
+                # the box instance's what its frame needs beyond those
                 extra_n.update(first_launch_stack_bytes=stack_bytes[entry],
                                stack_reserved_bytes=sum(stack_bytes.values()))
             log("compare", model=name, mode=mode, layout=layout, smem_bytes=step.smem_bytes,
@@ -764,7 +833,7 @@ def phase_compare(device):
             if not ok:
                 raise AssertionError(f"fused kernel disagrees with the plain version: {name} "
                                      f"{gate['max_abs_err']}, {outside - at_tie} envs off a tie")
-        expected = (12 if name in STEPWISE else 6) + (case in (FIRST_SPLIT, FIRST_LOCAL))
+        expected = (12 if name in STEPWISE else 6) + (case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX))
         if step.launches != expected:
             raise AssertionError(f"compare launched the kernel {step.launches} times, "
                                  f"expected {expected}")
@@ -942,6 +1011,14 @@ def instance_ptxas(log: str, step) -> list:
     return [ln.strip() for ln in lines[at[0]:at[0] + 4] if "stack" in ln or "registers" in ln]
 
 
+def launch_blocks(step, envs: int) -> dict:
+    """The blocks one launch of `step` runs at `envs` envs, beside the
+    card's SM count (the box instance's blocks of PAIR_BLOCK leave SMs idle
+    at small widths: Factory's 128 envs are one block)."""
+    return dict(blocks=-(-envs // step.block),
+                sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def _time_cuda(fn, iters: int, warmup: int) -> float:
     for _ in range(warmup):
         fn()
@@ -1052,7 +1129,7 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
     if stack_bytes is not None:
         out["first_launch_stack_bytes"] = stack_bytes
     log("time", model=name, envs=envs, substeps=step.n_steps, block=step.block,
-        layout=step.layout, smem_bytes=step.smem_bytes,
+        **launch_blocks(step, envs), layout=step.layout, smem_bytes=step.smem_bytes,
         shared_layout_bytes=step.layout_bytes if step.pair_mode != 2 else None,
         smem_budget=fused.SMEM_BUDGET, ptxas=instance_ptxas(fused.build_library().log, step), **out, **cull)
     return out
@@ -1104,7 +1181,8 @@ def phase_train(name: str, device, card: str) -> dict:
                card=card, metrics=metrics)
     skip = ground_skip_stats(env.task.model, env_state.q) \
         if step.hf is None and step.pair_mode == 0 and step.layout != "local" else {}
-    log("train", task=name, envs=envs, layout=step.layout, dt=env.task.sim_params.dt,
+    log("train", task=name, envs=envs, layout=step.layout, **launch_blocks(step, envs),
+        dt=env.task.sim_params.dt,
         substeps=env.task.sim_params.substeps, horizon=cfg.horizon_length,
         minibatch=cfg.minibatch_size, mini_epochs=cfg.mini_epochs,
         mixed_precision=cfg.mixed_precision, **out, **{f"end_state_{k}": v for k, v in skip.items()})
@@ -1159,24 +1237,36 @@ def main() -> None:
     for mode, name in modes:
         with local_layout(mode == "flat_local"):
             timing[mode] = phase_time(name, device, stack_bytes.get(mode))
+    for name in FRANKA_TASKS:
+        timing[name] = phase_time(name, device, stack_bytes["boxes"])
     for mode, name in modes:
         with local_layout(mode == "flat_local"):
             train[mode] = phase_train(name, device, dev_info["kind"])
+    for name in FRANKA_TASKS:
+        train[name] = phase_train(name, device, dev_info["kind"])
+    # the box instance's launches: AllegroHand's and the Franka family's
+    box_launches = train["boxes"]["launches"] + sum(train[n]["launches"] for n in FRANKA_TASKS)
     phase_cli()
-    # the split layout's first launch ran first; the local one's adds to it
+    # the split layout's first launch ran first, the local one's adds to it,
+    # the box instance's to both
     reserved = dict(flat_split=stack_bytes["flat_split"],
                     flat_local=stack_bytes["flat_split"] + stack_bytes["flat_local"])
+    reserved["boxes"] = reserved["flat_local"] + stack_bytes["boxes"]
     kernels = [dict(
         name=f"fused_step[{mode}]", route="cuda",
         source="thormang_isaacgym_tpu_torch/csrc/fused_step.cu",
-        replaces=REPLACES[mode], launches=train[mode]["launches"],
+        replaces=REPLACES[mode],
+        launches=box_launches if mode == "boxes" else train[mode]["launches"],
         max_abs_err=max_err[mode], ms=timing[mode]["ms"], plain_ms=timing[mode]["plain_ms"],
         bound_ms=timing[mode]["bound_ms"], bound_by=timing[mode]["bound_by"], library_ms=None,
         **({"also_replaces": ALSO_REPLACES[mode]} if mode in ALSO_REPLACES else {}),
         **({k: timing[mode][k] for k in ("tendon_block_ms", "tendon_bound_ms")}
            if mode == "tendons" else {}),
         **({"first_launch_stack_bytes": stack_bytes[mode], "stack_reserved_bytes": reserved[mode]}
-           if mode in reserved else {}))
+           if mode in reserved else {}),
+        **({"launches_by_task": {n: train[k]["launches"] for n, k in
+                                 (("AllegroHand", "boxes"), *((n, n) for n in FRANKA_TASKS))}}
+           if mode == "boxes" else {}))
         for mode, _ in modes]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_info["kind"],

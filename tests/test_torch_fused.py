@@ -38,8 +38,10 @@ import torch
 
 from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield, TerrainGrid
 from thormang_isaacgym_tpu_torch.models import load_urdf
+from thormang_isaacgym_tpu_torch.models.franka import load_franka
 from thormang_isaacgym_tpu_torch.models.scene import compose
 from thormang_isaacgym_tpu_torch.ops import collide, fused
+from thormang_isaacgym_tpu_torch.ops.dynamics import tendon_sums
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
 from thormang_isaacgym_tpu_torch.tasks import ball_balance as bb
@@ -47,6 +49,8 @@ from thormang_isaacgym_tpu_torch.tasks.allegro_hand import AllegroHand
 from thormang_isaacgym_tpu_torch.tasks.ant import Ant
 from thormang_isaacgym_tpu_torch.tasks.anymal import Anymal
 from thormang_isaacgym_tpu_torch.tasks.cartpole import Cartpole
+from thormang_isaacgym_tpu_torch.tasks.factory import FactoryTaskNutBoltScrew
+from thormang_isaacgym_tpu_torch.tasks.franka_cabinet import FrankaCabinet
 from thormang_isaacgym_tpu_torch.tasks.humanoid import HumanoidMJCF
 from thormang_isaacgym_tpu_torch.tasks.shadow_hand import ShadowHand
 
@@ -334,6 +338,95 @@ def shadow_contact_q(model, rng, n):
     return q
 
 
+# Franka arm poses (panda_joint1..7) that put the grasp frame where the
+# Franka contact states below want it, found by damped least-squares IK
+# (ops/control.py ik_delta "dls") on the port's grasp-site jacobian: around
+# FrankaCabinet's handle bar (drawer out 0.1 m; the gripper's z along -x,
+# its finger axis y along +z), 1 cm below the centre of a cube on
+# FrankaCubeStack's table at (0.01, 0), at the centre of a nut on the Factory
+# table at (0, -0.1), and at the centre of the Screw task's nut at the top of
+# its thread (the gripper pointing down, its finger axis along +y)
+FRANKA_ARM_CABINET = (1.64932, -1.38751, -1.00429, -2.20307, -2.3632, 2.24823, 0.36504)
+FRANKA_ARM_CUBE = (-0.3273, 0.78883, 0.16779, -2.27134, -0.93335, 2.9936, -1.6366)
+FRANKA_ARM_PICK = (0.35486, -0.16122, -0.14754, -2.04679, -0.02483, 1.8872, 1.00233)
+FRANKA_ARM_SCREW = (0.34014, -0.52568, -0.26647, -2.23063, -0.134, 1.71909, 0.91359)
+CUBE_AT = (0.01, 0.0)
+
+
+def _franka_jq(task, rng, n, arm, fingers):
+    """(n, nj) joint positions: `arm` with 1e-3 rad of noise, each finger
+    uniform in `fingers` (m), every other joint 0. A finger pad's inner face
+    lies 12 mm inside its finger's opening."""
+    jq = np.zeros((n, task.model.nj), np.float32)
+    jq[:, task.fr_ids[:7]] = np.asarray(arm) + rng.normal(size=(n, 7)) * 1e-3
+    jq[:, task.fr_ids[7:]] = rng.uniform(*fingers, (n, 2))
+    return jq
+
+
+def _yaw(rng, n, sigma):
+    a = rng.normal(size=n) * sigma
+    return np.stack([np.cos(a / 2), np.zeros(n), np.zeros(n), np.sin(a / 2)], 1)
+
+
+def franka_cabinet_contact_q(task, rng, n):
+    """(n, nq) FrankaCabinet states with the finger pads around the top
+    drawer's handle bar (radius 1 cm): the drawer out 0.09 to 0.13 m, so the
+    bar lies between the pads and, from 0.125 m, the pad tips press up to 5
+    mm into the drawer's front face (box-box); the fingers open 17 to 26 mm,
+    their pads on the bar (capsule-box) below 22 mm."""
+    q = _franka_jq(task, rng, n, FRANKA_ARM_CABINET, (0.017, 0.026))
+    q[:, task.drawer_dof] = rng.uniform(0.09, 0.13, n)
+    return q
+
+
+def franka_cube_contact_q(task, rng, n):
+    """(n, nq) FrankaCubeStack states: cube A on the table at CUBE_AT, 0 to 2
+    mm into it, turned up to a few degrees; cube B on A, 0 to 2 mm into it,
+    shifted up to 5 mm and turned; the finger pads on A's sides (A's half
+    width 25 mm: in contact below a 37 mm opening)."""
+    za = 1.025 + 0.025 - rng.uniform(0.0, 0.002, n)
+    qa = np.concatenate([np.stack([CUBE_AT[0] + rng.normal(size=n) * 1e-3,
+                                   CUBE_AT[1] + rng.normal(size=n) * 1e-3, za], 1),
+                         _yaw(rng, n, 0.03)], 1)
+    qb = np.concatenate([qa[:, 0:2] + rng.uniform(-0.005, 0.005, (n, 2)),
+                         (za + 0.06 - rng.uniform(0.0, 0.002, n))[:, None], _yaw(rng, n, 0.1)], 1)
+    jq = _franka_jq(task, rng, n, FRANKA_ARM_CUBE, (0.03, 0.04))
+    return np.concatenate([qa, qb, jq], 1).astype(np.float32)
+
+
+def factory_pick_contact_q(task, rng, n):
+    """(n, nq) FactoryTaskNutBoltPick states: the nut on the table at (0,
+    -0.1), 0 to 1 mm into it, turned up to a few degrees; the finger pads
+    on its sides (its half width 12 mm: in contact below a 24 mm opening),
+    their lower ends ~1.5 mm above the table."""
+    qn = np.concatenate([np.stack([rng.normal(size=n) * 1e-3, -0.1 + rng.normal(size=n) * 1e-3,
+                                   0.4065 - rng.uniform(0.0, 0.001, n)], 1), _yaw(rng, n, 0.03)], 1)
+    jq = _franka_jq(task, rng, n, FRANKA_ARM_PICK, (0.018, 0.028))
+    return np.concatenate([qn, jq], 1).astype(np.float32)
+
+
+def factory_screw_contact_q(task, rng, n):
+    """(n, nq) FactoryTaskNutBoltScrew states: the nut on its thread, spun 0
+    to 0.1 rad, the finger pads on its sides as in ``factory_pick_contact_q``;
+    the thread tendon's length L = travel + pitch / (2 pi) spin exactly at
+    its bound 0 in every third env (travel = -fl(pitch / (2 pi) spin)) and
+    1e-6 to 2e-4 to either side of it in the others."""
+    jq = _franka_jq(task, rng, n, FRANKA_ARM_SCREW, (0.018, 0.028))
+    spin = rng.uniform(0.0, 0.1, n).astype(np.float32)
+    coef = np.float32(np.asarray(task.model.tendons[0][0], np.float32)[task.spin_dof])
+    side = np.where(np.arange(n) % 3 == 0, 0.0,
+                    rng.choice([-1.0, 1.0], n) * rng.uniform(1e-6, 2e-4, n)).astype(np.float32)
+    jq[:, task.spin_dof] = spin
+    jq[:, task.travel_dof] = -(coef * spin) + side
+    return jq
+
+
+def franka_arm_q(model, rng, n):
+    """(n, nq) states of the Franka arm alone, as tests/test_fused.py's
+    fixed-base check draws them: 0.3 x a standard normal per DOF."""
+    return (0.3 * rng.normal(size=(n, model.nq))).astype(np.float32)
+
+
 def _rot(qw, v):
     """Rotate v (n, 3) by the wxyz quaternions qw (n, 4), numpy."""
     w, u = qw[:, :1], qw[:, 1:]
@@ -480,6 +573,20 @@ def _model(name):
         return task.model, dataclasses.replace(task.sim_params, dt=0.01, substeps=1), task, 0.0
     if name == "tiny":
         return load_urdf(TINY_URDF), SimParams(**TINY_SP), None, 0.0
+    if name == "franka":
+        # tests/test_fused.py's fixed-base check: the arm alone, 2 substeps
+        return load_franka(), SimParams(dt=1 / 60, substeps=2), None, 0.0
+    if name == "franka_cabinet":
+        # the sim block of cfg/task/FrankaCabinet.yaml: dt 0.0166 s, 1 substep
+        task = FrankaCabinet(num_envs=B, device="cpu")
+        return task.model, dataclasses.replace(task.sim_params, dt=0.0166, substeps=1), task, 0.0
+    if name == "factory_screw":
+        # the sim block of cfg/task/FactoryTaskNutBoltScrew.yaml: dt 0.016667 s,
+        # 4 substeps, run one at a time (held substep by substep, as chip_smoke
+        # holds the box mode); the table at TABLE_Z
+        task = FactoryTaskNutBoltScrew(num_envs=B, device="cpu")
+        return task.model, dataclasses.replace(task.sim_params, dt=0.016667 / 4, substeps=1), \
+            task, task.ground_height_fn()
     if name == "cylinder_slope":
         return load_urdf(CYL_URDF), SimParams(**TINY_SP), None, slope_field((-2.0, -2.0))
     if name == "pair_capsule_terrain":
@@ -526,6 +633,15 @@ def _inputs(name, model, task, device, ground=None):
     elif name == "tendon":
         q = tendon_q(rng, B)
         qd = rng.normal(size=(B, model.nv))
+    elif name == "franka":
+        q = franka_arm_q(model, rng, B)
+        qd = np.zeros((B, model.nv))
+    elif name == "franka_cabinet":
+        q = franka_cabinet_contact_q(task, rng, B)
+        qd = rng.normal(size=(B, model.nv)) * 0.05
+    elif name == "factory_screw":
+        q = factory_screw_contact_q(task, rng, B)
+        qd = rng.normal(size=(B, model.nv)) * 0.05
     elif name in BOX_POSES or name == "boxbox_terrain":
         # the scene's pose with 1 mm of noise in position and 0.02 in the quaternion
         pose = box_terrain_scene(load_urdf, compose)[1] if name == "boxbox_terrain" else BOX_POSES[name][1]
@@ -607,11 +723,11 @@ def _assert_close(a, b):
 # h c_t ~ 80 kg, friction_vel 0.01 m/s), so the last-bit differences of the
 # two versions' articulated solves grow several-fold per step; free running,
 # the versions part within 3 steps (qd 0.02, net 1.9 N of 1.5 kN)
-STEPWISE = {"allegro_hand", "shadow_hand", "boxbox_terrain"}
+STEPWISE = {"allegro_hand", "shadow_hand", "boxbox_terrain", "franka_cabinet", "factory_screw"}
 HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
               "ball_balance", "pair_capsule", "held", "boxbox", "capbox", "spherebox",
               "allegro_hand", "tendon", "shadow_hand", "boxbox_terrain", "pair_capsule_terrain",
-              "humanoid_mjcf"]
+              "humanoid_mjcf", "franka", "franka_cabinet", "factory_screw"]
 # the heightfield cases with actor pairs: both the pairs and the ground touched
 PAIR_TERRAIN = {"boxbox_terrain": 2, "pair_capsule_terrain": 1}
 
@@ -634,7 +750,9 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         if name in STEPWISE:
             qa, qda = qb, qdb                    # each step from the plain version's state
         if model.tendons:
-            L = tendon_length(model, qb[:, model.n_floating * 7:])
+            # the lengths as the kernel sums them (the Screw thread's lies on
+            # its bound 0 exactly in a third of the envs)
+            L = tendon_sums(model.tendons, qb[:, model.n_floating * 7:]).numpy()
             lo, hi = (np.array([t[k] for t in model.tendons]) for k in (1, 2))
             sides = np.maximum(sides, [(L < lo).mean(), ((L >= lo) & (L <= hi)).mean(), (L > hi).mean()])
         qa, qda, na = _host_call(host_kernel, step, params, qa, qda, ctrl, w)
@@ -647,6 +765,8 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
             rows = rows[:, task.object_body]
         if name == "humanoid_mjcf":              # the share of envs with a body on the ground
             rows = rows.any(-1)
+        if name in ("franka_cabinet", "factory_screw"):   # the share of envs with a pad touched
+            rows = rows[:, [task.lfinger_body, task.rfinger_body]].any(-1)
         touched = max(touched, float(rows.float().mean()))
         if name in PAIR_TERRAIN:
             fr = forward_kinematics(model, qb, qdb)
@@ -661,7 +781,8 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
             ground_touched = max(ground_touched, float(
                 ((z > p[..., 2] - torch.as_tensor(cand["r"])) & free).any(-1).float().mean()))
     if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
-                "shadow_hand", "humanoid_mjcf", *PAIR_TERRAIN, *BOX_POSES):
+                "shadow_hand", "humanoid_mjcf", "franka_cabinet", "factory_screw", *PAIR_TERRAIN,
+                *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
     if name == "humanoid_mjcf":                  # over the shared budget: the split layout
         assert step.pair_mode == 0 and step.block == fused.BLOCK and step.layout == "split"

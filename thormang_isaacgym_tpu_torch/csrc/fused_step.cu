@@ -651,9 +651,13 @@ __device__ void box_box(V3 pa, Q4 qa, const float* ha, V3 pb, Q4 qb, const float
     min_f = fminf(min_f, ovf[k]);
     all_f = all_f && ovf[k] > 0.0f;
   }
-  // the edge-edge candidate. L = A_i x B_j: |L|^2 = 1 - R[i][j]^2,
-  // A_(i+1).L = -R[i+2][j], A_(i+2).L = R[i+1][j], B_(j+1).L = R[i][j+2],
-  // B_(j+2).L = -R[i][j+1], d.L = dA[i+2] R[i+1][j] - dA[i+1] R[i+2][j]
+  // the edge-edge candidate. L = A_i x B_j: A_(i+1).L = -R[i+2][j],
+  // A_(i+2).L = R[i+1][j], B_(j+1).L = R[i][j+2], B_(j+2).L = -R[i][j+1],
+  // d.L = dA[i+2] R[i+1][j] - dA[i+1] R[i+2][j]. |L| is the cross product's
+  // length, as the plain version computes it: the TPU kernel's closed form
+  // sqrt(1 - R[i][j]^2) cancels for nearly parallel edges (a finger pad flat
+  // on a nut's face), where it misjudges the overlap by up to 10 % and wakes
+  // the edge-edge candidate
   float best_e = 0.0f;
   V3 n_e = {0.0f, 0.0f, 0.0f}, cp_e = {0.0f, 0.0f, 0.0f};
   bool all_e = true;
@@ -661,8 +665,8 @@ __device__ void box_box(V3 pa, Q4 qa, const float* ha, V3 pb, Q4 qb, const float
     const int i1 = (i + 1) % 3, i2 = (i + 2) % 3;
     for (int j = 0; j < 3; ++j) {
       const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
-      const float len2 = 1.0f - R[i][j] * R[i][j];
-      const float nrm = sqrtf(fmaxf(len2, 1e-12f));
+      const V3 L = cross(A[i], Bv[j]);
+      const float nrm = sqrtf(dot(L, L));
       const float inv_n = 1.0f / fmaxf(nrm, 1e-6f);
       const float dLd = dA[i2] * R[i1][j] - dA[i1] * R[i2][j];
       const float proj_a = ha[i1] * aR[i2][j] + ha[i2] * aR[i1][j];
@@ -674,7 +678,7 @@ __device__ void box_box(V3 pa, Q4 qa, const float* ha, V3 pb, Q4 qb, const float
       all_e = all_e && ov > 0.0f;
       if (i == 0 && j == 0 ? false : !(ov < best_e)) continue;
       best_e = ov;
-      n_e = scl(cross(A[i], Bv[j]), inv_n * s_L);
+      n_e = scl(L, inv_n * s_L);
       const V3 ca = add(pa, add(scl(hA_vec[i1], sa1), scl(hA_vec[i2], sa2)));
       const V3 cb = sub(pb, add(scl(hB_vec[j1], sb1), scl(hB_vec[j2], sb2)));
       // closest points of the two support edges, from the tables

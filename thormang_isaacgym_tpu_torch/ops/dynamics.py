@@ -193,6 +193,19 @@ def tendon_tables(tendons: tuple, device) -> tuple:
                  for k in (0, 1, 2))
 
 
+def tendon_sums(tendons: tuple, x: torch.Tensor) -> torch.Tensor:
+    """(B, nt) C x for joint values x (B, nj), each tendon's terms added one
+    at a time from 0 in ascending joint order, as the kernel adds them: what
+    counts the env-tendons lying exactly on a bound as the kernel sees them
+    (a matmul, as ``passive_forces`` uses, may fuse or reorder the terms)."""
+    out = x.new_zeros(x.shape[0], len(tendons))
+    for k, t in enumerate(tendons):
+        coef = np.asarray(t[0], np.float32)
+        for j in np.flatnonzero(coef):
+            out[:, k] = out[:, k] + float(coef[j]) * x[:, j]
+    return out
+
+
 def drive_forces(params: ModelParams, joint_q: torch.Tensor,
                  joint_qd: torch.Tensor, target_pos: torch.Tensor,
                  target_vel: torch.Tensor, effort: torch.Tensor, h: float):

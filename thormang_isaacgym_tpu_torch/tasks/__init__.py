@@ -21,6 +21,16 @@ TASK_MAP = {
     "BallBalance": ("thormang_isaacgym_tpu_torch.tasks.ball_balance", "BallBalance"),
     "AllegroHand": ("thormang_isaacgym_tpu_torch.tasks.allegro_hand", "AllegroHand"),
     "ShadowHand": ("thormang_isaacgym_tpu_torch.tasks.shadow_hand", "ShadowHand"),
+    "FrankaCabinet": ("thormang_isaacgym_tpu_torch.tasks.franka_cabinet", "FrankaCabinet"),
+    "FrankaCubeStack": ("thormang_isaacgym_tpu_torch.tasks.franka_cube_stack", "FrankaCubeStack"),
+    "FactoryTaskNutBoltPick": ("thormang_isaacgym_tpu_torch.tasks.factory",
+                               "FactoryTaskNutBoltPick"),
+    "FactoryTaskNutBoltPlace": ("thormang_isaacgym_tpu_torch.tasks.factory",
+                                "FactoryTaskNutBoltPlace"),
+    "FactoryTaskNutBoltScrew": ("thormang_isaacgym_tpu_torch.tasks.factory",
+                                "FactoryTaskNutBoltScrew"),
+    "FactoryTaskInsertion": ("thormang_isaacgym_tpu_torch.tasks.factory", "FactoryTaskInsertion"),
+    "FactoryTaskGears": ("thormang_isaacgym_tpu_torch.tasks.factory", "FactoryTaskGears"),
 }
 
 
@@ -42,11 +52,12 @@ def get_task_class(name: str):
 
 
 # reference env-block keys -> constructor kwargs (they shape the model or the
-# obs space, so they must reach __init__; the JAX registry's AMP and
-# controlType keys come with the slices that port those tasks)
+# obs space, so they must reach __init__; the JAX registry's AMP keys come
+# with the slice that ports those tasks)
 _CTOR_KEYS = {
     "observationType": "obs_type",
     "asymmetric_observations": "asymmetric_obs",
+    "controlType": "control_type",
 }
 # reference env-block keys -> Task attribute names that don't follow plain
 # camelCase -> snake_case (only the keys of the registered tasks' YAMLs; the
@@ -86,8 +97,8 @@ def _camel_to_snake(s: str) -> str:
 
 # env-block keys legitimately consumed elsewhere (constructor, engine, sim
 # construction) — not attribute targets, so no drift warning for them
-_CONSUMED_KEYS = {"numEnvs", "envSpacing", "enableDebugVis", "aggregateMode",
-                  *_CTOR_KEYS}
+_CONSUMED_KEYS = {"numEnvs", "numObservations", "numStates", "numActions", "envSpacing",
+                  "enableDebugVis", "aggregateMode", *_CTOR_KEYS}
 
 
 def apply_cfg_env(task, env_cfg: dict, *, warn_unknown: bool = True):
@@ -146,7 +157,10 @@ def make(task_name: str, num_envs: int | None = None, seed: int = 42,
     env block drives task parameters and its sim block dt/substeps/gravity.
     A task's ground (``task.ground_height_fn()``, e.g. AnymalTerrain's
     heightfield) goes to the env. Domain randomization (task.randomize) is
-    not ported yet and raises."""
+    not ported yet and raises. Blocks other than env, sim and task (the
+    Factory YAMLs' ``rl`` and ``ctrl``) are not read, as the JAX package's
+    ``make`` does not read them: a Factory task takes its class's
+    controller (``tasks/factory.py _CTRL_YAML``)."""
     from thormang_isaacgym_tpu_torch.engine.env import VecEnv, resolve_device
 
     device = resolve_device(device)
