@@ -34,7 +34,12 @@ Phases, one line each (any failure raises and exits non-zero):
     FrankaCubeStack's table, on the Factory nut on its table, on the Screw
     task's threaded nut with its tendon on and beside its bound; the box
     instance's first launch, on the box-box scene, measures its stack
-    reservation); max abs error of q, qd and net against
+    reservation), Trifinger at 16384 envs (its three fingertips pressing on
+    the cube's top face: ``trifinger_contact_q``, substep by substep) and,
+    in the flat mode, Ingenuity (4096: one jointless body, its box corners
+    and rotor rims on the ground) and Quadcopter (8192), near the ground
+    with non-zero force and torque rows of the wrench on every body; max
+    abs error of q, qd and net against
     TOL, beside the largest |value| of each and the share of non-zero net
     rows, the layout (shared, split or local), the launch's dynamic shared
     bytes and ptxas' registers and stack of the instance (AnymalTerrain also: the share of active contact candidates, the
@@ -45,8 +50,9 @@ Phases, one line each (any failure raises and exits non-zero):
     below and above their bounds).
  3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain,
     BallBalance and HumanoidMJCF (split, and local forced) at 4096 envs,
-    AllegroHand and ShadowHand at 16384, and FrankaCabinet (4096),
-    FrankaCubeStack (8192) and FactoryTaskNutBoltPick (128) (CUDA
+    AllegroHand and ShadowHand at 16384, FrankaCabinet (4096),
+    FrankaCubeStack (8192), FactoryTaskNutBoltPick (128), Trifinger
+    (16384), Ingenuity (4096) and Quadcopter (8192) (CUDA
     events after warm-up, ms per control step) beside the kernel's bound,
     with the launch's block size, the blocks it runs beside the card's SM
     count, its dynamic shared bytes and ptxas'
@@ -67,19 +73,29 @@ Phases, one line each (any failure raises and exits non-zero):
     in its split layout (also the ground skip's contact shares on the state
     its last iteration ends in) and with the local layout forced,
     FrankaCabinet (4096, 3 x 16), FrankaCubeStack (8192, osc, 3 x 32) and
-    FactoryTaskNutBoltPick (128, 3 x 120); every metric finite, obs finite
-    of shape (envs, num_obs); blocks beside the SM count.
- 5. cli: the training CLI in a subprocess, ``python3 -m
+    FactoryTaskNutBoltPick (128, 3 x 120), Trifinger (16384, TrifingerPPO:
+    the asymmetric critic over 113 states, 3 x 8), Ingenuity (4096, 3 x
+    16), Quadcopter (8192, 3 x 8), AnymalTerrain with
+    AnymalTerrainPPO_LSTM (4096, LSTM 256 after a 512 trunk, 3 x 24) and
+    ShadowHand with ShadowHandPPOAsymmLSTM and asymmetric_observations
+    (16384, LSTM 1024 before a 512 MLP, 211 states, 3 x 16); every metric
+    finite, obs and states finite of shape (envs, num_obs / num_states);
+    blocks beside the SM count.
+ 5. cli: the training CLI in subprocesses, ``python3 -m
     thormang_isaacgym_tpu_torch.runtime.train task=HumanoidMJCF
     train=HumanoidPPO num_envs=4096 max_iterations=2`` into a temporary
-    output root, then ``test=true test_episodes=1`` on its last.ckpt; both
-    exit 0, metrics.jsonl holds a finite reward_mean and the play line a
-    finite play_mean_return.
+    output root, then ``test=true test_episodes=1`` on its last.ckpt; the
+    same for Trifinger (TrifingerPPO, 16384 envs); each exits 0,
+    metrics.jsonl holds a finite reward_mean and the play line a finite
+    play_mean_return.
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
-box modes, the box mode's launches those of AllegroHand and the Franka
-family, its tendon block, timed on ShadowHand, with the block's own
+box modes, its tendon block, timed on ShadowHand, with the block's own
 time and bound beside the instance's, and the flat mode's local-memory and
-split layouts, on HumanoidMJCF) and, last, the {"ok": true, "device": ...}
+split layouts, on HumanoidMJCF; an instance's launches those of every task
+trained through it, ``launches_by_task``: the flat mode Ant's and the
+drones', the heightfield AnymalTerrain's with either policy, the box mode
+AllegroHand's, the Franka family's and Trifinger's, the tendon block
+ShadowHand's with either policy) and, last, the {"ok": true, "device": ...}
 line.
 """
 from __future__ import annotations
@@ -110,15 +126,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # pair-capsule scene and the BallBalance contact states
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 from test_torch_fused import (  # noqa: E402
-    BOX_POSES, BOX_SP, PAIR_POSES, PAIR_SP, TENDON_SP, allegro_contact_q, ball_balance_q,
-    box_pair_scene, factory_pick_contact_q, factory_screw_contact_q, franka_arm_q,
-    franka_cabinet_contact_q, franka_cube_contact_q, pair_capsule_scene, shadow_contact_q,
-    tendon_length, tendon_q, tendon_scene,
+    BOX_POSES, BOX_SP, DRONE_Z, PAIR_POSES, PAIR_SP, TENDON_SP, allegro_contact_q, ball_balance_q,
+    box_pair_scene, drone_contact_q, factory_pick_contact_q, factory_screw_contact_q,
+    franka_arm_q, franka_cabinet_contact_q, franka_cube_contact_q, pair_capsule_scene,
+    shadow_contact_q, tendon_length, tendon_q, tendon_scene, trifinger_contact_q,
 )
 B = 4096
 # tasks whose published width is not B (cfg/task/<task>.yaml numEnvs)
 ENVS = {"AllegroHand": 16384, "ShadowHand": 16384, "FrankaCubeStack": 8192,
-        "FactoryTaskNutBoltPick": 128, "FactoryTaskNutBoltScrew": 128}
+        "FactoryTaskNutBoltPick": 128, "FactoryTaskNutBoltScrew": 128, "Trifinger": 16384,
+        "Quadcopter": 8192}
 # the Franka family's contact states (tests/test_torch_fused.py): the finger
 # pads around FrankaCabinet's handle bar, on cube A under cube B on the
 # table, on the Factory nut on the table, on the Screw task's threaded nut
@@ -128,6 +145,17 @@ FRANKA_CONTACT = {"FrankaCabinet": franka_cabinet_contact_q, "FrankaCubeStack": 
 # the Franka family's tasks timed and trained at their YAML widths, through
 # the box instance; their launches join its entry of the kernels line
 FRANKA_TASKS = ("FrankaCabinet", "FrankaCubeStack", "FactoryTaskNutBoltPick")
+# the tasks of the asymmetric critic and the LSTM slice, compared, timed and
+# trained at their YAML widths: Trifinger through the box instance, the
+# drones through the flat one (their thrust forces, and Ingenuity's torques,
+# in the per-body wrench)
+NEW_TASKS = ("Trifinger", "Ingenuity", "Quadcopter")
+# (label, task, train YAML, task env-block overrides) of phase 4's
+# configurations beyond each task's own <task>PPO.yaml: the two LSTM
+# configurations, ShadowHand's with its asymmetric critic over 211 states
+LSTM_TRAIN = (("AnymalTerrain:LSTM", "AnymalTerrain", "AnymalTerrainPPO_LSTM", {}),
+              ("ShadowHand:AsymmLSTM", "ShadowHand", "ShadowHandPPOAsymmLSTM",
+               {"asymmetric_observations": True}))
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
 # (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
@@ -170,9 +198,10 @@ TOL = dict(flat=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1e-2, 5e-3)),
            pairs=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(0.1, 5e-3)),
            boxes=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1.0, 5e-3)))
 # cases held against the plain version step by step (see phase_compare)
-STEPWISE = {"AnymalTerrain", "PairCapsule", "BoxBox", "AllegroHand", "ShadowHand", *FRANKA_CONTACT}
+STEPWISE = {"AnymalTerrain", "PairCapsule", "BoxBox", "AllegroHand", "ShadowHand", "Trifinger",
+            *FRANKA_CONTACT}
 # cases held substep by substep (a one-substep build of the kernel; see phase_compare)
-SUBSTEPWISE = {"AllegroHand", "ShadowHand", *FRANKA_CONTACT}
+SUBSTEPWISE = {"AllegroHand", "ShadowHand", "Trifinger", *FRANKA_CONTACT}
 # the TPU kernel's call and the blocks the heightfield, pair and box modes
 # replace (the pair modes: the pair force block and the attractor block; the
 # box mode also the box narrowphase: sphere-box, capsule-box, box-box), and
@@ -272,6 +301,23 @@ def random_inputs(task, rng: np.random.Generator, device):
         targets = q[:, 7 * m.n_floating:] + rng.normal(size=(B, nj)) * 0.01
         effort = rng.uniform(-5.0, 5.0, (B, nj))
         zero_wrench = True
+    elif type(task).__name__ == "Trifinger":
+        # the three fingertips pressing on the cube's top face, efforts of up
+        # to the 0.36 N m limit on the finger joints, no wrench (as in training)
+        q = trifinger_contact_q(task, rng, B)
+        qd = rng.normal(size=(B, m.nv)) * 0.05
+        targets = np.zeros((B, nj))
+        effort = np.zeros((B, nj))
+        effort[:, task.dof_ids] = rng.uniform(-0.36, 0.36, (B, 9))
+        zero_wrench = True
+    elif type(task).__name__ in DRONE_Z:
+        # the copters near the ground (box corners and rotor rims touching in
+        # some envs), joint targets within +/-0.3 rad; the wrench below on
+        # every body: force and torque rows, as the thrusts give them
+        q = drone_contact_q(m, rng, B, DRONE_Z[type(task).__name__])
+        qd = rng.normal(size=(B, m.nv)) * 0.5
+        targets = rng.uniform(-0.3, 0.3, (B, nj))
+        effort = np.zeros((B, nj))
     elif hasattr(task, "fingertip_ids"):
         # the hands: the cube in contact with the palm and fingers (ShadowHand's
         # tendons on either side of their bounds), targets inside the joint
@@ -705,7 +751,7 @@ def phase_compare(device):
     budget = fused.SMEM_BUDGET
     for case in ("Cartpole", "Ant", FIRST_SPLIT, FIRST_LOCAL, "AnymalTerrain", "BallBalance",
                  "PairCapsule", "BoxBox", "CapBox", "SphereBox", "AllegroHand", "ShadowHand",
-                 "Tendon", "FrankaArm", *FRANKA_CONTACT):
+                 "Tendon", "FrankaArm", *FRANKA_CONTACT, *NEW_TASKS):
         name = case.split(":")[0]
         fused.SMEM_BUDGET = 0 if case == FIRST_LOCAL else budget     # the local layout forced
         if name == "PairCapsule":
@@ -1135,17 +1181,22 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
     return out
 
 
-def phase_train(name: str, device, card: str) -> dict:
-    """3 training iterations of `name` at its YAML's width; on flat ground
-    without pairs (not in the local layout) also what the ground skip sees
-    on the state the last iteration ends in."""
+def phase_train(name: str, device, card: str, train_yaml: str | None = None,
+                env_overrides: dict | None = None) -> dict:
+    """3 training iterations of `name` at its YAML's width, with
+    cfg/train/<train_yaml>.yaml (default <task>PPO) and `env_overrides` on
+    the task YAML's env block; on flat ground without pairs (not in the
+    local layout) also what the ground skip sees on the state the last
+    iteration ends in."""
     import thormang_isaacgym_tpu_torch as tgt
     from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig
     from thormang_isaacgym_tpu_torch.tasks import cfg_name
 
     with open(os.path.join(ROOT, "cfg", "task", f"{cfg_name(name)}.yaml")) as f:
         task_cfg = yaml.safe_load(f)
-    with open(os.path.join(ROOT, "cfg", "train", f"{cfg_name(name)}PPO.yaml")) as f:
+    task_cfg["env"].update(env_overrides or {})
+    train_yaml = train_yaml or f"{cfg_name(name)}PPO"
+    with open(os.path.join(ROOT, "cfg", "train", f"{train_yaml}.yaml")) as f:
         train_cfg = yaml.safe_load(f)
     envs = int(task_cfg["env"]["numEnvs"])
     env = tgt.make(name, num_envs=envs, seed=SEED, cfg=task_cfg, device=device)
@@ -1173,6 +1224,9 @@ def phase_train(name: str, device, card: str) -> dict:
     if tuple(env_state.obs.shape) != (envs, env.num_obs) or \
             not bool(torch.isfinite(env_state.obs).all()):
         raise AssertionError("observations are not finite of shape (B, num_obs)")
+    if tuple(env_state.states.shape) != (envs, ppo.num_states) or \
+            not bool(torch.isfinite(env_state.states).all()):
+        raise AssertionError("privileged states are not finite of shape (B, num_states)")
     steady = times[1:]
     step = env.physics_step
     out = dict(launches=launches, expected_launches=expected,
@@ -1181,7 +1235,9 @@ def phase_train(name: str, device, card: str) -> dict:
                card=card, metrics=metrics)
     skip = ground_skip_stats(env.task.model, env_state.q) \
         if step.hf is None and step.pair_mode == 0 and step.layout != "local" else {}
-    log("train", task=name, envs=envs, layout=step.layout, **launch_blocks(step, envs),
+    log("train", task=name, train=train_yaml, envs=envs, layout=step.layout,
+        **launch_blocks(step, envs), num_states=ppo.num_states,
+        network="lstm" if ppo.is_rnn else "mlp", asymmetric=ppo.asymmetric,
         dt=env.task.sim_params.dt,
         substeps=env.task.sim_params.substeps, horizon=cfg.horizon_length,
         minibatch=cfg.minibatch_size, mini_epochs=cfg.mini_epochs,
@@ -1189,14 +1245,14 @@ def phase_train(name: str, device, card: str) -> dict:
     return out
 
 
-def phase_cli() -> dict:
+def phase_cli(task: str, train: str, envs: int) -> dict:
     """The training CLI as a user runs it, in subprocesses: 2 iterations of
-    HumanoidMJCF at 4096 envs into a temporary output root, then a
-    deterministic play of one episode per env from its last.ckpt. Raises
-    unless both exit 0 with a finite reward_mean in metrics.jsonl and a
-    finite play_mean_return."""
+    `task` with cfg/train/<train>.yaml at `envs` envs into a temporary output
+    root, then a deterministic play of one episode per env from its
+    last.ckpt. Raises unless both exit 0 with a finite reward_mean in
+    metrics.jsonl and a finite play_mean_return."""
     base = [sys.executable, "-m", "thormang_isaacgym_tpu_torch.runtime.train",
-            "task=HumanoidMJCF", "train=HumanoidPPO", "num_envs=4096"]
+            f"task={task}", f"train={train}", f"num_envs={envs}"]
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         runs = (("train", ["max_iterations=2", f"output_root={tmp}", "experiment=smoke"]),
@@ -1239,14 +1295,32 @@ def main() -> None:
             timing[mode] = phase_time(name, device, stack_bytes.get(mode))
     for name in FRANKA_TASKS:
         timing[name] = phase_time(name, device, stack_bytes["boxes"])
+    for name in NEW_TASKS:
+        timing[name] = phase_time(name, device, stack_bytes["boxes"] if name == "Trifinger" else None)
     for mode, name in modes:
         with local_layout(mode == "flat_local"):
             train[mode] = phase_train(name, device, dev_info["kind"])
-    for name in FRANKA_TASKS:
+    for name in FRANKA_TASKS + NEW_TASKS:
         train[name] = phase_train(name, device, dev_info["kind"])
-    # the box instance's launches: AllegroHand's and the Franka family's
-    box_launches = train["boxes"]["launches"] + sum(train[n]["launches"] for n in FRANKA_TASKS)
-    phase_cli()
+    for label, name, train_yaml, overrides in LSTM_TRAIN:
+        train[label] = phase_train(name, device, dev_info["kind"], train_yaml, overrides)
+    # each instance's launches by task: the flat instance's Ant's and the
+    # drones', the heightfield's AnymalTerrain's with either policy, the box
+    # instance's AllegroHand's, the Franka family's and Trifinger's, the
+    # tendon block's ShadowHand's with either policy
+    by_task = dict(
+        flat=(("Ant", "flat"), ("Ingenuity", "Ingenuity"), ("Quadcopter", "Quadcopter")),
+        heightfield=(("AnymalTerrain", "heightfield"),
+                     ("AnymalTerrain:LSTM", "AnymalTerrain:LSTM")),
+        boxes=(("AllegroHand", "boxes"), *((n, n) for n in FRANKA_TASKS),
+               ("Trifinger", "Trifinger")),
+        tendons=(("ShadowHand", "tendons"), ("ShadowHand:AsymmLSTM", "ShadowHand:AsymmLSTM")))
+    # phase 3's times of the tasks in each instance's launches
+    timed = {"Ant": timing["flat"], "AnymalTerrain": timing["heightfield"],
+             "AllegroHand": timing["boxes"], "ShadowHand": timing["tendons"],
+             **{n: timing[n] for n in FRANKA_TASKS + NEW_TASKS}}
+    phase_cli("HumanoidMJCF", "HumanoidPPO", 4096)
+    phase_cli("Trifinger", "TrifingerPPO", ENVS["Trifinger"])
     # the split layout's first launch ran first, the local one's adds to it,
     # the box instance's to both
     reserved = dict(flat_split=stack_bytes["flat_split"],
@@ -1256,7 +1330,8 @@ def main() -> None:
         name=f"fused_step[{mode}]", route="cuda",
         source="thormang_isaacgym_tpu_torch/csrc/fused_step.cu",
         replaces=REPLACES[mode],
-        launches=box_launches if mode == "boxes" else train[mode]["launches"],
+        launches=sum(train[k]["launches"] for _, k in by_task[mode]) if mode in by_task
+        else train[mode]["launches"],
         max_abs_err=max_err[mode], ms=timing[mode]["ms"], plain_ms=timing[mode]["plain_ms"],
         bound_ms=timing[mode]["bound_ms"], bound_by=timing[mode]["bound_by"], library_ms=None,
         **({"also_replaces": ALSO_REPLACES[mode]} if mode in ALSO_REPLACES else {}),
@@ -1264,9 +1339,10 @@ def main() -> None:
            if mode == "tendons" else {}),
         **({"first_launch_stack_bytes": stack_bytes[mode], "stack_reserved_bytes": reserved[mode]}
            if mode in reserved else {}),
-        **({"launches_by_task": {n: train[k]["launches"] for n, k in
-                                 (("AllegroHand", "boxes"), *((n, n) for n in FRANKA_TASKS))}}
-           if mode == "boxes" else {}))
+        **({"launches_by_task": {n: train[k]["launches"] for n, k in by_task[mode]},
+            **{f"{key}_by_task": {n: timed[n][key] for n, _ in by_task[mode] if n in timed}
+               for key in ("ms", "bound_ms")}}
+           if mode in by_task else {}))
         for mode, _ in modes]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_info["kind"],

@@ -2,10 +2,13 @@
 """Where one PPO train iteration of the PyTorch/CUDA port spends its time:
 a task at its YAML's width (numEnvs: 4096, AllegroHand 16384),
 cfg/task/<task>.yaml + cfg/train/<task>PPO.yaml (Ant by default; HumanoidMJCF
-reads Humanoid.yaml and HumanoidPPO.yaml), on one GPU.
+reads Humanoid.yaml and HumanoidPPO.yaml; `--train` names another train
+YAML, `--env key=value` overrides the task YAML's env block), on one GPU.
 
 Run from the repository root:
-  python3 scripts/profile_torch_ant.py [--task AnymalTerrain|BallBalance|AllegroHand|ShadowHand|HumanoidMJCF]
+  python3 scripts/profile_torch_ant.py [--task AnymalTerrain|BallBalance|AllegroHand|ShadowHand|HumanoidMJCF|Trifinger|Ingenuity|Quadcopter]
+  python3 scripts/profile_torch_ant.py --task ShadowHand --train ShadowHandPPOAsymmLSTM \
+      --env asymmetric_observations=true
 
 Prints JSON lines: the card (nvidia-smi name and power limit); host-clock
 times, each closed by torch.cuda.synchronize(), of one rollout (horizon x
@@ -38,15 +41,23 @@ from thormang_isaacgym_tpu_torch.tasks import cfg_name  # noqa: E402
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="Ant")
-    task = ap.parse_args().task
+    ap.add_argument("--train", default=None, help="cfg/train/<name>.yaml (default <task>PPO)")
+    ap.add_argument("--env", nargs="*", default=[], metavar="KEY=VALUE",
+                    help="overrides of the task YAML's env block (values read as YAML)")
+    args = ap.parse_args()
+    task = args.task
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"card": smi, "task": task}), flush=True)
+    train = args.train or f"{cfg_name(task)}PPO"
+    print(json.dumps({"card": smi, "task": task, "train": train, "env": args.env}), flush=True)
     with open(os.path.join(ROOT, "cfg", "task", f"{cfg_name(task)}.yaml")) as f:
         task_cfg = yaml.safe_load(f)
-    with open(os.path.join(ROOT, "cfg", "train", f"{cfg_name(task)}PPO.yaml")) as f:
+    for kv in args.env:
+        key, value = kv.split("=", 1)
+        task_cfg["env"][key] = yaml.safe_load(value)
+    with open(os.path.join(ROOT, "cfg", "train", f"{train}.yaml")) as f:
         cfg = PPOConfig.from_rlgames(yaml.safe_load(f))
     B = int(task_cfg["env"]["numEnvs"])
     env = tgt.make(task, num_envs=B, seed=0, cfg=task_cfg, device="cuda")
@@ -63,7 +74,7 @@ def main() -> None:
         return time.perf_counter()
 
     t0 = clock()
-    state, _ = ppo.rollout(ts, state)
+    state = (ppo.rollout_rnn if ppo.is_rnn else ppo.rollout)(ts, state)[0]
     t1 = clock()
     ts, state, _ = ppo.train_iteration(ts, state)
     t2 = clock()

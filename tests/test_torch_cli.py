@@ -14,10 +14,19 @@
   a trained one) loads into the port and gives JAX's deterministic actions
   and values on the same observations at atol 1e-5 (float32, both
   unmixed); one of another network raises JAX's mismatch message.
+- The asymmetric critic and the LSTM policy: JAX checkpoints of a
+  TrifingerPPO init (its value net and states normalizer) and of an
+  AnymalTerrainPPO_LSTM init, narrow, load into the port and give JAX's
+  actions and values (the LSTM's from a non-zero carry) at atol 1e-5; a
+  port checkpoint of each after 2 iterations, restored, runs one more
+  iteration bit for bit as the uninterrupted run; a JAX checkpoint of an
+  LSTM or asymmetric network loaded into another network raises. An LSTM
+  policy's play raises NotImplementedError.
 - Guards: no CUDA and no ``device=`` raises (it does not train on the CPU);
   ``amp_continuous``, a multi-agent task, ``capture_video=true`` and
   ``headless=false`` raise NotImplementedError naming their ROADMAP items.
 """
+import dataclasses
 import json
 import math
 import os
@@ -31,6 +40,7 @@ import yaml
 
 import thormang_isaacgym_tpu as tgx
 from thormang_isaacgym_tpu.learn import ppo as jppo
+from thormang_isaacgym_tpu.learn.normalize import rms_update as jrms_update
 from thormang_isaacgym_tpu.runtime.checkpoint import load_train_state as jax_load_train_state
 from thormang_isaacgym_tpu.runtime.checkpoint import save_train_state as jax_save_train_state
 import thormang_isaacgym_tpu_torch as tgt
@@ -108,6 +118,127 @@ def test_restore_then_one_iteration_equals_uninterrupted(tmp_path):
             assert torch.equal(getattr(getattr(ts, r), f), getattr(getattr(restored, r), f))
     for k in m_a:
         assert torch.equal(m_a[k], m_b[k]), k
+
+
+def _assert_same_train_state(ts, restored):
+    for mod in ("model", "value_net"):
+        a, b = getattr(ts, mod), getattr(restored, mod)
+        assert (a is None) == (b is None)
+        if a is not None:
+            for x, y in zip(a.state_dict().values(), b.state_dict().values()):
+                assert torch.equal(x, y)
+    assert len(ts.adam_m) == len(ts.parameters()) == len(restored.adam_m)
+    for xs, ys in ((ts.adam_m, restored.adam_m), (ts.adam_v, restored.adam_v)):
+        assert all(torch.equal(x, y) for x, y in zip(xs, ys))
+    assert (ts.adam_step, ts.epoch) == (restored.adam_step, restored.epoch)
+    assert torch.equal(ts.lr, restored.lr)
+    for r in ("obs_rms", "value_rms", "states_rms"):
+        for f in ("mean", "var", "count"):
+            assert torch.equal(getattr(getattr(ts, r), f), getattr(getattr(restored, r), f))
+
+
+# narrow networks of the published asymmetric and LSTM configurations
+NEW_NETS = {
+    "Trifinger": ("TrifingerPPO", dict(units=(32, 16)), {}),
+    "AnymalTerrain": ("AnymalTerrainPPO_LSTM", dict(units=(32,), rnn_units=16),
+                      dict(num_levels=2, num_types=4)),
+}
+
+
+def _train_yaml(name):
+    with open(os.path.join(ROOT, "cfg", "train", f"{name}.yaml")) as f:
+        return yaml.safe_load(f)
+
+
+@pytest.fixture(scope="module", params=sorted(NEW_NETS))
+def new_net(request):
+    """(task, JAX PPO, port PPO) of NEW_NETS[task] at 4 envs, float32,
+    horizon 4, one mini-epoch."""
+    task = request.param
+    train, net, kw = NEW_NETS[task]
+    small = dict(net, horizon_length=4, minibatch_size=16, mini_epochs=1, mixed_precision=False)
+    y = _train_yaml(train)
+    jcfg = dataclasses.replace(jppo.PPOConfig.from_rlgames(y), **small)
+    tcfg = dataclasses.replace(tppo.PPOConfig.from_rlgames(y), **small)
+    jp = jppo.PPO(tgx.make(task, num_envs=4, seed=0, **kw), jcfg)
+    tp = tppo.PPO(tgt.make(task, num_envs=4, seed=0, device="cpu", **kw), tcfg, device="cpu")
+    return task, jp, tp
+
+
+def test_jax_checkpoint_of_the_new_networks_loads_into_the_port(new_net, tmp_path):
+    task, jp, tp = new_net
+    jts = jp.init(jax.random.key(7))
+    rng = np.random.default_rng(0)
+    f = np.float32
+    jts = dataclasses.replace(
+        jts, obs_rms=jrms_update(jts.obs_rms, jnp.asarray(rng.normal(size=(32, tp.env.num_obs)), f)),
+        states_rms=jrms_update(jts.states_rms, jnp.asarray(
+            rng.normal(size=(32, max(tp.num_states, 1))) * 2, f)))
+    path = str(tmp_path / "jax_init.ckpt")
+    jax_save_train_state(path, jts)
+    ts = load_train_state(path, tp)
+    assert (ts.value_net is not None) == (task == "Trifinger") == tp.asymmetric
+    assert ts.model.__class__.__name__ == ("ActorCriticRNN" if tp.is_rnn else "ActorCritic")
+    for r in ("obs_rms", "states_rms"):
+        np.testing.assert_array_equal(getattr(ts, r).mean.numpy(), np.asarray(getattr(jts, r).mean))
+    obs = rng.normal(size=(8, tp.env.num_obs)).astype(f)
+    states = rng.normal(size=(8, max(tp.num_states, 1))).astype(f)[:, :tp.num_states]
+    if tp.is_rnn:
+        carry = (rng.normal(size=(1, 2, 8, 16)) * 0.5).astype(f)
+        want = jp._policy_rnn(jts, jnp.asarray(obs), ((jnp.asarray(carry[0, 0]), jnp.asarray(carry[0, 1])),))
+        got = tp._policy_rnn(ts, torch.as_tensor(obs), torch.as_tensor(carry))
+        want = (*want[:3], np.stack([np.stack(x) for x in want[3]]))
+    else:
+        want = jp._policy(jts, jnp.asarray(obs), jnp.asarray(states))
+        got = tp._policy(ts, torch.as_tensor(obs), torch.as_tensor(states))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+def test_restore_of_the_new_networks_then_one_iteration_equals_uninterrupted(new_net, tmp_path):
+    _, _, tp = new_net
+    ts, state = tp.init(0), tp.env.reset(0)
+    for _ in range(2):
+        ts, state, _ = tp.train_iteration(ts, state)
+    path = str(tmp_path / "nn" / "mid.ckpt")
+    save_train_state(path, ts)
+    restored = load_train_state(path, tp)
+    _assert_same_train_state(ts, restored)
+    ts, _, m_a = tp.train_iteration(ts, state)
+    restored, _, m_b = tp.train_iteration(restored, state)
+    _assert_same_train_state(ts, restored)
+    assert ts.epoch == 3
+    for k in m_a:
+        assert torch.equal(m_a[k], m_b[k]), k
+
+
+@pytest.mark.parametrize("saved, loaded", [("AnymalTerrain", "mlp"), ("Trifinger", "symmetric")])
+def test_jax_checkpoint_of_a_new_network_into_another_raises(saved, loaded, tmp_path):
+    """A JAX LSTM checkpoint into the port's MLP of the same task, and a JAX
+    asymmetric one into a task without privileged states of the same obs
+    width (Trifinger with asymmetric_obs false)."""
+    train, net, kw = NEW_NETS[saved]
+    y = _train_yaml(train)
+    jcfg = dataclasses.replace(jppo.PPOConfig.from_rlgames(y), **net, mixed_precision=False)
+    jp = jppo.PPO(tgx.make(saved, num_envs=4, seed=0, **kw), jcfg)
+    path = str(tmp_path / "other.ckpt")
+    jax_save_train_state(path, jp.init(jax.random.key(0)))
+    tcfg = dataclasses.replace(tppo.PPOConfig.from_rlgames(y), **net, mixed_precision=False)
+    if loaded == "mlp":
+        tcfg = dataclasses.replace(tcfg, rnn_units=0)
+    else:
+        kw = dict(kw, asymmetric_obs=False)
+    tp = tppo.PPO(tgt.make(saved, num_envs=4, seed=0, device="cpu", **kw), tcfg, device="cpu")
+    with pytest.raises(ValueError, match="config/model mismatch"):
+        load_train_state(path, tp)
+
+
+def test_play_of_an_lstm_policy_raises():
+    cfg = dataclasses.replace(tppo.PPOConfig.from_rlgames(_train_yaml("AnymalTerrainPPO_LSTM")),
+                              units=(16,), rnn_units=8)
+    tp = tppo.PPO(tgt.make("Cartpole", num_envs=4, seed=0, device="cpu"), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="LSTM"):
+        train.play(tp.env, tp, tp.init(0), episodes=1)
 
 
 def _run_train_cfg():

@@ -52,7 +52,10 @@ from thormang_isaacgym_tpu_torch.tasks.cartpole import Cartpole
 from thormang_isaacgym_tpu_torch.tasks.factory import FactoryTaskNutBoltScrew
 from thormang_isaacgym_tpu_torch.tasks.franka_cabinet import FrankaCabinet
 from thormang_isaacgym_tpu_torch.tasks.humanoid import HumanoidMJCF
+from thormang_isaacgym_tpu_torch.tasks.ingenuity import Ingenuity
+from thormang_isaacgym_tpu_torch.tasks.quadcopter import Quadcopter
 from thormang_isaacgym_tpu_torch.tasks.shadow_hand import ShadowHand
+from thormang_isaacgym_tpu_torch.tasks.trifinger import Trifinger
 
 B = 64
 # the tiny floating model of tests/test_fused.py: free sphere + one revolute arm
@@ -421,6 +424,46 @@ def factory_screw_contact_q(task, rng, n):
     return jq
 
 
+# Trifinger joint positions (finger 0, 120, 240; three joints each) that put
+# each fingertip sphere 1 mm into the top face of the cube at the origin,
+# unturned on the ground, 15 mm from the face's centre toward its finger
+# (the link capsules clear the cube by 16 mm or more). Found by Gauss-Newton
+# on the port's fingertip-site kinematics.
+TRIFINGER_GRIP = (-0.0650104, 0.965643, -1.64951, -0.0650327, 0.96561, -1.64952,
+                  -0.0649881, 0.96561, -1.64952)
+
+
+def trifinger_contact_q(task, rng, n):
+    """(n, nq) Trifinger states with the three fingertips pressing on the
+    cube: the cube at the origin, up to 1 mm off in x and y, 0 to 1 mm into
+    the ground, turned by yaw N(0, 0.01); the joints at TRIFINGER_GRIP + N(0,
+    2e-3) rad (a fingertip 1 mm into the top face, give or take ~0.6 mm)."""
+    pos = np.stack([rng.uniform(-1e-3, 1e-3, n), rng.uniform(-1e-3, 1e-3, n),
+                    0.0325 - rng.uniform(0.0, 1e-3, n)], 1)
+    jq = np.zeros((n, task.model.nj))
+    jq[:, task.dof_ids] = np.asarray(TRIFINGER_GRIP) + rng.normal(size=(n, 9)) * 2e-3
+    return np.concatenate([pos, _yaw(rng, n, 0.01), jq], 1).astype(np.float32)
+
+
+def drone_contact_q(model, rng, n, z):
+    """(n, nq) states of a copter (Ingenuity, Quadcopter) near the ground:
+    xy in [-1, 1], its base height uniform in `z` (lo, hi), tilted by a
+    quaternion 0.15 x N(0, 1) off upright, joints (if any) uniform in
+    [-0.3, 0.3]: in some envs box corners and rotor rims touch the ground."""
+    q = np.zeros((n, model.nq), np.float32)
+    q[:, 0:2] = rng.uniform(-1.0, 1.0, (n, 2))
+    q[:, 2] = rng.uniform(*z, n)
+    qr = rng.normal(size=(n, 4)) * 0.15 + [1.0, 0.0, 0.0, 0.0]
+    q[:, 3:7] = qr / np.linalg.norm(qr, axis=1, keepdims=True)
+    q[:, 7:] = rng.uniform(-0.3, 0.3, (n, model.nj))
+    return q
+
+
+# the base heights of drone_contact_q: Ingenuity's box of half size 0.06 m
+# under its 0.15 m rotor disks, Quadcopter's 0.015 m thick chassis disk
+DRONE_Z = {"Ingenuity": (0.04, 0.1), "Quadcopter": (0.0, 0.04)}
+
+
 def franka_arm_q(model, rng, n):
     """(n, nq) states of the Franka arm alone, as tests/test_fused.py's
     fixed-base check draws them: 0.3 x a standard normal per DOF."""
@@ -587,6 +630,15 @@ def _model(name):
         task = FactoryTaskNutBoltScrew(num_envs=B, device="cpu")
         return task.model, dataclasses.replace(task.sim_params, dt=0.016667 / 4, substeps=1), \
             task, task.ground_height_fn()
+    if name == "trifinger":
+        # the sim block of cfg/task/Trifinger.yaml: dt 0.02 s, 4 substeps, run
+        # one at a time (held substep by substep, as chip_smoke holds the box mode)
+        task = Trifinger(num_envs=B, device="cpu")
+        return task.model, dataclasses.replace(task.sim_params, dt=0.005, substeps=1), task, 0.0
+    if name in ("ingenuity", "quadcopter"):
+        # the YAMLs' sim blocks equal the classes': dt 0.01 s, 2 substeps
+        task = {"ingenuity": Ingenuity, "quadcopter": Quadcopter}[name](num_envs=B, device="cpu")
+        return task.model, task.sim_params, task, 0.0
     if name == "cylinder_slope":
         return load_urdf(CYL_URDF), SimParams(**TINY_SP), None, slope_field((-2.0, -2.0))
     if name == "pair_capsule_terrain":
@@ -642,6 +694,12 @@ def _inputs(name, model, task, device, ground=None):
     elif name == "factory_screw":
         q = factory_screw_contact_q(task, rng, B)
         qd = rng.normal(size=(B, model.nv)) * 0.05
+    elif name == "trifinger":
+        q = trifinger_contact_q(task, rng, B)
+        qd = rng.normal(size=(B, model.nv)) * 0.05
+    elif name in ("ingenuity", "quadcopter"):
+        q = drone_contact_q(model, rng, B, DRONE_Z[type(task).__name__])
+        qd = rng.normal(size=(B, model.nv)) * 0.5
     elif name in BOX_POSES or name == "boxbox_terrain":
         # the scene's pose with 1 mm of noise in position and 0.02 in the quaternion
         pose = box_terrain_scene(load_urdf, compose)[1] if name == "boxbox_terrain" else BOX_POSES[name][1]
@@ -723,11 +781,13 @@ def _assert_close(a, b):
 # h c_t ~ 80 kg, friction_vel 0.01 m/s), so the last-bit differences of the
 # two versions' articulated solves grow several-fold per step; free running,
 # the versions part within 3 steps (qd 0.02, net 1.9 N of 1.5 kN)
-STEPWISE = {"allegro_hand", "shadow_hand", "boxbox_terrain", "franka_cabinet", "factory_screw"}
+STEPWISE = {"allegro_hand", "shadow_hand", "boxbox_terrain", "franka_cabinet", "factory_screw",
+            "trifinger"}
 HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
               "ball_balance", "pair_capsule", "held", "boxbox", "capbox", "spherebox",
               "allegro_hand", "tendon", "shadow_hand", "boxbox_terrain", "pair_capsule_terrain",
-              "humanoid_mjcf", "franka", "franka_cabinet", "factory_screw"]
+              "humanoid_mjcf", "franka", "franka_cabinet", "factory_screw", "trifinger",
+              "ingenuity", "quadcopter"]
 # the heightfield cases with actor pairs: both the pairs and the ground touched
 PAIR_TERRAIN = {"boxbox_terrain": 2, "pair_capsule_terrain": 1}
 
@@ -767,6 +827,10 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
             rows = rows.any(-1)
         if name in ("franka_cabinet", "factory_screw"):   # the share of envs with a pad touched
             rows = rows[:, [task.lfinger_body, task.rfinger_body]].any(-1)
+        if name == "trifinger":                  # the share of env-fingertips touched
+            rows = rows[:, list(task.net_torque_bodies)]
+        if name in ("ingenuity", "quadcopter"):  # the share of envs with a body on the ground
+            rows = rows.any(-1)
         touched = max(touched, float(rows.float().mean()))
         if name in PAIR_TERRAIN:
             fr = forward_kinematics(model, qb, qdb)
@@ -781,8 +845,8 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
             ground_touched = max(ground_touched, float(
                 ((z > p[..., 2] - torch.as_tensor(cand["r"])) & free).any(-1).float().mean()))
     if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
-                "shadow_hand", "humanoid_mjcf", "franka_cabinet", "factory_screw", *PAIR_TERRAIN,
-                *BOX_POSES):
+                "shadow_hand", "humanoid_mjcf", "franka_cabinet", "factory_screw", "trifinger",
+                "ingenuity", "quadcopter", *PAIR_TERRAIN, *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
     if name == "humanoid_mjcf":                  # over the shared budget: the split layout
         assert step.pair_mode == 0 and step.block == fused.BLOCK and step.layout == "split"

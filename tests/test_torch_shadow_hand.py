@@ -18,6 +18,9 @@ fixed tendons, each holding q_J0 - q_J1 in [-0.05, 0.05]).
   1e-4 / rtol 1e-5, of which the DOF-force estimate (the drive torque plus
   the tendon springs' torque) atol 1e-5 / rtol 1e-6, reward atol 1e-4 / rtol
   1e-5, done, successes and the consecutive-success EMA at 1e-6.
+- The privileged states of ``asymmetric_observations`` (``compute_states``,
+  211) against JAX on identical states, the fingertips' net contact force
+  and torque rows non-zero: atol 1e-4 / rtol 1e-5 (the obs's tolerance).
 - One ShadowHandPPO iteration at 8 envs on the CPU is finite, from weights
   that ``parity/convert.py`` carried across from a JAX PPO init (forward
   pass atol=rtol 1e-5)."""
@@ -188,6 +191,44 @@ def test_post_physics_and_dof_forces_match_jax(envs):
     assert ttask.successes.numpy().tolist() == [3.0, 0.0, 5.0, 1.0]
     np.testing.assert_array_equal(ttask.goal_rot.numpy()[1:], np.asarray(jtask.goal_rot)[1:])
     assert float(metrics["rot_dist"][0]) < 1e-3
+
+
+def test_asymmetric_states_match_jax():
+    env_blk = {"env": {**_yaml("task", "ShadowHand.yaml")["env"], "asymmetric_observations": True}}
+    with pytest.warns(UserWarning):
+        jenv = tgx.make("ShadowHand", num_envs=B, seed=0, cfg=env_blk)
+        env = tgt.make("ShadowHand", num_envs=B, seed=0, cfg=env_blk, device="cpu")
+    jt, tt = jenv.task, env.task
+    assert tt.num_states == jt.num_states == 211
+    rng = np.random.default_rng(8)
+    q = contact_states(tt.model, rng, B)
+    qd = (rng.normal(size=(B, tt.model.nv)) * 0.5).astype(np.float32)
+    net = np.zeros((B, tt.model.nb, 3), np.float32)
+    tq_ = np.zeros((B, tt.model.nb, 3), np.float32)
+    net[:, tt.fingertip_ids] = rng.normal(size=(B, 5, 3)) * 5
+    tq_[:, tt.fingertip_ids] = rng.normal(size=(B, 5, 3)) * 0.05
+    goal = rng.normal(size=(B, 4))
+    task = dict(goal_rot=goal / np.linalg.norm(goal, axis=1, keepdims=True),
+                prev_targets=q[:, 7:] + rng.normal(size=(B, 24)) * 0.1,
+                actions=rng.uniform(-1, 1, (B, 20)))
+    task = {k: np.asarray(v, np.float32) for k, v in task.items()}
+    js = jax.jit(jenv.init_fn)(jax.random.key(0))
+    js = dataclasses.replace(
+        js, q=jnp.asarray(q), qd=jnp.asarray(qd), net_contact=jnp.asarray(net),
+        net_torque=jnp.asarray(tq_),
+        task=dataclasses.replace(js.task, **{k: jnp.asarray(v) for k, v in task.items()}))
+    ts = env.init_fn(0)
+    ts = dataclasses.replace(
+        ts, q=torch.as_tensor(q), qd=torch.as_tensor(qd), net_contact=torch.as_tensor(net),
+        net_torque=torch.as_tensor(tq_),
+        task=dataclasses.replace(ts.task, **{k: torch.as_tensor(v) for k, v in task.items()}))
+    jstates = jax.jit(jt.compute_states)(js, js.task)
+    states = tt.compute_states(ts, ts.task)
+    assert tuple(states.shape) == (B, 211) and tuple(ts.states.shape) == (B, 211)
+    np.testing.assert_allclose(states.numpy(), np.asarray(jstates), atol=1e-4, rtol=1e-5)
+    # the fingertip force-torque rows (161-190, after 72 joint, 24 object and
+    # goal, and 65 fingertip-state rows), scaled by 10, are read
+    assert float(states[:, 161:191].abs().min(-1).values.min()) > 0.0
 
 
 def test_shadow_hand_ppo_iteration_on_cpu():

@@ -137,6 +137,8 @@ class Task:
     dr_config: Optional[dict] = None
     uses_net_torque: bool = False
     net_torque_bodies: Optional[tuple] = None
+    # a task whose gravity its YAML's sim block does not set (tasks/__init__.py)
+    fixed_gravity: bool = False
 
     def __init__(self, num_envs: int, seed: int = 42, device=None):
         self.num_envs = num_envs

@@ -5,11 +5,15 @@ Every function takes plain numpy data (a JAX pytree after
 the JAX package:
 
 - :func:`model_params` — ``ModelParams`` leaves -> the port's ModelParams;
-- :func:`load_actor_critic` — flax ``ActorCritic`` params (Dense ``kernel``
-  (in, out) -> ``nn.Linear.weight`` (out, in), ``bias``, ``log_std``);
+- :func:`load_actor_critic` — flax ``ActorCritic`` or ``ActorCriticRNN``
+  params, with a ``ValueNet`` the asymmetric ``{"ac", "cv"}`` (Dense
+  ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in), ``bias``,
+  ``log_std``; an LSTM cell's eight Dense leaves -> its two Linears; the
+  LayerNorm's ``scale`` -> ``weight``);
 - :func:`rms_state` — ``RMSState`` (mean, var, count);
 - :func:`train_state` — a JAX PPO ``TrainState`` (params, optax Adam
-  moments and count, lr, normalizers, epoch) into a port TrainState;
+  moments and count, lr, the three normalizers, epoch) into a port
+  TrainState;
 - :func:`train_state_from_leaves` — the same from the ordered leaves of a
   JAX checkpoint (``jax.tree.leaves(TrainState)``, npz ``arr_0..arr_N``);
 - :func:`heightfield` — an ``engine.terrain.Heightfield`` (heights, scales,
@@ -27,7 +31,6 @@ import numpy as np
 import torch
 
 from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield
-from thormang_isaacgym_tpu_torch.learn.networks import ActorCritic
 from thormang_isaacgym_tpu_torch.learn.normalize import RMSState
 from thormang_isaacgym_tpu_torch.models.robot import ModelParams
 
@@ -43,38 +46,95 @@ def model_params(leaves, device="cpu") -> ModelParams:
                           for f in dataclasses.fields(ModelParams)})
 
 
-def _named_linears(model: ActorCritic) -> dict:
-    named = {f"trunk_{i}": m for i, m in enumerate(model.trunk)}
-    if model.vtrunk is not None:
-        named.update({f"vtrunk_{i}": m for i, m in enumerate(model.vtrunk)})
-    named["mu"] = model.mu
-    named["value"] = model.value
-    return named
+def _dense(prefix, lin) -> list:
+    """A flax Dense (kernel (in, out), bias) onto an nn.Linear."""
+    out = [(lin.weight, [(prefix + ("kernel",), tuple(lin.weight.shape[::-1]))],
+            lambda xs: xs[0].T)]
+    if lin.bias is not None:
+        out.append((lin.bias, [(prefix + ("bias",), tuple(lin.bias.shape))], lambda xs: xs[0]))
+    return out
 
 
-def load_actor_critic(model: ActorCritic, flax_params: dict) -> ActorCritic:
-    """Copy flax ActorCritic params ({'params': {...}} or the inner dict)
-    into `model` in place; returns it."""
-    p = flax_params.get("params", flax_params)
-    with torch.no_grad():
-        for name, lin in _named_linears(model).items():
-            lin.weight.copy_(_leaf(p[name]["kernel"], lin.weight.device).t())
-            lin.bias.copy_(_leaf(p[name]["bias"], lin.bias.device))
-        model.log_std.copy_(_leaf(p["log_std"], model.log_std.device))
-    return model
+def _lstm(prefix, cell) -> list:
+    """A flax OptimizedLSTMCell's eight Dense leaves onto the cell's two
+    Linears: the input kernels ii, if, ig, io concatenated into ``ih`` and
+    the hidden kernels and biases hi, hf, hg, ho into ``hh``."""
+    H = cell.hh.weight.shape[1]
+    n_in = cell.ih.weight.shape[1]
+
+    def cat_t(xs):
+        return np.concatenate(xs, axis=-1).T
+
+    def cat(xs):
+        return np.concatenate(xs, axis=-1)
+
+    return [(cell.ih.weight, [(prefix + ("i" + g, "kernel"), (n_in, H)) for g in "ifgo"], cat_t),
+            (cell.hh.weight, [(prefix + ("h" + g, "kernel"), (H, H)) for g in "ifgo"], cat_t),
+            (cell.hh.bias, [(prefix + ("h" + g, "bias"), (H,)) for g in "ifgo"], cat)]
 
 
-def _flat_like_torch(model: ActorCritic, tree: dict) -> list:
-    """The flax-shaped `tree` (same structure as the params) as a list of
-    tensors in the order of model.parameters()."""
-    t = tree.get("params", tree)
+def _specs(model, value_net=None) -> list:
+    """(torch parameter, [(flax path, flax shape), ...], combine) for every
+    parameter of `model` (ActorCritic or ActorCriticRNN) and `value_net`, in
+    the order of ``TrainState.parameters()``: ``combine`` maps the flax
+    leaves (numpy, in the listed order) onto the parameter. The paths start
+    at the root of the JAX params: ``("params", ...)``, or with a value net
+    ``("ac", "params", ...)`` and ``("cv", "params", ...)``."""
+    root = ("ac", "params") if value_net is not None else ("params",)
     by_param = {}
-    for name, lin in _named_linears(model).items():
-        by_param[id(lin.weight)] = np.array(t[name]["kernel"]).T
-        by_param[id(lin.bias)] = np.array(t[name]["bias"])
-    by_param[id(model.log_std)] = np.array(t["log_std"])
-    return [torch.as_tensor(np.ascontiguousarray(by_param[id(p)]), device=p.device)
-            for p in model.parameters()]
+    for i, lin in enumerate(model.trunk):
+        by_param.update({id(p): e for p, *e in _dense(root + (f"trunk_{i}",), lin)})
+    for i, lin in enumerate(getattr(model, "vtrunk", None) or ()):
+        by_param.update({id(p): e for p, *e in _dense(root + (f"vtrunk_{i}",), lin)})
+    for i, cell in enumerate(getattr(model, "lstm", ())):
+        by_param.update({id(p): e for p, *e in _lstm(root + (f"lstm_{i}",), cell)})
+    ln = getattr(model, "rnn_ln", None)
+    if ln is not None:
+        by_param[id(ln.weight)] = ([(root + ("rnn_ln", "scale"), tuple(ln.weight.shape))],
+                                   lambda xs: xs[0])
+        by_param[id(ln.bias)] = ([(root + ("rnn_ln", "bias"), tuple(ln.bias.shape))],
+                                 lambda xs: xs[0])
+    for name in ("mu", "value", "sigma"):
+        if getattr(model, name, None) is not None:
+            by_param.update({id(p): e for p, *e in _dense(root + (name,), getattr(model, name))})
+    if model.log_std is not None:
+        by_param[id(model.log_std)] = ([(root + ("log_std",), tuple(model.log_std.shape))],
+                                       lambda xs: xs[0])
+    params = list(model.parameters())
+    if value_net is not None:
+        cv = ("cv", "params")
+        for i, lin in enumerate(value_net.cv):
+            by_param.update({id(p): e for p, *e in _dense(cv + (f"cv_{i}",), lin)})
+        by_param.update({id(p): e for p, *e in _dense(cv + ("cv_value",), value_net.cv_value)})
+        params += list(value_net.parameters())
+    return [(p, *by_param[id(p)]) for p in params]
+
+
+def _get(tree, path):
+    """A copy of the leaf at `path` (the port's tensors must not share the
+    caller's arrays: Adam updates its moments in place)."""
+    for k in path:
+        tree = tree[k]
+    return np.array(tree)
+
+
+def _flat_like_torch(model, tree: dict, value_net=None) -> list:
+    """The flax-shaped `tree` (the structure of the JAX params) as a list of
+    tensors in the order of the port's parameters (``_specs``)."""
+    return [torch.as_tensor(np.ascontiguousarray(combine([_get(tree, path) for path, _ in leaves])),
+                            device=p.device)
+            for p, leaves, combine in _specs(model, value_net)]
+
+
+def load_actor_critic(model, flax_params: dict, value_net=None):
+    """Copy flax params (ActorCritic or ActorCriticRNN; with `value_net`, the
+    asymmetric ``{"ac": ..., "cv": ...}``) into the port's modules in place;
+    returns `model`."""
+    with torch.no_grad():
+        for p, x in zip((p for p, _, _ in _specs(model, value_net)),
+                        _flat_like_torch(model, flax_params, value_net)):
+            p.copy_(x)
+    return model
 
 
 def rms_state(rms, device="cpu") -> RMSState:
@@ -99,28 +159,25 @@ def train_state(ppo, jax_ts):
     TrainState for `ppo` (a port PPO on the same task and config)."""
     ts = ppo.init(ppo.cfg.seed)
     dev = ppo.device
-    load_actor_critic(ts.model, jax_ts.params)
+    load_actor_critic(ts.model, jax_ts.params, ts.value_net)
     adam = _find_adam(jax_ts.opt_state)
     if adam is not None:
-        ts.adam_m = _flat_like_torch(ts.model, adam.mu)
-        ts.adam_v = _flat_like_torch(ts.model, adam.nu)
+        ts.adam_m = _flat_like_torch(ts.model, adam.mu, ts.value_net)
+        ts.adam_v = _flat_like_torch(ts.model, adam.nu, ts.value_net)
         ts.adam_step = int(np.array(adam.count))
     ts.lr = _leaf(jax_ts.lr, dev, torch.float32)
     ts.obs_rms = rms_state(jax_ts.obs_rms, dev)
     ts.value_rms = rms_state(jax_ts.value_rms, dev)
+    ts.states_rms = rms_state(jax_ts.states_rms, dev)
     ts.epoch = int(np.array(jax_ts.epoch))
     return ts
 
 
-def _flax_leaves(model: ActorCritic) -> list:
-    """(name, shape) of the flax params' leaves in ``jax.tree.leaves``
-    order (dict keys sorted; a Dense layer's bias before its kernel)."""
-    out = []
-    for name, lin in sorted(_named_linears(model).items()):
-        out.append(((name, "bias"), tuple(lin.bias.shape)))
-        out.append(((name, "kernel"), tuple(lin.weight.shape[::-1])))
-    out.append((("log_std",), tuple(model.log_std.shape)))
-    return sorted(out)
+def _flax_leaves(ts) -> list:
+    """(path, shape) of the flax params' leaves of `ts`'s networks in
+    ``jax.tree.leaves`` order (dict keys sorted; a Dense layer's bias before
+    its kernel; ``ac`` before ``cv``)."""
+    return sorted(leaf for _, leaves, _ in _specs(ts.model, ts.value_net) for leaf in leaves)
 
 
 def train_state_from_leaves(ppo, leaves):
@@ -130,9 +187,8 @@ def train_state_from_leaves(ppo, leaves):
     nu (each shaped like params); lr; obs_rms, value_rms and states_rms
     (mean, var, count); epoch. A leaf count or shape that does not match
     `ppo`'s config raises ValueError."""
-    template = ppo.init(ppo.cfg.seed).model
-    params = _flax_leaves(template)
-    states = max(int(getattr(ppo.env.task, "num_states", 0) or 0), 1)
+    params = _flax_leaves(ppo.init(ppo.cfg.seed))
+    states = max(ppo.num_states, 1)
     n_obs = ppo.env.num_obs
     shapes = ([s for _, s in params] + [()] + [s for _, s in params] * 2 + [()]
               + [(n_obs,), (n_obs,), (), (), (), (), (states,), (states,), (), ()])
@@ -153,7 +209,7 @@ def train_state_from_leaves(ppo, leaves):
             for k in path[:-1]:
                 node = node.setdefault(k, {})
             node[path[-1]] = next(it)
-        return {"params": t}
+        return t
 
     p = tree()
     count = next(it)
@@ -161,7 +217,7 @@ def train_state_from_leaves(ppo, leaves):
     lr = next(it)
     rms = [SimpleNamespace(mean=next(it), var=next(it), count=next(it)) for _ in range(3)]
     jax_ts = SimpleNamespace(params=p, opt_state=(adam,), lr=lr, obs_rms=rms[0],
-                             value_rms=rms[1], epoch=next(it))
+                             value_rms=rms[1], states_rms=rms[2], epoch=next(it))
     return train_state(ppo, jax_ts)
 
 

@@ -2,10 +2,12 @@
 ``runs/<name>/nn/*.pth`` equivalent). Port of
 ``thormang_isaacgym_tpu/runtime/checkpoint.py``.
 
-The port writes one npz of named arrays: ``model/<state_dict key>``,
-``adam_m/<parameter>``, ``adam_v/<parameter>``, ``adam_step``, ``lr``,
-``obs_rms/*`` and ``value_rms/*`` (mean, var, count), ``epoch`` and
-``gen_state`` (the generator of action noise and minibatch permutations).
+The port writes one npz of named arrays: ``model/<state_dict key>``, with
+an asymmetric critic ``value_net/<state_dict key>``, ``adam_m/<parameter>``
+and ``adam_v/<parameter>`` (the value net's as ``value_net.<parameter>``),
+``adam_step``, ``lr``, ``obs_rms/*``, ``value_rms/*`` and ``states_rms/*``
+(mean, var, count), ``epoch`` and ``gen_state`` (the generator of action
+noise and minibatch permutations).
 Restoring it and running one more iteration gives the uninterrupted run's
 numbers (the env state is the caller's; it is reproducible from the seed).
 
@@ -24,12 +26,22 @@ import torch
 from thormang_isaacgym_tpu_torch.learn.normalize import RMSState
 
 
+def _param_names(ts) -> list:
+    """Names of ``ts.parameters()``, in its order."""
+    names = [n for n, _ in ts.model.named_parameters()]
+    if ts.value_net is not None:
+        names += [f"value_net.{n}" for n, _ in ts.value_net.named_parameters()]
+    return names
+
+
 def _arrays(ts) -> dict:
     out = {f"model/{k}": v for k, v in ts.model.state_dict().items()}
-    names = [n for n, _ in ts.model.named_parameters()]
+    if ts.value_net is not None:
+        out.update({f"value_net/{k}": v for k, v in ts.value_net.state_dict().items()})
+    names = _param_names(ts)
     out.update({f"adam_m/{n}": m for n, m in zip(names, ts.adam_m)})
     out.update({f"adam_v/{n}": v for n, v in zip(names, ts.adam_v)})
-    for rms in ("obs_rms", "value_rms"):
+    for rms in ("obs_rms", "value_rms", "states_rms"):
         for f in ("mean", "var", "count"):
             out[f"{rms}/{f}"] = getattr(getattr(ts, rms), f)
     out["lr"] = ts.lr
@@ -74,14 +86,18 @@ def load_train_state(path: str, ppo):
         return torch.as_tensor(arrays[k], device=dev)
 
     with torch.no_grad():
-        ts.model.load_state_dict({k[len("model/"):]: t(k) for k in arrays if k.startswith("model/")})
-    names = [n for n, _ in ts.model.named_parameters()]
+        for prefix, module in (("model/", ts.model), ("value_net/", ts.value_net)):
+            if module is not None:
+                module.load_state_dict({k[len(prefix):]: t(k) for k in arrays
+                                        if k.startswith(prefix)})
+    names = _param_names(ts)
     ts.adam_m = [t(f"adam_m/{n}") for n in names]
     ts.adam_v = [t(f"adam_v/{n}") for n in names]
     ts.adam_step = int(arrays["adam_step"])
     ts.lr = t("lr")
-    ts.obs_rms, ts.value_rms = (RMSState(t(f"{r}/mean"), t(f"{r}/var"), t(f"{r}/count"))
-                                for r in ("obs_rms", "value_rms"))
+    ts.obs_rms, ts.value_rms, ts.states_rms = (
+        RMSState(t(f"{r}/mean"), t(f"{r}/var"), t(f"{r}/count"))
+        for r in ("obs_rms", "value_rms", "states_rms"))
     ts.epoch = int(arrays["epoch"])
     ts.gen.set_state(torch.as_tensor(arrays["gen_state"]))
     return ts

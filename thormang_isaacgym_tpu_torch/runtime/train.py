@@ -147,7 +147,11 @@ def main(argv=None):
 @torch.no_grad()
 def play(env, ppo, ts, episodes=3):
     """Deterministic policy evaluation (the reference's test=True path): the
-    mean return of the first ``episodes x num_envs`` finished episodes."""
+    mean return of the first ``episodes x num_envs`` finished episodes. An
+    LSTM policy raises NotImplementedError: the JAX package plays none."""
+    if ppo.is_rnn:
+        raise NotImplementedError("play of an LSTM policy: the JAX package's deterministic "
+                                  "action passes no carry, so there is no play to port")
     state = env.reset(0)
     dev = env.device
     returns = torch.zeros(env.num_envs, device=dev)

@@ -31,6 +31,9 @@ TASK_MAP = {
                                 "FactoryTaskNutBoltScrew"),
     "FactoryTaskInsertion": ("thormang_isaacgym_tpu_torch.tasks.factory", "FactoryTaskInsertion"),
     "FactoryTaskGears": ("thormang_isaacgym_tpu_torch.tasks.factory", "FactoryTaskGears"),
+    "Ingenuity": ("thormang_isaacgym_tpu_torch.tasks.ingenuity", "Ingenuity"),
+    "Quadcopter": ("thormang_isaacgym_tpu_torch.tasks.quadcopter", "Quadcopter"),
+    "Trifinger": ("thormang_isaacgym_tpu_torch.tasks.trifinger", "Trifinger"),
 }
 
 
@@ -131,7 +134,9 @@ def apply_cfg_sim(task, sim_cfg: dict):
     substeps (AnymalTerrain: 0.005 x 4 = 0.02 s, 4 substeps), and the task
     re-derives what depends on dt (``task.set_dt``). The JAX package's
     ``make`` leaves the task's own sim parameters in place; the port follows
-    the YAML."""
+    the YAML, but for the gravity of a task that fixes its own
+    (``fixed_gravity``: Ingenuity's Mars gravity, which the reference sets in
+    code whatever its YAML says)."""
     if not sim_cfg:
         return task
     dec = int(getattr(task, "decimation", 1))
@@ -140,7 +145,7 @@ def apply_cfg_sim(task, sim_cfg: dict):
         kw["dt"] = float(sim_cfg["dt"]) * dec
     if "substeps" in sim_cfg:
         kw["substeps"] = int(sim_cfg["substeps"]) * dec
-    if "gravity" in sim_cfg:
+    if "gravity" in sim_cfg and not task.fixed_gravity:
         kw["gravity"] = tuple(float(g) for g in sim_cfg["gravity"])
         task.model._defaults["gravity"] = np.asarray(kw["gravity"], np.float32)
     task.sim_params = dataclasses.replace(task.sim_params, **kw)

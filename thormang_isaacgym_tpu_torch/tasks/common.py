@@ -3,6 +3,8 @@ unscaling, spawn-height solving. Port of ``thormang_isaacgym_tpu/tasks/common.py
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -36,6 +38,14 @@ def compute_rot(torso_quat, velocity, ang_velocity, targets, torso_pos):
 def unscale(x, lower, upper):
     """Map [lower, upper] -> [-1, 1]."""
     return (2.0 * x - upper - lower) / (upper - lower + 1e-8)
+
+
+def normal(u: torch.Tensor) -> torch.Tensor:
+    """(B, 2k) uniforms in [0, 1) -> (B, 2k) standard normals (Box-Muller):
+    the port's normal draws from its EnvRandom uniforms."""
+    u1, u2 = u[:, 0::2], u[:, 1::2]
+    r = torch.sqrt(-2.0 * torch.log(1.0 - u1))
+    return torch.cat([r * torch.cos(2.0 * math.pi * u2), r * torch.sin(2.0 * math.pi * u2)], -1)
 
 
 def normalize_angle(x):

@@ -48,6 +48,7 @@ from thormang_isaacgym_tpu_torch.models.shadow_hand import (
 from thormang_isaacgym_tpu_torch.ops.dynamics import tendon_tables
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
+from thormang_isaacgym_tpu_torch.tasks.common import normal
 
 HAND_POS = (0.0, 0.0, 0.5)
 # cube spawn over the palm, clearing the cube's half diagonal in every orientation
@@ -69,13 +70,6 @@ class HandTaskState:
     goal_cap: torch.Tensor        # (B,) curriculum cap on the goal distance, the same in every env
 
 
-def _normal(u: torch.Tensor) -> torch.Tensor:
-    """(B, 2k) uniforms in [0, 1) -> (B, 2k) standard normals (Box-Muller)."""
-    u1, u2 = u[:, 0::2], u[:, 1::2]
-    r = torch.sqrt(-2.0 * torch.log(1.0 - u1))
-    return torch.cat([r * torch.cos(2.0 * math.pi * u2), r * torch.sin(2.0 * math.pi * u2)], -1)
-
-
 def _rand_rot(r0: torch.Tensor, r1: torch.Tensor) -> torch.Tensor:
     """randomize_rotation: pi r0 about x, then pi r1 about y (r in [-1, 1))."""
     ex = r0.new_tensor([1.0, 0.0, 0.0])
@@ -88,7 +82,7 @@ def _curriculum_goal(u: torch.Tensor, obj_rot, cap, min_angle: float):
     [min_angle, cap] about a uniform axis from the current orientation, or,
     once the cap is within 0.05 of pi, the reference's uniform draw."""
     full = _rand_rot(2.0 * u[:, 0] - 1.0, 2.0 * u[:, 1] - 1.0)
-    axis = _normal(u[:, 2:6])[:, :3]
+    axis = normal(u[:, 2:6])[:, :3]
     axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + 1e-9)
     ang = min_angle + (cap - min_angle) * u[:, 6]
     near = Q.mul(Q.conj(Q.from_axis_angle(axis, ang)), obj_rot)
@@ -266,7 +260,7 @@ class ShadowHand(Task):
             u = EnvRandom(state.seed, state.global_step.expand(B), 77).uniform(5)
             decay = self.force_decay ** (self.dt / self.force_decay_interval)
             kick = u[:, 0] < t.force_prob
-            new_f = _normal(u[:, 1:5])[:, :3] * (self.object_mass * self.force_scale)
+            new_f = normal(u[:, 1:5])[:, :3] * (self.object_mass * self.force_scale)
             rb_force = torch.where(kick[:, None], new_f, rb_force * decay)
             wrench[:, self.object_body, 3:6] = rb_force
         z = torch.zeros(B, self.nj, device=actions.device)
