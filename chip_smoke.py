@@ -35,9 +35,15 @@ Phases, one line each (any failure raises and exits non-zero):
     task's threaded nut with its tendon on and beside its bound; the box
     instance's first launch, on the box-box scene, measures its stack
     reservation), Trifinger at 16384 envs (its three fingertips pressing on
-    the cube's top face: ``trifinger_contact_q``, substep by substep) and,
-    in the flat mode, Ingenuity (4096: one jointless body, its box corners
-    and rotor rims on the ground) and Quadcopter (8192), near the ground
+    the cube's top face: ``trifinger_contact_q``, substep by substep),
+    MA_OP3 at 4096 envs (two OP3s and a table, 75 pairs: the heels on the
+    ground, a foot against a table leg in every third env, the grippers on
+    the table top's edge, drive targets at and near the effort clamp:
+    ``ma_op3_contact_q``, substep by substep; an env outside TOL at a
+    narrowphase tie or a drive at its clamp, ``drive_ties``; its first
+    launch's stack bytes, which the built box instance should not grow)
+    and, in the flat mode, Ingenuity (4096: one jointless body, its box
+    corners and rotor rims on the ground) and Quadcopter (8192), near the ground
     with non-zero force and torque rows of the wrench on every body; max
     abs error of q, qd and net against
     TOL, beside the largest |value| of each and the share of non-zero net
@@ -52,7 +58,7 @@ Phases, one line each (any failure raises and exits non-zero):
     BallBalance and HumanoidMJCF (split, and local forced) at 4096 envs,
     AllegroHand and ShadowHand at 16384, FrankaCabinet (4096),
     FrankaCubeStack (8192), FactoryTaskNutBoltPick (128), Trifinger
-    (16384), Ingenuity (4096) and Quadcopter (8192) (CUDA
+    (16384), Ingenuity (4096), Quadcopter (8192) and MA_OP3 (4096) (CUDA
     events after warm-up, ms per control step) beside the kernel's bound,
     with the launch's block size, the blocks it runs beside the card's SM
     count, its dynamic shared bytes and ptxas'
@@ -78,23 +84,30 @@ Phases, one line each (any failure raises and exits non-zero):
     16), Quadcopter (8192, 3 x 8), AnymalTerrain with
     AnymalTerrainPPO_LSTM (4096, LSTM 256 after a 512 trunk, 3 x 24) and
     ShadowHand with ShadowHandPPOAsymmLSTM and asymmetric_observations
-    (16384, LSTM 1024 before a 512 MLP, 211 states, 3 x 16); every metric
-    finite, obs and states finite of shape (envs, num_obs / num_states);
-    blocks beside the SM count.
+    (16384, LSTM 1024 before a 512 MLP, 211 states, 3 x 16), and MA_OP3
+    with MAPPO (MA_OP3PPO, 4096 envs, the numEnvs of the reference's other
+    tasks: the YAML's 8 cannot fill its minibatch; 3 x 24); every metric
+    finite, obs, rewards and states finite of shape (envs[, agents],
+    num_obs / num_states), MA_OP3's rewards at least 0 (clipped); blocks
+    beside the SM count.
  5. cli: the training CLI in subprocesses, ``python3 -m
     thormang_isaacgym_tpu_torch.runtime.train task=HumanoidMJCF
     train=HumanoidPPO num_envs=4096 max_iterations=2`` into a temporary
     output root, then ``test=true test_episodes=1`` on its last.ckpt; the
-    same for Trifinger (TrifingerPPO, 16384 envs); each exits 0,
-    metrics.jsonl holds a finite reward_mean and the play line a finite
-    play_mean_return.
+    same for Trifinger (TrifingerPPO, 16384 envs); MA_OP3 (MA_OP3PPO) at
+    its YAML's 8 envs, without play (a multi-agent task has none); each
+    exits 0, metrics.jsonl holds a finite reward_mean and the play line a
+    finite play_mean_return. Then the multi-task CLI, ``python3 -m
+    thormang_isaacgym_tpu_torch.runtime.train_multi tasks=Ant,HumanoidMJCF
+    num_envs=4096 max_iterations=2``: exit 0, every task's metrics finite
+    in both rows, each task's env-steps/s.
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
 box modes, its tendon block, timed on ShadowHand, with the block's own
 time and bound beside the instance's, and the flat mode's local-memory and
 split layouts, on HumanoidMJCF; an instance's launches those of every task
 trained through it, ``launches_by_task``: the flat mode Ant's and the
 drones', the heightfield AnymalTerrain's with either policy, the box mode
-AllegroHand's, the Franka family's and Trifinger's, the tendon block
+AllegroHand's, the Franka family's, Trifinger's and MA_OP3's, the tendon block
 ShadowHand's with either policy) and, last, the {"ok": true, "device": ...}
 line.
 """
@@ -128,14 +141,15 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 from test_torch_fused import (  # noqa: E402
     BOX_POSES, BOX_SP, DRONE_Z, PAIR_POSES, PAIR_SP, TENDON_SP, allegro_contact_q, ball_balance_q,
     box_pair_scene, drone_contact_q, factory_pick_contact_q, factory_screw_contact_q,
-    franka_arm_q, franka_cabinet_contact_q, franka_cube_contact_q, pair_capsule_scene,
-    shadow_contact_q, tendon_length, tendon_q, tendon_scene, trifinger_contact_q,
+    franka_arm_q, franka_cabinet_contact_q, franka_cube_contact_q, ma_op3_contact_q,
+    pair_capsule_scene, shadow_contact_q, tendon_length, tendon_q, tendon_scene,
+    trifinger_contact_q,
 )
 B = 4096
 # tasks whose published width is not B (cfg/task/<task>.yaml numEnvs)
 ENVS = {"AllegroHand": 16384, "ShadowHand": 16384, "FrankaCubeStack": 8192,
         "FactoryTaskNutBoltPick": 128, "FactoryTaskNutBoltScrew": 128, "Trifinger": 16384,
-        "Quadcopter": 8192}
+        "Quadcopter": 8192, "MA_OP3": 4096}
 # the Franka family's contact states (tests/test_torch_fused.py): the finger
 # pads around FrankaCabinet's handle bar, on cube A under cube B on the
 # table, on the Factory nut on the table, on the Screw task's threaded nut
@@ -156,6 +170,11 @@ NEW_TASKS = ("Trifinger", "Ingenuity", "Quadcopter")
 LSTM_TRAIN = (("AnymalTerrain:LSTM", "AnymalTerrain", "AnymalTerrainPPO_LSTM", {}),
               ("ShadowHand:AsymmLSTM", "ShadowHand", "ShadowHandPPOAsymmLSTM",
                {"asymmetric_observations": True}))
+# the multi-agent slice: MA_OP3 (two OP3s and a table, 75 actor pairs, the
+# box instance) compared, timed and trained with MAPPO at 4096 envs, the
+# numEnvs of the reference's other tasks (its YAML's 8 cannot fill
+# MA_OP3PPO's minibatch of 16384 env transitions); the CLI at the YAML's 8
+MA_TASK = "MA_OP3"
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
 # (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
@@ -199,9 +218,9 @@ TOL = dict(flat=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1e-2, 5e-3)),
            boxes=dict(q=(2e-3, 2e-3), qd=(2e-2, 2e-2), net=(1.0, 5e-3)))
 # cases held against the plain version step by step (see phase_compare)
 STEPWISE = {"AnymalTerrain", "PairCapsule", "BoxBox", "AllegroHand", "ShadowHand", "Trifinger",
-            *FRANKA_CONTACT}
+            MA_TASK, *FRANKA_CONTACT}
 # cases held substep by substep (a one-substep build of the kernel; see phase_compare)
-SUBSTEPWISE = {"AllegroHand", "ShadowHand", "Trifinger", *FRANKA_CONTACT}
+SUBSTEPWISE = {"AllegroHand", "ShadowHand", "Trifinger", MA_TASK, *FRANKA_CONTACT}
 # the TPU kernel's call and the blocks the heightfield, pair and box modes
 # replace (the pair modes: the pair force block and the attractor block; the
 # box mode also the box narrowphase: sphere-box, capsule-box, box-box), and
@@ -226,6 +245,9 @@ FIRST_LOCAL = "HumanoidMJCF:local"
 # the box instance's first launch (after the local layout's), whose stack
 # reservation the Franka family's lines carry
 FIRST_BOX = "BoxBox"
+# a later case of the box instance whose first launch is measured too: the
+# instance is built and its stack reserved, so it should add nothing
+STACK_CHECK = MA_TASK
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -309,6 +331,16 @@ def random_inputs(task, rng: np.random.Generator, device):
         targets = np.zeros((B, nj))
         effort = np.zeros((B, nj))
         effort[:, task.dof_ids] = rng.uniform(-0.36, 0.36, (B, 9))
+        zero_wrench = True
+    elif type(task).__name__ == MA_TASK:
+        # ma_op3_contact_q: the heels on the ground, a foot against a table leg
+        # in every third env, the grippers on the table top's edge; position
+        # targets 0.01 rad (sd) from the joints (kp 1000 against 4.1 N m: many
+        # drives at the clamp, some inside it), no wrench (as in training)
+        q = ma_op3_contact_q(task, rng, B)
+        qd = rng.normal(size=(B, m.nv)) * 0.05
+        targets = q[:, m.root_nq:] + rng.normal(size=(B, nj)) * 0.01
+        effort = np.zeros((B, nj))
         zero_wrench = True
     elif type(task).__name__ in DRONE_Z:
         # the copters near the ground (box corners and rotor rims touching in
@@ -556,6 +588,20 @@ TIE_LEN = 2e-6
 TIE_T = 1e-3
 TIE_FLAT = 1e-7
 TIE_TURN = 1e-3
+# a position drive's torque within TIE_TAU (N m) of its effort limit: one
+# version clamps it and the other not (MA_OP3's kp 1000 against 4.1 N m)
+TIE_TAU = 1e-4
+
+
+def drive_ties(params, q, qd, ctrl, h) -> torch.Tensor:
+    """(n,) envs where a position drive's implicit PD torque (ops/dynamics.py
+    drive_forces, substep h) lies within TIE_TAU of its effort limit."""
+    m0 = q.shape[1] - ctrl.target_pos.shape[1]
+    jq, jqd = q[:, m0:].double(), qd[:, qd.shape[1] - ctrl.target_pos.shape[1]:].double()
+    kp, kd = params.drive_stiffness.double(), params.drive_damping.double()
+    pd = kp * (ctrl.target_pos.double() - jq - h * jqd) - kd * jqd
+    near = ((pd.abs() - params.drive_effort_limit.double()).abs() < TIE_TAU) & (params.drive_mode == 1)
+    return near.any(-1)
 
 
 def _sphere_box_ties(center, r, pb, qb, half):
@@ -751,7 +797,7 @@ def phase_compare(device):
     budget = fused.SMEM_BUDGET
     for case in ("Cartpole", "Ant", FIRST_SPLIT, FIRST_LOCAL, "AnymalTerrain", "BallBalance",
                  "PairCapsule", "BoxBox", "CapBox", "SphereBox", "AllegroHand", "ShadowHand",
-                 "Tendon", "FrankaArm", *FRANKA_CONTACT, *NEW_TASKS):
+                 "Tendon", "FrankaArm", *FRANKA_CONTACT, *NEW_TASKS, MA_TASK):
         name = case.split(":")[0]
         fused.SMEM_BUDGET = 0 if case == FIRST_LOCAL else budget     # the local layout forced
         if name == "PairCapsule":
@@ -801,6 +847,8 @@ def phase_compare(device):
             if local_launched and case != FIRST_BOX:
                 raise AssertionError(f"{case}'s first launch comes after a local instance's")
             stack_bytes[entry] = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
+        if case == STACK_CHECK:
+            stack_bytes[case] = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
         local_launched |= layout == "local"
         extra = ground_stats(step, q0) if mode == "heightfield" else \
             pair_stats(step, params, q0, qd0) if mode in ("pairs", "boxes") else {}
@@ -834,7 +882,12 @@ def phase_compare(device):
                         # an env outside TOL must sit at a tie of a branch (the
                         # box cases run one substep per launch)
                         outside += int(out.sum())
-                        at_tie += int(box_ties(task.model, q_in[out], qd_in[out]).sum())
+                        tie = box_ties(task.model, q_in[out], qd_in[out])
+                        if name == MA_TASK:
+                            # or a drive at its effort clamp
+                            tie |= drive_ties(params.map(lambda x: x[out]), q_in[out], qd_in[out],
+                                              Controls(*(c[out] for c in ctrl)), sp.dt)
+                        at_tie += int(tie.sum())
                         e = _errors(k_out, (qb, qdb, nb_), TOL[mode], rows=~out)
                     stepwise = e if stepwise is None else {
                         "max_abs_err": {k: max(v, stepwise["max_abs_err"][k])
@@ -868,6 +921,8 @@ def phase_compare(device):
                 # the box instance's what its frame needs beyond those
                 extra_n.update(first_launch_stack_bytes=stack_bytes[entry],
                                stack_reserved_bytes=sum(stack_bytes.values()))
+            if case == STACK_CHECK:
+                extra_n.update(first_launch_stack_bytes=stack_bytes[case])
             log("compare", model=name, mode=mode, layout=layout, smem_bytes=step.smem_bytes,
                 shared_layout_bytes=step.layout_bytes if step.pair_mode != 2 else None,
                 ptxas=instance_ptxas(fused.build_library().log, step),
@@ -879,7 +934,8 @@ def phase_compare(device):
             if not ok:
                 raise AssertionError(f"fused kernel disagrees with the plain version: {name} "
                                      f"{gate['max_abs_err']}, {outside - at_tie} envs off a tie")
-        expected = (12 if name in STEPWISE else 6) + (case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX))
+        expected = (12 if name in STEPWISE else 6) + \
+            (case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX, STACK_CHECK))
         if step.launches != expected:
             raise AssertionError(f"compare launched the kernel {step.launches} times, "
                                  f"expected {expected}")
@@ -1147,7 +1203,14 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
     packed = step.pack(params, q, qd, ctrl, wrench)
     kernel_ms = _time_cuda(lambda: step.launch(packed), iters=200, warmup=20)
     wrapper_ms = _time_cuda(lambda: step(params, q, qd, ctrl, wrench), iters=100, warmup=10)
-    plain_ms = _time_cuda(lambda: step.plain(params, q, qd, ctrl, wrench), iters=20, warmup=3)
+    # the plain version runs pair by pair: 7.2 s a control step on MA_OP3's
+    # 75 pairs, ~20-900 ms elsewhere; as many runs as fit in ~5 s, 2 to 20
+    t0 = time.perf_counter()
+    step.plain(params, q, qd, ctrl, wrench)
+    torch.cuda.synchronize()
+    plain_iters = int(min(20, max(2, 5.0 / (time.perf_counter() - t0))))
+    plain_ms = _time_cuda(lambda: step.plain(params, q, qd, ctrl, wrench), iters=plain_iters,
+                          warmup=2)
     # each input row read once, each output row written once, and over a
     # heightfield the 4 table words each candidate's plane gathers
     nc = len(fused.contact.candidates(m)["geom"])
@@ -1156,7 +1219,7 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
                                    attractors=attractors)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / FP32_FLOP_PER_S * 1e3
-    out = dict(ms=kernel_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+    out = dict(ms=kernel_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, plain_iters=plain_iters,
                bound_ms=max(bytes_ms, flops_ms),
                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                bytes=nbytes, bytes_ms=bytes_ms, flops=flops, flops_ms=flops_ms)
@@ -1189,6 +1252,7 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
     local layout) also what the ground skip sees on the state the last
     iteration ends in."""
     import thormang_isaacgym_tpu_torch as tgt
+    from thormang_isaacgym_tpu_torch.learn.ma import MAPPO
     from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig
     from thormang_isaacgym_tpu_torch.tasks import cfg_name
 
@@ -1201,7 +1265,9 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
     envs = int(task_cfg["env"]["numEnvs"])
     env = tgt.make(name, num_envs=envs, seed=SEED, cfg=task_cfg, device=device)
     cfg = PPOConfig.from_rlgames(train_cfg)
-    ppo = PPO(env, cfg, device=device)
+    agents = env.task.num_agents
+    # as the CLI dispatches: a task of more than one agent trains with MAPPO
+    ppo = (MAPPO if agents > 1 else PPO)(env, cfg, device=device)
     ts = ppo.init(SEED)
     env_state = env.reset(SEED)
     torch.cuda.synchronize()
@@ -1221,9 +1287,14 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
     expected = iters * cfg.horizon_length * env.task.control_freq_inv
     if launches != expected:
         raise AssertionError(f"fused kernel launched {launches} times, expected {expected}")
-    if tuple(env_state.obs.shape) != (envs, env.num_obs) or \
+    lead = (envs, agents) if agents > 1 else (envs,)
+    if tuple(env_state.obs.shape) != lead + (env.num_obs,) or \
             not bool(torch.isfinite(env_state.obs).all()):
-        raise AssertionError("observations are not finite of shape (B, num_obs)")
+        raise AssertionError(f"observations are not finite of shape {lead + (env.num_obs,)}")
+    if tuple(env_state.reward.shape) != lead or not bool(torch.isfinite(env_state.reward).all()):
+        raise AssertionError(f"rewards are not finite of shape {lead}")
+    if name == MA_TASK and bool((env_state.reward < 0).any()):
+        raise AssertionError("MA_OP3's rewards are clipped at 0, and one is negative")
     if tuple(env_state.states.shape) != (envs, ppo.num_states) or \
             not bool(torch.isfinite(env_state.states).all()):
         raise AssertionError("privileged states are not finite of shape (B, num_states)")
@@ -1235,7 +1306,7 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
                card=card, metrics=metrics)
     skip = ground_skip_stats(env.task.model, env_state.q) \
         if step.hf is None and step.pair_mode == 0 and step.layout != "local" else {}
-    log("train", task=name, train=train_yaml, envs=envs, layout=step.layout,
+    log("train", task=name, train=train_yaml, envs=envs, agents=agents, layout=step.layout,
         **launch_blocks(step, envs), num_states=ppo.num_states,
         network="lstm" if ppo.is_rnn else "mlp", asymmetric=ppo.asymmetric,
         dt=env.task.sim_params.dt,
@@ -1245,39 +1316,80 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
     return out
 
 
-def phase_cli(task: str, train: str, envs: int) -> dict:
+def _run(cmd: list, label: str) -> dict:
+    """Run `cmd` from the repository root; raises unless it exits 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"the CLI's {label} run exited {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return dict(seconds=time.perf_counter() - t0, stdout_tail=res.stdout.strip().splitlines()[-2:])
+
+
+def phase_cli(task: str, train: str, envs: int | None, play: bool = True) -> dict:
     """The training CLI as a user runs it, in subprocesses: 2 iterations of
-    `task` with cfg/train/<train>.yaml at `envs` envs into a temporary output
-    root, then a deterministic play of one episode per env from its
-    last.ckpt. Raises unless both exit 0 with a finite reward_mean in
-    metrics.jsonl and a finite play_mean_return."""
+    `task` with cfg/train/<train>.yaml at `envs` envs (None: the task YAML's
+    numEnvs) into a temporary output root, then, with `play`, a
+    deterministic play of one episode per env from its last.ckpt. Raises
+    unless each exits 0 with a finite reward_mean in metrics.jsonl and a
+    finite play_mean_return."""
     base = [sys.executable, "-m", "thormang_isaacgym_tpu_torch.runtime.train",
-            f"task={task}", f"train={train}", f"num_envs={envs}"]
+            f"task={task}", f"train={train}"] + ([f"num_envs={envs}"] if envs else [])
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         runs = (("train", ["max_iterations=2", f"output_root={tmp}", "experiment=smoke"]),
                 ("play", [f"output_root={tmp}", "experiment=smoke", "test=true", "test_episodes=1",
                           f"checkpoint={os.path.join(tmp, 'smoke', 'nn', 'last.ckpt')}"]))
-        for label, extra in runs:
-            t0 = time.perf_counter()
-            res = subprocess.run(base + extra, cwd=ROOT, capture_output=True, text=True,
-                                 timeout=600)
-            seconds = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise AssertionError(f"the CLI's {label} run exited {res.returncode}:\n"
-                                     f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
-            out[label] = dict(seconds=seconds, stdout_tail=res.stdout.strip().splitlines()[-2:])
+        for label, extra in runs[:2 if play else 1]:
+            out[label] = _run(base + extra, label)
         with open(os.path.join(tmp, "smoke", "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
-        play = json.loads(out["play"]["stdout_tail"][-1])
+        played = json.loads(out["play"]["stdout_tail"][-1]) if play else None
     if not rows or not all(np.isfinite(r["reward_mean"]) for r in rows):
         raise AssertionError(f"metrics.jsonl holds no finite reward_mean: {rows}")
-    if not np.isfinite(play["play_mean_return"]) or play["episodes"] < 1:
-        raise AssertionError(f"play printed {play}")
-    out["train"].update(epochs=[r["epoch"] for r in rows],
+    if play and (not np.isfinite(played["play_mean_return"]) or played["episodes"] < 1):
+        raise AssertionError(f"play printed {played}")
+    out["train"].update(epochs=[r["epoch"] for r in rows], env_steps=[r["env_steps"] for r in rows],
                         reward_mean=[r["reward_mean"] for r in rows], fps=[r["fps"] for r in rows])
-    out["play"].update(play)
+    if play:
+        out["play"].update(played)
     log("cli", command=" ".join(["python3"] + base[1:]), **out)
+    return out
+
+
+def phase_cli_multi(tasks: tuple, envs: int) -> dict:
+    """The multi-task CLI as a user runs it, in a subprocess: 2 iterations of
+    `tasks` at `envs` envs each into a temporary output root. Raises unless
+    it exits 0 with finite metrics for every task in each row of
+    metrics.jsonl. Each task's env-steps/s: its env steps over the row's
+    time (the tasks share the run's wall time), and between the two rows
+    (the second iteration alone; ``time`` is rounded to 0.1 s)."""
+    from thormang_isaacgym_tpu_torch.learn.ppo import PPOConfig
+    from thormang_isaacgym_tpu_torch.tasks import cfg_name
+    cmd = [sys.executable, "-m", "thormang_isaacgym_tpu_torch.runtime.train_multi",
+           f"tasks={','.join(tasks)}", f"num_envs={envs}", "max_iterations=2"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        out = _run(cmd + [f"output_root={tmp}", "experiment=smoke"], "multi-task")
+        with open(os.path.join(tmp, "smoke", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    bad = [(r["epoch"], n) for r in rows for n in tasks
+           if not all(np.isfinite(v) for v in r[n].values())]
+    if [r["epoch"] for r in rows] != [0, 1] or bad:
+        raise AssertionError(f"metrics.jsonl: epochs {[r['epoch'] for r in rows]}, "
+                             f"non-finite {bad}")
+    horizon = {}
+    for n in tasks:
+        with open(os.path.join(ROOT, "cfg", "train", f"{cfg_name(n)}PPO.yaml")) as f:
+            horizon[n] = PPOConfig.from_rlgames(yaml.safe_load(f)).horizon_length
+    per_task = {n: dict(
+        env_steps_per_s_run=(rows[1]["epoch"] + 1) * horizon[n] * envs / rows[1]["time"],
+        env_steps_per_s_second_iteration=horizon[n] * envs / max(rows[1]["time"] - rows[0]["time"],
+                                                                  0.1),
+        reward_mean=[r[n]["reward_mean"] for r in rows]) for n in tasks}
+    out.update(epochs=[r["epoch"] for r in rows], time=[r["time"] for r in rows],
+               env_steps_all_tasks=[r["env_steps_all_tasks"] for r in rows],
+               fps=[r["fps"] for r in rows], per_task=per_task)
+    log("cli", command=" ".join(["python3"] + cmd[1:]), **out)
     return out
 
 
@@ -1297,6 +1409,7 @@ def main() -> None:
         timing[name] = phase_time(name, device, stack_bytes["boxes"])
     for name in NEW_TASKS:
         timing[name] = phase_time(name, device, stack_bytes["boxes"] if name == "Trifinger" else None)
+    timing[MA_TASK] = phase_time(MA_TASK, device, stack_bytes[STACK_CHECK])
     for mode, name in modes:
         with local_layout(mode == "flat_local"):
             train[mode] = phase_train(name, device, dev_info["kind"])
@@ -1304,6 +1417,8 @@ def main() -> None:
         train[name] = phase_train(name, device, dev_info["kind"])
     for label, name, train_yaml, overrides in LSTM_TRAIN:
         train[label] = phase_train(name, device, dev_info["kind"], train_yaml, overrides)
+    train[MA_TASK] = phase_train(MA_TASK, device, dev_info["kind"],
+                                 env_overrides={"numEnvs": ENVS[MA_TASK]})
     # each instance's launches by task: the flat instance's Ant's and the
     # drones', the heightfield's AnymalTerrain's with either policy, the box
     # instance's AllegroHand's, the Franka family's and Trifinger's, the
@@ -1313,14 +1428,16 @@ def main() -> None:
         heightfield=(("AnymalTerrain", "heightfield"),
                      ("AnymalTerrain:LSTM", "AnymalTerrain:LSTM")),
         boxes=(("AllegroHand", "boxes"), *((n, n) for n in FRANKA_TASKS),
-               ("Trifinger", "Trifinger")),
+               ("Trifinger", "Trifinger"), (MA_TASK, MA_TASK)),
         tendons=(("ShadowHand", "tendons"), ("ShadowHand:AsymmLSTM", "ShadowHand:AsymmLSTM")))
     # phase 3's times of the tasks in each instance's launches
     timed = {"Ant": timing["flat"], "AnymalTerrain": timing["heightfield"],
              "AllegroHand": timing["boxes"], "ShadowHand": timing["tendons"],
-             **{n: timing[n] for n in FRANKA_TASKS + NEW_TASKS}}
+             **{n: timing[n] for n in FRANKA_TASKS + NEW_TASKS + (MA_TASK,)}}
     phase_cli("HumanoidMJCF", "HumanoidPPO", 4096)
     phase_cli("Trifinger", "TrifingerPPO", ENVS["Trifinger"])
+    phase_cli(MA_TASK, "MA_OP3PPO", None, play=False)       # no play: the JAX package has none
+    phase_cli_multi(("Ant", "HumanoidMJCF"), 4096)
     # the split layout's first launch ran first, the local one's adds to it,
     # the box instance's to both
     reserved = dict(flat_split=stack_bytes["flat_split"],

@@ -22,9 +22,15 @@
   iteration bit for bit as the uninterrupted run; a JAX checkpoint of an
   LSTM or asymmetric network loaded into another network raises. An LSTM
   policy's play raises NotImplementedError.
+- MA_OP3 (MA_OP3PPO.yaml, algo ma_ppo: the multi-agent learner) trains one
+  iteration through the CLI at 2 envs on the CPU, narrow, and writes a
+  finite reward_mean; ``test=true`` on its last.ckpt raises: the JAX play
+  of a multi-agent task raises on its (B, A) reward. A JAX MAPPO
+  checkpoint loads into the port and gives JAX's actions and values on
+  (B, 2, 88) obs at atol 1e-5.
 - Guards: no CUDA and no ``device=`` raises (it does not train on the CPU);
-  ``amp_continuous``, a multi-agent task, ``capture_video=true`` and
-  ``headless=false`` raise NotImplementedError naming their ROADMAP items.
+  ``amp_continuous``, ``capture_video=true`` and ``headless=false`` raise
+  NotImplementedError naming their ROADMAP items.
 """
 import dataclasses
 import json
@@ -318,13 +324,74 @@ def test_main_without_cuda_or_device_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("argv, item", [
     (["task=HumanoidAMP", "train=HumanoidAMPPPO"], "ROADMAP A10"),
-    (["task=MA_OP3"], "ROADMAP A6"),
     (["task=Cartpole", "capture_video=true"], "ROADMAP A12"),
     (["task=Cartpole", "headless=false"], "ROADMAP A12"),
 ])
 def test_unported_paths_raise(argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         train.main(argv + ["device=cpu", "num_envs=8", f"output_root={tmp_path}"])
+
+
+@pytest.fixture(scope="module")
+def ma_op3_run(tmp_path_factory):
+    """The CLI on MA_OP3 (cfg/train/MA_OP3PPO.yaml, algo ma_ppo), 2 envs on the
+    CPU, one iteration of a narrow network over 2 steps."""
+    out = tmp_path_factory.mktemp("ma_runs")
+    argv = ["task=MA_OP3", "device=cpu", "num_envs=2", f"output_root={out}",
+            "train.params.network.mlp.units=[16]", "train.params.config.horizon_length=2",
+            "train.params.config.mini_epochs=1"]
+    ts = train.main(argv + ["max_iterations=1"])
+    return out, argv, ts
+
+
+def test_ma_op3_trains_through_the_cli(ma_op3_run):
+    out, _, ts = ma_op3_run
+    rows = [json.loads(line) for line in (out / "MA_OP3" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in rows] == [0] and math.isfinite(rows[0]["reward_mean"])
+    assert rows[0]["reward_mean"] >= 0.0 and rows[0]["env_steps"] == 2 * 2
+    assert ts.epoch == 1 and tuple(ts.model.mu.weight.shape) == (22, 16)
+    assert (out / "MA_OP3" / "nn" / "last.ckpt").is_file()
+
+
+def test_ma_op3_play_raises(ma_op3_run):
+    """The JAX play adds the (B, A) reward into a (B,) return and raises, so
+    the port's play of a multi-agent task raises."""
+    out, argv, _ = ma_op3_run
+    ckpt = out / "MA_OP3" / "nn" / "last.ckpt"
+    with pytest.raises(NotImplementedError, match="multi-agent"):
+        train.main(argv + ["test=true", f"checkpoint={ckpt}"])
+
+
+def test_jax_mappo_checkpoint_loads_into_the_port(tmp_path):
+    """A JAX MAPPO TrainState (MA_OP3PPO.yaml, narrow, float32) written with
+    JAX's save_train_state loads into the port's MAPPO and gives JAX's
+    deterministic actions and values on (B, 2, 88) obs at atol 1e-5."""
+    from thormang_isaacgym_tpu.learn.ma import MAPPO as JMAPPO
+    from thormang_isaacgym_tpu_torch.learn.ma import MAPPO
+    y = _train_yaml("MA_OP3PPO")
+    jcfg = dataclasses.replace(jppo.PPOConfig.from_rlgames(y), units=(32, 16),
+                               mixed_precision=False)
+    jp = JMAPPO(tgx.make("MA_OP3", num_envs=2, seed=0), jcfg)
+    jts = jp.init(jax.random.key(3))
+    rng = np.random.default_rng(4)
+    jts = dataclasses.replace(jts, obs_rms=jrms_update(jts.obs_rms, jnp.asarray(
+        rng.normal(size=(64, 88)) * 2 + 1, jnp.float32)), value_rms=jrms_update(
+        jts.value_rms, jnp.asarray(rng.normal(size=64) * 3, jnp.float32)))
+    path = str(tmp_path / "mappo.ckpt")
+    jax_save_train_state(path, jts)
+    tcfg = dataclasses.replace(tppo.PPOConfig.from_rlgames(y), units=(32, 16),
+                               mixed_precision=False)
+    tp = MAPPO(tgt.make("MA_OP3", num_envs=2, seed=0, device="cpu"), tcfg, device="cpu")
+    ts = load_train_state(path, tp)
+    obs = (rng.normal(size=(6, 2, 88)) * 2.0).astype(np.float32)
+    ja = np.asarray(jp.act_deterministic(jts, jnp.asarray(obs)))
+    _, _, jv = jp._policy(jts, jnp.asarray(obs))
+    ta = tp.act_deterministic(ts, torch.as_tensor(obs))
+    _, _, tv = tp._policy(ts, torch.as_tensor(obs))
+    assert tuple(ta.shape) == (6, 2, 22) and tuple(tv.shape) == (6, 2)
+    np.testing.assert_allclose(ta.numpy(), ja, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tv.detach().numpy(), np.asarray(jv), atol=1e-5, rtol=1e-5)
+    assert float(ts.obs_rms.count) == float(jts.obs_rms.count) > 1.0
 
 
 def test_profile_epoch_writes_a_chrome_trace(tmp_path):

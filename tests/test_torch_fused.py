@@ -53,6 +53,7 @@ from thormang_isaacgym_tpu_torch.tasks.factory import FactoryTaskNutBoltScrew
 from thormang_isaacgym_tpu_torch.tasks.franka_cabinet import FrankaCabinet
 from thormang_isaacgym_tpu_torch.tasks.humanoid import HumanoidMJCF
 from thormang_isaacgym_tpu_torch.tasks.ingenuity import Ingenuity
+from thormang_isaacgym_tpu_torch.tasks.ma_op3 import MA_OP3
 from thormang_isaacgym_tpu_torch.tasks.quadcopter import Quadcopter
 from thormang_isaacgym_tpu_torch.tasks.shadow_hand import ShadowHand
 from thormang_isaacgym_tpu_torch.tasks.trifinger import Trifinger
@@ -445,6 +446,45 @@ def trifinger_contact_q(task, rng, n):
     return np.concatenate([pos, _yaw(rng, n, 0.01), jq], 1).astype(np.float32)
 
 
+# MA_OP3: the agents' arm joints (sho_pitch, sho_roll, el; left, then right)
+# that put each gripper sphere 1 mm into an edge of the table top's underside
+# (the edge along x at y = +/-0.18, z = 0.28, beside the agent) with the
+# heels 1 mm into the ground (MA_OP3_ROOT_DZ); the same in both agents (a1
+# stands 0.01 m closer to the table). Found by a grid search and Newton steps
+# on the port's kinematics. The reset pose's lowest foot corners (the heels:
+# the crouch pitches the feet) lie MA_OP3_HEEL_Z under the ground.
+MA_OP3_GRIP = ((-1.199993, 0.50002, 0.200005), (1.199993, 0.50002, -0.200005))
+MA_OP3_HEEL_Z = -0.0098081
+MA_OP3_ROOT_DZ = -MA_OP3_HEEL_Z - 0.001
+# the gap from a0's left foot (y up to 0.077) to the table leg at y 0.115
+# (and from a1's right foot to the leg across from it)
+MA_OP3_LEG_GAP = 0.038
+
+
+def ma_op3_contact_q(task, rng, n):
+    """(n, nq) MA_OP3 states: both agents at the reset pose raised by
+    MA_OP3_ROOT_DZ (+/-0.5 mm; the heels 0.5-1.5 mm into the ground) and
+    moved up to 1 mm in x and y, their arms at MA_OP3_GRIP + N(0, 2e-3) rad
+    (the grippers 1 mm into the underside edges of the table top, give or
+    take ~0.5 mm); the table 0.5-1.5 mm into the ground and, in every third
+    env, moved by -(MA_OP3_LEG_GAP + 0.5-1.5 mm) in y, so that a0's left
+    foot and a1's right foot press into a table leg (and a gripper into the
+    top's underside instead of its edge)."""
+    q = np.tile(task._q0.cpu().numpy().astype(np.float64), (n, 1))
+    for o in (0, 7):
+        q[:, o:o + 2] += rng.uniform(-1e-3, 1e-3, (n, 2))
+        q[:, o + 2] += MA_OP3_ROOT_DZ + rng.uniform(-5e-4, 5e-4, n)
+    q[:, 16] -= rng.uniform(5e-4, 1.5e-3, n)
+    leg = np.arange(n) % 3 == 1
+    q[leg, 15] -= MA_OP3_LEG_GAP + rng.uniform(5e-4, 1.5e-3, int(leg.sum()))
+    m = task.model
+    for a in range(2):
+        for s, grip in zip(("l", "r"), MA_OP3_GRIP):
+            for j, v in zip(("sho_pitch", "sho_roll", "el"), grip):
+                q[:, m.root_nq + m.dof_id(f"a{a}/{s}_{j}")] = v + rng.normal(size=n) * 2e-3
+    return q.astype(np.float32)
+
+
 def drone_contact_q(model, rng, n, z):
     """(n, nq) states of a copter (Ingenuity, Quadcopter) near the ground:
     xy in [-1, 1], its base height uniform in `z` (lo, hi), tilted by a
@@ -635,6 +675,11 @@ def _model(name):
         # one at a time (held substep by substep, as chip_smoke holds the box mode)
         task = Trifinger(num_envs=B, device="cpu")
         return task.model, dataclasses.replace(task.sim_params, dt=0.005, substeps=1), task, 0.0
+    if name == "ma_op3":
+        # the sim block of cfg/task/MA_OP3.yaml: dt 0.0166 s, 4 substeps, run one
+        # at a time (held substep by substep, as chip_smoke holds the box mode)
+        task = MA_OP3(num_envs=B, device="cpu")
+        return task.model, dataclasses.replace(task.sim_params, dt=0.0166 / 4, substeps=1), task, 0.0
     if name in ("ingenuity", "quadcopter"):
         # the YAMLs' sim blocks equal the classes': dt 0.01 s, 2 substeps
         task = {"ingenuity": Ingenuity, "quadcopter": Quadcopter}[name](num_envs=B, device="cpu")
@@ -697,6 +742,9 @@ def _inputs(name, model, task, device, ground=None):
     elif name == "trifinger":
         q = trifinger_contact_q(task, rng, B)
         qd = rng.normal(size=(B, model.nv)) * 0.05
+    elif name == "ma_op3":
+        q = ma_op3_contact_q(task, rng, B)
+        qd = rng.normal(size=(B, model.nv)) * 0.05
     elif name in ("ingenuity", "quadcopter"):
         q = drone_contact_q(model, rng, B, DRONE_Z[type(task).__name__])
         qd = rng.normal(size=(B, model.nv)) * 0.5
@@ -755,6 +803,13 @@ def _inputs(name, model, task, device, ground=None):
 
     ctrl = Controls(t(rng.normal(size=(B, nj)) * 0.1), t(np.zeros((B, nj))),
                     t(rng.uniform(-15, 15, (B, nj))))
+    if name == "ma_op3":
+        # as in training: position targets near the joints (kp 1000: a target
+        # 4.1 mrad off saturates the 4.1 N m limit, so many sit at the
+        # clamp), no wrench
+        ctrl = Controls(t(q[:, model.root_nq:] + rng.normal(size=(B, nj)) * 0.01),
+                        t(np.zeros((B, nj))), t(np.zeros((B, nj))))
+        wrench = np.zeros_like(wrench)
     return model.default_params(device).batch(B), t(q), t(qd), ctrl, t(wrench)
 
 
@@ -787,7 +842,7 @@ HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
               "ball_balance", "pair_capsule", "held", "boxbox", "capbox", "spherebox",
               "allegro_hand", "tendon", "shadow_hand", "boxbox_terrain", "pair_capsule_terrain",
               "humanoid_mjcf", "franka", "franka_cabinet", "factory_screw", "trifinger",
-              "ingenuity", "quadcopter"]
+              "ingenuity", "quadcopter", "ma_op3"]
 # the heightfield cases with actor pairs: both the pairs and the ground touched
 PAIR_TERRAIN = {"boxbox_terrain": 2, "pair_capsule_terrain": 1}
 
@@ -829,7 +884,7 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
             rows = rows[:, [task.lfinger_body, task.rfinger_body]].any(-1)
         if name == "trifinger":                  # the share of env-fingertips touched
             rows = rows[:, list(task.net_torque_bodies)]
-        if name in ("ingenuity", "quadcopter"):  # the share of envs with a body on the ground
+        if name in ("ingenuity", "quadcopter", "ma_op3"):  # the share of envs with a body touched
             rows = rows.any(-1)
         touched = max(touched, float(rows.float().mean()))
         if name in PAIR_TERRAIN:
@@ -846,7 +901,7 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
                 ((z > p[..., 2] - torch.as_tensor(cand["r"])) & free).any(-1).float().mean()))
     if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
                 "shadow_hand", "humanoid_mjcf", "franka_cabinet", "factory_screw", "trifinger",
-                "ingenuity", "quadcopter", *PAIR_TERRAIN, *BOX_POSES):
+                "ingenuity", "quadcopter", "ma_op3", *PAIR_TERRAIN, *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
     if name == "humanoid_mjcf":                  # over the shared budget: the split layout
         assert step.pair_mode == 0 and step.block == fused.BLOCK and step.layout == "split"
@@ -854,6 +909,14 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         mi, mf = step._tables
         assert step.smem_bytes == fused.split_bytes(model.nb, model.nj, model.nq, model.nv, step._nc,
                                                     fused.BLOCK, tables=len(mi) + len(mf)) == 201_264
+    if name == "ma_op3":                         # feet on table legs, grippers on the table top
+        fr = forward_kinematics(model, q, qd)
+        depth = torch.stack([c[5] for c in collide.candidates(model, fr)], -1)
+        kinds = [k for _, _, k in collide.pairs(model)
+                 for _ in range(collide.CANDIDATES_PER_KIND[k])]
+        for kind in ("boxbox", "sphere"):
+            cols = [i for i, k in enumerate(kinds) if k == kind]
+            assert float((depth[:, cols] > 0).any(-1).float().mean()) > 0.3, kind
     if name in PAIR_TERRAIN:                     # a heightfield pair instance: ground and pair
         assert step.hf is not None and step.pair_mode == PAIR_TERRAIN[name]
         assert pair_touched > 0.1 and ground_touched > 0.1, (pair_touched, ground_touched)

@@ -164,14 +164,18 @@ class PPO:
     """Binds a VecEnv + PPOConfig to a train iteration. Runs on `device`
     (default CUDA); the env must live on the same device."""
 
+    # a learner that takes a task with num_agents > 1 (learn/ma.py MAPPO)
+    multi_agent = False
+
     def __init__(self, env: VecEnv, config: PPOConfig, device=None):
         self.env = env
         self.cfg = config
         self.device = resolve_device(device)
         if torch.device(env.device) != self.device:
             raise ValueError(f"env is on {env.device}, PPO on {self.device}")
-        if getattr(env.task, "num_agents", 1) > 1:
-            raise NotImplementedError("multi-agent tasks are not ported yet")
+        if getattr(env.task, "num_agents", 1) > 1 and not self.multi_agent:
+            raise ValueError("a multi-agent task (num_agents > 1) trains with "
+                             "learn/ma.py MAPPO, not PPO")
         self.num_states = int(getattr(env.task, "num_states", 0) or 0)
         self.asymmetric = self.num_states > 0
         self.is_rnn = config.rnn_units > 0

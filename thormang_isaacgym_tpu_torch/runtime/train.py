@@ -40,8 +40,6 @@ def _check_ported(cfg: dict) -> None:
             .get("name", "a2c_continuous"))
     if algo == "amp_continuous":
         raise NotImplementedError("AMP training (learn/amp.py) is not ported yet: ROADMAP A10")
-    if algo == "ma_ppo":
-        raise NotImplementedError("multi-agent PPO (learn/ma.py) is not ported yet: ROADMAP A6")
     if cfg.get("capture_video"):
         raise NotImplementedError("capture_video (runtime/replay.py) is not ported yet: ROADMAP A12")
     if not cfg.get("headless", True):
@@ -65,7 +63,14 @@ def main(argv=None):
     env = make(task_name, num_envs=int(num_envs), seed=seed, cfg=cfg.get("task") or None,
                device=device)
     ppo_cfg = PPOConfig.from_rlgames(cfg["train"]) if cfg["train"] else PPOConfig()
-    ppo = PPO(env, ppo_cfg, device=device)
+    # the learner, as the JAX CLI dispatches: ma_ppo, or a task with more
+    # than one agent, takes the parameter-shared multi-agent PPO
+    algo = (cfg.get("train") or {}).get("params", {}).get("algo", {}).get("name")
+    if algo == "ma_ppo" or getattr(env.task, "num_agents", 1) > 1:
+        from thormang_isaacgym_tpu_torch.learn.ma import MAPPO
+        ppo = MAPPO(env, ppo_cfg, device=device)
+    else:
+        ppo = PPO(env, ppo_cfg, device=device)
 
     exp_name = cfg.get("experiment") or task_name
     run_dir = os.path.join(cfg.get("output_root", "runs"), exp_name)
@@ -148,10 +153,15 @@ def main(argv=None):
 def play(env, ppo, ts, episodes=3):
     """Deterministic policy evaluation (the reference's test=True path): the
     mean return of the first ``episodes x num_envs`` finished episodes. An
-    LSTM policy raises NotImplementedError: the JAX package plays none."""
+    LSTM policy or a multi-agent task raises NotImplementedError: the JAX
+    package plays neither."""
     if ppo.is_rnn:
         raise NotImplementedError("play of an LSTM policy: the JAX package's deterministic "
                                   "action passes no carry, so there is no play to port")
+    if getattr(env.task, "num_agents", 1) > 1:
+        raise NotImplementedError("play of a multi-agent task: the JAX package's play adds the "
+                                  "(B, A) reward into a (B,) return and raises, so there is no "
+                                  "play to port")
     state = env.reset(0)
     dev = env.device
     returns = torch.zeros(env.num_envs, device=dev)
