@@ -18,7 +18,11 @@ Phases, one line each (any failure raises and exits non-zero):
     budget rule's SMEM_BUDGET set to 0, the layout of a model over even the
     split layout's budget; the first local launch, which measures the local
     layout's stack; its first step's outputs bit for bit the split
-    layout's), the two-link tendon scene
+    layout's), HumanoidAMP (29 bodies, 38 candidates: the local layout by the
+    budget rule, its first launch's stack bytes beside the local layout's
+    reservation; the gait clip's states on the ground, ``amp_contact_state``:
+    both box soles down in half the envs, lying on the torso's capsule and
+    the pelvis in an eighth; the shares printed), the two-link tendon scene
     of tests/test_fused.py (block B4b: its coupled length below, inside and
     above its bounds), AnymalTerrain
     (heightfield mode, bases placed on the terrain grid), BallBalance (pair
@@ -55,7 +59,8 @@ Phases, one line each (any failure raises and exits non-zero):
     the largest |dIA| entry; the tendon scenes: the share of env-tendons
     below and above their bounds).
  3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain,
-    BallBalance and HumanoidMJCF (split, and local forced) at 4096 envs,
+    BallBalance, HumanoidMJCF (split, and local forced) and HumanoidAMP
+    (local) at 4096 envs,
     AllegroHand and ShadowHand at 16384, FrankaCabinet (4096),
     FrankaCubeStack (8192), FactoryTaskNutBoltPick (128), Trifinger
     (16384), Ingenuity (4096), Quadcopter (8192) and MA_OP3 (4096) (CUDA
@@ -86,15 +91,20 @@ Phases, one line each (any failure raises and exits non-zero):
     ShadowHand with ShadowHandPPOAsymmLSTM and asymmetric_observations
     (16384, LSTM 1024 before a 512 MLP, 211 states, 3 x 16), and MA_OP3
     with MAPPO (MA_OP3PPO, 4096 envs, the numEnvs of the reference's other
-    tasks: the YAML's 8 cannot fill its minibatch; 3 x 24); every metric
-    finite, obs, rewards and states finite of shape (envs[, agents],
-    num_obs / num_states), MA_OP3's rewards at least 0 (clipped); blocks
-    beside the SM count.
+    tasks: the YAML's 8 cannot fill its minibatch; 3 x 24), and HumanoidAMP
+    with AMPPPO (HumanoidAMPPPO: 1024-512 actor, critic and discriminator,
+    horizon 16, 4096 envs, 3 x 32; then 2 x 32 on
+    assets/amp/motions/amp_humanoid_walk.npy through learn/poselib.py, whose
+    motion library must hold that file's one clip and its frames); every
+    metric finite, obs, rewards and states finite of shape (envs[, agents],
+    num_obs / num_states), MA_OP3's rewards at least 0 (clipped), AMP's
+    discriminator accuracies in [0, 1]; blocks beside the SM count.
  5. cli: the training CLI in subprocesses, ``python3 -m
     thormang_isaacgym_tpu_torch.runtime.train task=HumanoidMJCF
     train=HumanoidPPO num_envs=4096 max_iterations=2`` into a temporary
     output root, then ``test=true test_episodes=1`` on its last.ckpt; the
-    same for Trifinger (TrifingerPPO, 16384 envs); MA_OP3 (MA_OP3PPO) at
+    same for Trifinger (TrifingerPPO, 16384 envs) and HumanoidAMP
+    (HumanoidAMPPPO, its YAML's 4096 envs); MA_OP3 (MA_OP3PPO) at
     its YAML's 8 envs, without play (a multi-agent task has none); each
     exits 0, metrics.jsonl holds a finite reward_mean and the play line a
     finite play_mean_return. Then the multi-task CLI, ``python3 -m
@@ -106,7 +116,8 @@ box modes, its tendon block, timed on ShadowHand, with the block's own
 time and bound beside the instance's, and the flat mode's local-memory and
 split layouts, on HumanoidMJCF; an instance's launches those of every task
 trained through it, ``launches_by_task``: the flat mode Ant's and the
-drones', the heightfield AnymalTerrain's with either policy, the box mode
+drones', the local layout HumanoidMJCF's (forced) and HumanoidAMP's (the
+gait clip and the walk clip), the heightfield AnymalTerrain's with either policy, the box mode
 AllegroHand's, the Franka family's, Trifinger's and MA_OP3's, the tendon block
 ShadowHand's with either policy) and, last, the {"ok": true, "device": ...}
 line.
@@ -139,11 +150,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # pair-capsule scene and the BallBalance contact states
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 from test_torch_fused import (  # noqa: E402
-    BOX_POSES, BOX_SP, DRONE_Z, PAIR_POSES, PAIR_SP, TENDON_SP, allegro_contact_q, ball_balance_q,
-    box_pair_scene, drone_contact_q, factory_pick_contact_q, factory_screw_contact_q,
-    franka_arm_q, franka_cabinet_contact_q, franka_cube_contact_q, ma_op3_contact_q,
-    pair_capsule_scene, shadow_contact_q, tendon_length, tendon_q, tendon_scene,
-    trifinger_contact_q,
+    BOX_POSES, BOX_SP, DRONE_Z, PAIR_POSES, PAIR_SP, TENDON_SP, allegro_contact_q,
+    amp_contact_state, amp_contact_stats, ball_balance_q, box_pair_scene, drone_contact_q,
+    factory_pick_contact_q, factory_screw_contact_q, franka_arm_q, franka_cabinet_contact_q,
+    franka_cube_contact_q, ma_op3_contact_q, pair_capsule_scene, shadow_contact_q, tendon_length,
+    tendon_q, tendon_scene, trifinger_contact_q,
 )
 B = 4096
 # tasks whose published width is not B (cfg/task/<task>.yaml numEnvs)
@@ -175,6 +186,13 @@ LSTM_TRAIN = (("AnymalTerrain:LSTM", "AnymalTerrain", "AnymalTerrainPPO_LSTM", {
 # numEnvs of the reference's other tasks (its YAML's 8 cannot fill
 # MA_OP3PPO's minibatch of 16384 env transitions); the CLI at the YAML's 8
 MA_TASK = "MA_OP3"
+# the AMP slice: HumanoidAMP (29 bodies, 38 ground candidates: over the split
+# layout's budget too, so the flat instance's local layout, its first
+# training path) compared, timed and trained with AMPPPO (HumanoidAMPPPO.yaml)
+# at its YAML's 4096 envs; one more iteration on the repository's
+# reference-format clip (learn/poselib.py's path); the CLI, train and play
+AMP_TASK = "HumanoidAMP"
+AMP_WALK = os.path.join(ROOT, "assets", "amp", "motions", "amp_humanoid_walk.npy")
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
 # (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
@@ -245,9 +263,11 @@ FIRST_LOCAL = "HumanoidMJCF:local"
 # the box instance's first launch (after the local layout's), whose stack
 # reservation the Franka family's lines carry
 FIRST_BOX = "BoxBox"
-# a later case of the box instance whose first launch is measured too: the
-# instance is built and its stack reserved, so it should add nothing
-STACK_CHECK = MA_TASK
+# later cases whose first launch is measured too: HumanoidAMP's of the local
+# instance (HumanoidMJCF:local reserved its stack) and MA_OP3's of the box
+# instance; each instance is built and its stack reserved, so they should
+# add nothing
+STACK_CHECKS = (AMP_TASK, MA_TASK)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -340,6 +360,14 @@ def random_inputs(task, rng: np.random.Generator, device):
         q = ma_op3_contact_q(task, rng, B)
         qd = rng.normal(size=(B, m.nv)) * 0.05
         targets = q[:, m.root_nq:] + rng.normal(size=(B, nj)) * 0.01
+        effort = np.zeros((B, nj))
+        zero_wrench = True
+    elif type(task).__name__ == AMP_TASK:
+        # amp_contact_state: the gait clip's states with its velocities, both
+        # soles on the ground or lying on the torso's capsule; PD targets
+        # 0.05 rad (sd) from the joints, no wrench (as in training)
+        q, qd = amp_contact_state(task, rng, B)
+        targets = q[:, 7:] + rng.normal(size=(B, nj)) * 0.05
         effort = np.zeros((B, nj))
         zero_wrench = True
     elif type(task).__name__ in DRONE_Z:
@@ -795,7 +823,7 @@ def phase_compare(device):
     local_launched = False
     split_first = None                    # the split layout's first control step, kernel outputs
     budget = fused.SMEM_BUDGET
-    for case in ("Cartpole", "Ant", FIRST_SPLIT, FIRST_LOCAL, "AnymalTerrain", "BallBalance",
+    for case in ("Cartpole", "Ant", FIRST_SPLIT, FIRST_LOCAL, AMP_TASK, "AnymalTerrain", "BallBalance",
                  "PairCapsule", "BoxBox", "CapBox", "SphereBox", "AllegroHand", "ShadowHand",
                  "Tendon", "FrankaArm", *FRANKA_CONTACT, *NEW_TASKS, MA_TASK):
         name = case.split(":")[0]
@@ -847,11 +875,16 @@ def phase_compare(device):
             if local_launched and case != FIRST_BOX:
                 raise AssertionError(f"{case}'s first launch comes after a local instance's")
             stack_bytes[entry] = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
-        if case == STACK_CHECK:
+        if case in STACK_CHECKS:
             stack_bytes[case] = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
         local_launched |= layout == "local"
         extra = ground_stats(step, q0) if mode == "heightfield" else \
             pair_stats(step, params, q0, qd0) if mode in ("pairs", "boxes") else {}
+        if name == AMP_TASK:
+            extra = amp_contact_stats(task.model, q0)
+            if not (extra["both_soles_env_share"] > 0.3 and extra["capsule_env_share"] > 0.05):
+                raise AssertionError(f"{name}: the soles or the capsules are off the ground: "
+                                     f"{extra}")
         if task.model.tendons:
             extra.update(tendon_stats(task.model, q0))
             below, above = extra["tendon_below_share"], extra["tendon_above_share"]
@@ -921,7 +954,7 @@ def phase_compare(device):
                 # the box instance's what its frame needs beyond those
                 extra_n.update(first_launch_stack_bytes=stack_bytes[entry],
                                stack_reserved_bytes=sum(stack_bytes.values()))
-            if case == STACK_CHECK:
+            if case in STACK_CHECKS:
                 extra_n.update(first_launch_stack_bytes=stack_bytes[case])
             log("compare", model=name, mode=mode, layout=layout, smem_bytes=step.smem_bytes,
                 shared_layout_bytes=step.layout_bytes if step.pair_mode != 2 else None,
@@ -935,7 +968,7 @@ def phase_compare(device):
                 raise AssertionError(f"fused kernel disagrees with the plain version: {name} "
                                      f"{gate['max_abs_err']}, {outside - at_tie} envs off a tie")
         expected = (12 if name in STEPWISE else 6) + \
-            (case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX, STACK_CHECK))
+            (case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX, *STACK_CHECKS))
         if step.launches != expected:
             raise AssertionError(f"compare launched the kernel {step.launches} times, "
                                  f"expected {expected}")
@@ -1235,6 +1268,8 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
                    tendon_bound_ms=tb["bound_ms"], tendon_bound_by=tb["bound_by"])
     cull = cull_stats(step, q, qd) if step.pair_mode else \
         ground_skip_stats(m, q) if hf is None and step.layout != "local" else {}
+    if name == AMP_TASK:
+        cull = amp_contact_stats(m, q)
     if stack_bytes is not None:
         out["first_launch_stack_bytes"] = stack_bytes
     log("time", model=name, envs=envs, substeps=step.n_steps, block=step.block,
@@ -1245,13 +1280,17 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
 
 
 def phase_train(name: str, device, card: str, train_yaml: str | None = None,
-                env_overrides: dict | None = None) -> dict:
-    """3 training iterations of `name` at its YAML's width, with
+                env_overrides: dict | None = None, iters: int = 3,
+                label: str | None = None) -> dict:
+    """`iters` (at least 2) training iterations of `name` at its YAML's width, with
     cfg/train/<train_yaml>.yaml (default <task>PPO) and `env_overrides` on
-    the task YAML's env block; on flat ground without pairs (not in the
-    local layout) also what the ground skip sees on the state the last
-    iteration ends in."""
+    the task YAML's env block, through the learner the CLI dispatches
+    (AMPPPO for amp_continuous; MAPPO for a task of more than one agent);
+    on flat ground without pairs (not in the local layout) also what the
+    ground skip sees on the state the last iteration ends in. AMP's
+    discriminator accuracies must lie in [0, 1]."""
     import thormang_isaacgym_tpu_torch as tgt
+    from thormang_isaacgym_tpu_torch.learn.amp import AMPConfig, AMPPPO
     from thormang_isaacgym_tpu_torch.learn.ma import MAPPO
     from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig
     from thormang_isaacgym_tpu_torch.tasks import cfg_name
@@ -1264,14 +1303,15 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
         train_cfg = yaml.safe_load(f)
     envs = int(task_cfg["env"]["numEnvs"])
     env = tgt.make(name, num_envs=envs, seed=SEED, cfg=task_cfg, device=device)
-    cfg = PPOConfig.from_rlgames(train_cfg)
     agents = env.task.num_agents
-    # as the CLI dispatches: a task of more than one agent trains with MAPPO
-    ppo = (MAPPO if agents > 1 else PPO)(env, cfg, device=device)
+    amp = train_cfg["params"].get("algo", {}).get("name") == "amp_continuous"
+    cfg = (AMPConfig if amp else PPOConfig).from_rlgames(train_cfg)
+    # as the CLI dispatches: amp_continuous trains with AMPPPO, a task of
+    # more than one agent with MAPPO
+    ppo = (AMPPPO if amp else MAPPO if agents > 1 else PPO)(env, cfg, device=device)
     ts = ppo.init(SEED)
     env_state = env.reset(SEED)
     torch.cuda.synchronize()
-    iters = 3
     env.physics_step.launches = 0
     times, metrics = [], None
     for it in range(iters):
@@ -1295,10 +1335,12 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
         raise AssertionError(f"rewards are not finite of shape {lead}")
     if name == MA_TASK and bool((env_state.reward < 0).any()):
         raise AssertionError("MA_OP3's rewards are clipped at 0, and one is negative")
+    if amp and not all(0.0 <= metrics[k] <= 1.0 for k in ("disc_agent_acc", "disc_demo_acc")):
+        raise AssertionError(f"discriminator accuracies outside [0, 1]: {metrics}")
     if tuple(env_state.states.shape) != (envs, ppo.num_states) or \
             not bool(torch.isfinite(env_state.states).all()):
         raise AssertionError("privileged states are not finite of shape (B, num_states)")
-    steady = times[1:]
+    steady = times[1:]       # the first iteration excluded
     step = env.physics_step
     out = dict(launches=launches, expected_launches=expected,
                s_per_iter=times,
@@ -1306,7 +1348,11 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
                card=card, metrics=metrics)
     skip = ground_skip_stats(env.task.model, env_state.q) \
         if step.hf is None and step.pair_mode == 0 and step.layout != "local" else {}
-    log("train", task=name, train=train_yaml, envs=envs, agents=agents, layout=step.layout,
+    if amp:
+        out.update(motion_clips=env.task.motion_lib.num_motions(),
+                   motion_frames=int(env.task.motion_lib.num_frames.sum()),
+                   replay_count=ts.replay_count)
+    log("train", task=label or name, train=train_yaml, envs=envs, agents=agents, layout=step.layout,
         **launch_blocks(step, envs), num_states=ppo.num_states,
         network="lstm" if ppo.is_rnn else "mlp", asymmetric=ppo.asymmetric,
         dt=env.task.sim_params.dt,
@@ -1409,7 +1455,8 @@ def main() -> None:
         timing[name] = phase_time(name, device, stack_bytes["boxes"])
     for name in NEW_TASKS:
         timing[name] = phase_time(name, device, stack_bytes["boxes"] if name == "Trifinger" else None)
-    timing[MA_TASK] = phase_time(MA_TASK, device, stack_bytes[STACK_CHECK])
+    timing[MA_TASK] = phase_time(MA_TASK, device, stack_bytes[MA_TASK])
+    timing[AMP_TASK] = phase_time(AMP_TASK, device, stack_bytes[AMP_TASK])
     for mode, name in modes:
         with local_layout(mode == "flat_local"):
             train[mode] = phase_train(name, device, dev_info["kind"])
@@ -1419,11 +1466,28 @@ def main() -> None:
         train[label] = phase_train(name, device, dev_info["kind"], train_yaml, overrides)
     train[MA_TASK] = phase_train(MA_TASK, device, dev_info["kind"],
                                  env_overrides={"numEnvs": ENVS[MA_TASK]})
+    train[AMP_TASK] = phase_train(AMP_TASK, device, dev_info["kind"])
+    # the walk clip through poselib: the library must hold that file's one
+    # clip, not the gait clip it falls back to when the file is missing
+    from thormang_isaacgym_tpu_torch.learn.poselib import SkeletonMotion
+    if not os.path.isfile(AMP_WALK):
+        raise AssertionError(f"{AMP_WALK} is missing")
+    walk_frames = SkeletonMotion.from_file(AMP_WALK).num_frames
+    walk = f"{AMP_TASK}:walk"
+    train[walk] = phase_train(AMP_TASK, device, dev_info["kind"], iters=2, label=walk,
+                              env_overrides={"motion_file": AMP_WALK})
+    if (train[walk]["motion_clips"], train[walk]["motion_frames"]) != (1, walk_frames):
+        raise AssertionError(f"the walk run's motion library holds {train[walk]['motion_clips']} "
+                             f"clips of {train[walk]['motion_frames']} frames, not the file's "
+                             f"1 clip of {walk_frames}")
     # each instance's launches by task: the flat instance's Ant's and the
-    # drones', the heightfield's AnymalTerrain's with either policy, the box
-    # instance's AllegroHand's, the Franka family's and Trifinger's, the
-    # tendon block's ShadowHand's with either policy
+    # drones', its local layout's HumanoidMJCF's (forced) and HumanoidAMP's
+    # (with the gait clip and the walk clip), the heightfield's
+    # AnymalTerrain's with either policy, the box instance's AllegroHand's,
+    # the Franka family's, Trifinger's and MA_OP3's, the tendon block's
+    # ShadowHand's with either policy
     by_task = dict(
+        flat_local=(("HumanoidMJCF:local", "flat_local"), (AMP_TASK, AMP_TASK), (walk, walk)),
         flat=(("Ant", "flat"), ("Ingenuity", "Ingenuity"), ("Quadcopter", "Quadcopter")),
         heightfield=(("AnymalTerrain", "heightfield"),
                      ("AnymalTerrain:LSTM", "AnymalTerrain:LSTM")),
@@ -1433,10 +1497,12 @@ def main() -> None:
     # phase 3's times of the tasks in each instance's launches
     timed = {"Ant": timing["flat"], "AnymalTerrain": timing["heightfield"],
              "AllegroHand": timing["boxes"], "ShadowHand": timing["tendons"],
-             **{n: timing[n] for n in FRANKA_TASKS + NEW_TASKS + (MA_TASK,)}}
+             "HumanoidMJCF:local": timing["flat_local"],
+             **{n: timing[n] for n in FRANKA_TASKS + NEW_TASKS + (MA_TASK, AMP_TASK)}}
     phase_cli("HumanoidMJCF", "HumanoidPPO", 4096)
     phase_cli("Trifinger", "TrifingerPPO", ENVS["Trifinger"])
     phase_cli(MA_TASK, "MA_OP3PPO", None, play=False)       # no play: the JAX package has none
+    phase_cli(AMP_TASK, "HumanoidAMPPPO", None)
     phase_cli_multi(("Ant", "HumanoidMJCF"), 4096)
     # the split layout's first launch ran first, the local one's adds to it,
     # the box instance's to both

@@ -28,9 +28,20 @@
   of a multi-agent task raises on its (B, A) reward. A JAX MAPPO
   checkpoint loads into the port and gives JAX's actions and values on
   (B, 2, 88) obs at atol 1e-5.
+- HumanoidAMP (HumanoidAMPPPO.yaml, algo amp_continuous: the AMP learner)
+  trains one iteration through the CLI at 8 envs on the CPU, narrow, and
+  writes the discriminator's metrics; ``test=true`` plays its last.ckpt
+  with the actor alone. The JAX AMP checkpoints runs/HumanoidAMP (64-64
+  networks, a ring of 256 rows) and runs/amp_cmu_r5 (1024-512, a ring of
+  65,536) load into learners built from their own config.yaml: JAX's
+  deterministic actions at atol 1e-5, the ring, amp_rms and the ring's
+  count and pointer exactly; one loaded into a PPO raises. A port AMP
+  checkpoint after 2 iterations, restored, runs one more iteration bit for
+  bit as the uninterrupted run (the discriminator, its Adam moments, the
+  ring and amp_rms).
 - Guards: no CUDA and no ``device=`` raises (it does not train on the CPU);
-  ``amp_continuous``, ``capture_video=true`` and ``headless=false`` raise
-  NotImplementedError naming their ROADMAP items.
+  ``capture_video=true`` and ``headless=false`` raise NotImplementedError
+  naming their ROADMAP items.
 """
 import dataclasses
 import json
@@ -323,7 +334,6 @@ def test_main_without_cuda_or_device_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["task=HumanoidAMP", "train=HumanoidAMPPPO"], "ROADMAP A10"),
     (["task=Cartpole", "capture_video=true"], "ROADMAP A12"),
     (["task=Cartpole", "headless=false"], "ROADMAP A12"),
 ])
@@ -403,3 +413,127 @@ def test_profile_epoch_writes_a_chrome_trace(tmp_path):
     trace = tmp_path / "Cartpole" / "profile" / "trace.json"
     assert trace.is_file()
     assert "traceEvents" in json.loads(trace.read_text())
+
+
+# ---------------------------------------------------------------------------
+# HumanoidAMP and the AMP learner
+# ---------------------------------------------------------------------------
+
+AMP_NARROW = ["train.params.network.mlp.units=[16]", "train.params.network.disc.units=[16]",
+              "train.params.config.horizon_length=2", "train.params.config.mini_epochs=1"]
+
+
+@pytest.fixture(scope="module")
+def amp_run(tmp_path_factory):
+    """The CLI on HumanoidAMP with HumanoidAMPPPO.yaml, 8 envs on the CPU,
+    one iteration of narrow networks over 2 steps."""
+    out = tmp_path_factory.mktemp("amp_runs")
+    argv = ["task=HumanoidAMP", "train=HumanoidAMPPPO", "device=cpu", "num_envs=8",
+            f"output_root={out}", *AMP_NARROW]
+    ts = train.main(argv + ["max_iterations=1"])
+    return out, argv, ts
+
+
+def test_humanoid_amp_trains_through_the_cli(amp_run):
+    out, _, ts = amp_run
+    rows = [json.loads(line) for line in
+            (out / "HumanoidAMP" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in rows] == [0] and rows[0]["env_steps"] == 2 * 8
+    for k in ("reward_mean", "task_reward_mean", "disc_reward_mean", "disc_loss",
+              "disc_agent_acc", "disc_demo_acc", "kl", "a_loss", "v_loss", "env/pose_error"):
+        assert math.isfinite(rows[0][k]), k
+    assert 0.0 <= rows[0]["disc_agent_acc"] <= 1.0 and 0.0 <= rows[0]["disc_demo_acc"] <= 1.0
+    assert rows[0]["task_reward_mean"] == 1.0
+    assert ts.epoch == 1 and (ts.replay_count, ts.replay_ptr) == (1, 1)
+    assert tuple(ts.disc.disc_logits.weight.shape) == (1, 16)
+    assert (out / "HumanoidAMP" / "nn" / "last.ckpt").is_file()
+
+
+def test_humanoid_amp_plays_through_the_cli(amp_run, capsys):
+    out, argv, _ = amp_run
+    capsys.readouterr()
+    ret = train.main(argv + ["test=true", "test_episodes=1",
+                             f"checkpoint={out / 'HumanoidAMP' / 'nn' / 'last.ckpt'}"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert math.isfinite(line["play_mean_return"]) and line["play_mean_return"] == ret
+    assert line["episodes"] >= 8
+
+
+def _amp_learners(run):
+    """JAX and port AMPPPO built from runs/<run>/config.yaml: the JAX one on a
+    stand-in env of HumanoidAMP's widths, the port one on its HumanoidAMP
+    (the gait clip: the run's .fbx clip is not in the repository)."""
+    from types import SimpleNamespace
+    from thormang_isaacgym_tpu.learn import amp as jamp
+    from thormang_isaacgym_tpu_torch.learn import amp as tamp
+    with open(os.path.join(ROOT, "runs", run, "config.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    task_cfg = dict(cfg["task"], env=dict(cfg["task"]["env"], motion_file=""))
+    env = tgt.make("HumanoidAMP", num_envs=4, seed=0, cfg=task_cfg, device="cpu")
+    jenv = SimpleNamespace(num_obs=105, num_actions=28, num_envs=4,
+                           task=SimpleNamespace(num_states=0, num_amp_obs=210))
+    jp = jamp.AMPPPO(jenv, jamp.AMPConfig.from_rlgames(cfg["train"]))
+    return jp, tamp.AMPPPO(env, tamp.AMPConfig.from_rlgames(cfg["train"]), device="cpu")
+
+
+@pytest.mark.parametrize("run, units, ring", [("HumanoidAMP", (64, 64), 256),
+                                              ("amp_cmu_r5", (1024, 512), 65536)])
+def test_jax_amp_checkpoint_loads_into_the_port(run, units, ring):
+    jp, tp = _amp_learners(run)
+    path = os.path.join(ROOT, "runs", run, "nn", "last.ckpt")
+    with np.load(path) as z:
+        assert len(z.files) == 75
+    jts = jax_load_train_state(path, jax.jit(jp.init)(jax.random.key(0)))
+    ts = load_train_state(path, tp)
+    assert tp.cfg.units == tp.cfg.disc_units == units and tuple(ts.replay.shape) == (ring, 210)
+    np.testing.assert_array_equal(ts.replay.numpy(), np.asarray(jts.replay))
+    for f in ("mean", "var", "count"):
+        np.testing.assert_array_equal(getattr(ts.amp_rms, f).numpy(),
+                                      np.asarray(getattr(jts.amp_rms, f)))
+    assert (ts.replay_count, ts.replay_ptr, ts.epoch) == \
+        (int(jts.replay_count), int(jts.replay_ptr), int(jts.epoch))
+    assert ts.adam_step == int(jts.opt_state[1].count) > 0
+    obs = np.random.default_rng(1).normal(size=(16, 105)).astype(np.float32)
+    ja = np.asarray(jax.jit(jp.act_deterministic)(jts, jnp.asarray(obs)))
+    ta = tp.act_deterministic(ts, torch.as_tensor(obs))
+    np.testing.assert_allclose(ta.numpy(), ja, atol=1e-5, rtol=0)
+    x = np.random.default_rng(2).normal(size=(16, 210)).astype(np.float32)
+    jd = jax.jit(jp.disc.apply)(jts.params["disc"], jnp.asarray(x))
+    np.testing.assert_allclose(ts.disc(torch.as_tensor(x)).detach().numpy(), np.asarray(jd),
+                               atol=1e-4, rtol=1e-5)
+
+
+def test_jax_amp_checkpoint_into_a_ppo_raises():
+    with open(os.path.join(ROOT, "runs", "HumanoidAMP", "config.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    env = tgt.make("HumanoidAMP", num_envs=4, seed=0, device="cpu")
+    tp = tppo.PPO(env, tppo.PPOConfig.from_rlgames(cfg["train"]), device="cpu")
+    with pytest.raises(ValueError, match="checkpoint has 75 leaves, template expects 51"):
+        load_train_state(os.path.join(ROOT, "runs", "HumanoidAMP", "nn", "last.ckpt"), tp)
+
+
+def test_amp_restore_then_one_iteration_equals_uninterrupted(tmp_path):
+    from thormang_isaacgym_tpu_torch.learn import amp as tamp
+    y = _train_yaml("HumanoidAMPPPO")
+    cfg = dataclasses.replace(tamp.AMPConfig.from_rlgames(y), units=(16,), disc_units=(16,),
+                              horizon_length=2, minibatch_size=4, mini_epochs=2,
+                              amp_replay_buffer_size=6, amp_replay_keep_prob=0.5)
+    ppo = tamp.AMPPPO(tgt.make("HumanoidAMP", num_envs=4, seed=0, device="cpu"), cfg,
+                      device="cpu")
+    ts, state = ppo.init(0), ppo.env.reset(0)
+    for _ in range(2):
+        ts, state, _ = ppo.train_iteration(ts, state)
+    path = str(tmp_path / "nn" / "mid.ckpt")
+    save_train_state(path, ts)
+    restored = load_train_state(path, ppo)
+    ts, _, m_a = ppo.train_iteration(ts, state)
+    restored, _, m_b = ppo.train_iteration(restored, state)
+    _assert_same_train_state(ts, restored)
+    for x, y_ in zip(ts.disc.state_dict().values(), restored.disc.state_dict().values()):
+        assert torch.equal(x, y_)
+    assert torch.equal(ts.replay, restored.replay) and (ts.replay_count, ts.replay_ptr) == \
+        (restored.replay_count, restored.replay_ptr) == (6, 0)
+    for f in ("mean", "var", "count"):
+        assert torch.equal(getattr(ts.amp_rms, f), getattr(restored.amp_rms, f))
+    for k in m_a:
+        assert torch.equal(m_a[k], m_b[k]), k

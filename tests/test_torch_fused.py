@@ -23,7 +23,10 @@ coupled length on both sides of each bound and inside) and on ShadowHand
 (four tendons, the cube on its palm), step by step. HumanoidMJCF (22 bodies,
 43 ground candidates: over the shared-memory budget) runs the flat instance in
 its split layout (the sweep state alone in shared memory), free running, its
-net also held at chip_smoke's flat-mode tolerance (atol 1e-2 N). Tolerances of
+net also held at chip_smoke's flat-mode tolerance (atol 1e-2 N); HumanoidAMP
+(29 bodies, 38 candidates: over the split layout's budget too) its local
+layout, from the gait clip's states on the ground (``amp_contact_state``:
+both soles down, or lying on a capsule), held as HumanoidMJCF. Tolerances of
 tests/test_fused.py: q atol=rtol 2e-3, qd atol=rtol 2e-2, net atol 1.0 /
 rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine
 without it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
@@ -39,6 +42,7 @@ import torch
 from thormang_isaacgym_tpu_torch.engine.terrain import Heightfield, TerrainGrid
 from thormang_isaacgym_tpu_torch.models import load_urdf
 from thormang_isaacgym_tpu_torch.models.franka import load_franka
+from thormang_isaacgym_tpu_torch.models.robot import GEOM_CAPSULE
 from thormang_isaacgym_tpu_torch.models.scene import compose
 from thormang_isaacgym_tpu_torch.ops import collide, fused
 from thormang_isaacgym_tpu_torch.ops.dynamics import tendon_sums
@@ -52,6 +56,7 @@ from thormang_isaacgym_tpu_torch.tasks.cartpole import Cartpole
 from thormang_isaacgym_tpu_torch.tasks.factory import FactoryTaskNutBoltScrew
 from thormang_isaacgym_tpu_torch.tasks.franka_cabinet import FrankaCabinet
 from thormang_isaacgym_tpu_torch.tasks.humanoid import HumanoidMJCF
+from thormang_isaacgym_tpu_torch.tasks.humanoid_amp import HumanoidAMP
 from thormang_isaacgym_tpu_torch.tasks.ingenuity import Ingenuity
 from thormang_isaacgym_tpu_torch.tasks.ma_op3 import MA_OP3
 from thormang_isaacgym_tpu_torch.tasks.quadcopter import Quadcopter
@@ -499,6 +504,54 @@ def drone_contact_q(model, rng, n, z):
     return q
 
 
+def amp_contact_state(task, rng, n):
+    """((n, nq), (n, nv)) HumanoidAMP states on the ground: the gait clip's
+    reference states (``task.motion_lib``) at seeded times, with the clip's
+    velocities, lowered until their lowest candidate point is 0.5-3 mm in
+    the ground. In envs e % 4 in (0, 1) the left leg takes the right leg's
+    angles first, so both box soles touch; in e % 4 == 2 the clip's pose
+    (one sole, or two in double support); in e % 4 == 3 the body lies
+    straight (every joint at 0) on its back, where the torso's capsule and
+    the pelvis touch, or on its front, where the toes do (the root turned a
+    quarter about y)."""
+    m, ml, dev = task.model, task.motion_lib, task.device
+    t = torch.as_tensor(rng.uniform(0.0, float(ml.lengths[0]), n).astype(np.float32), device=dev)
+    q, qd = (x.cpu().numpy().astype(np.float64)
+             for x in task._motion_state_to_qqd(ml.get_motion_state(
+                 torch.zeros(n, dtype=torch.int64, device=dev), t)))
+    e = np.arange(n) % 4
+    for j in ("thigh_y", "shin_y", "foot_y"):
+        q[e < 2, 7 + m.dof_id(f"left_{j}")] = q[e < 2, 7 + m.dof_id(f"right_{j}")]
+    lying = e == 3
+    q[lying, 7:] = 0.0
+    half = 0.25 * np.pi * np.where(rng.uniform(size=int(lying.sum())) < 0.5, 1.0, -1.0)
+    q[lying, 3:7] = np.stack([np.cos(half), 0 * half, np.sin(half), 0 * half], -1)
+    frames = forward_kinematics(m, torch.as_tensor(q, dtype=torch.float32),
+                                torch.zeros(n, m.nv))
+    p, _ = fused.contact.candidate_points(m, frames)
+    cand = fused.contact.candidates(m)
+    low = (p[..., 2] - torch.as_tensor(cand["r"])).numpy()
+    q[:, 2] -= low.min(-1) + rng.uniform(5e-4, 3e-3, n)
+    return q.astype(np.float32), qd.astype(np.float32)
+
+
+def amp_contact_stats(model, q) -> dict:
+    """What touches the ground at HumanoidAMP's q: the share of envs with
+    both box soles in contact, with a capsule in contact, and of ground
+    candidates in contact."""
+    frames = forward_kinematics(model, q, torch.zeros(q.shape[0], model.nv, device=q.device))
+    p, _ = fused.contact.candidate_points(model, frames)
+    cand = fused.contact.candidates(model)
+    active = (p[..., 2] < torch.as_tensor(cand["r"], device=q.device)).cpu()
+    gtype = np.array([model.geoms[g].gtype for g in cand["geom"]])
+    body = np.array([model.body_names[b] for b in cand["body"]])
+    soles = [active[:, torch.as_tensor(body == f)].any(-1) for f in ("right_foot", "left_foot")]
+    return dict(both_soles_env_share=float((soles[0] & soles[1]).float().mean()),
+                capsule_env_share=float(active[:, torch.as_tensor(gtype == GEOM_CAPSULE)]
+                                        .any(-1).float().mean()),
+                ground_candidate_contact_share=float(active.float().mean()))
+
+
 # the base heights of drone_contact_q: Ingenuity's box of half size 0.06 m
 # under its 0.15 m rotor disks, Quadcopter's 0.015 m thick chassis disk
 DRONE_Z = {"Ingenuity": (0.04, 0.1), "Quadcopter": (0.0, 0.04)}
@@ -650,6 +703,11 @@ def _model(name):
         # the sim block of cfg/task/Humanoid.yaml: dt 0.0166 s, 2 substeps
         task = HumanoidMJCF(num_envs=B, device="cpu")
         return task.model, dataclasses.replace(task.sim_params, substeps=2), task, 0.0
+    if name == "humanoid_amp":
+        # the sim block of cfg/task/HumanoidAMP.yaml equals the class's: dt
+        # 0.0166 s, 2 substeps
+        task = HumanoidAMP(num_envs=B, device="cpu")
+        return task.model, task.sim_params, task, 0.0
     if name == "ball_balance":
         # the sim block of cfg/task/BallBalance.yaml: dt 0.01 s, 1 substep
         task = bb.BallBalance(num_envs=B, device="cpu")
@@ -745,6 +803,8 @@ def _inputs(name, model, task, device, ground=None):
     elif name == "ma_op3":
         q = ma_op3_contact_q(task, rng, B)
         qd = rng.normal(size=(B, model.nv)) * 0.05
+    elif name == "humanoid_amp":
+        q, qd = amp_contact_state(task, rng, B)
     elif name in ("ingenuity", "quadcopter"):
         q = drone_contact_q(model, rng, B, DRONE_Z[type(task).__name__])
         qd = rng.normal(size=(B, model.nv)) * 0.5
@@ -803,6 +863,11 @@ def _inputs(name, model, task, device, ground=None):
 
     ctrl = Controls(t(rng.normal(size=(B, nj)) * 0.1), t(np.zeros((B, nj))),
                     t(rng.uniform(-15, 15, (B, nj))))
+    if name == "humanoid_amp":
+        # as in training: PD targets near the joints, no wrench
+        ctrl = Controls(t(q[:, 7:] + rng.normal(size=(B, nj)) * 0.05), t(np.zeros((B, nj))),
+                        t(np.zeros((B, nj))))
+        wrench = np.zeros_like(wrench)
     if name == "ma_op3":
         # as in training: position targets near the joints (kp 1000: a target
         # 4.1 mrad off saturates the 4.1 N m limit, so many sit at the
@@ -842,7 +907,7 @@ HOST_CASES = ["cartpole", "tiny", "ant", "anymal_terrain", "cylinder_slope",
               "ball_balance", "pair_capsule", "held", "boxbox", "capbox", "spherebox",
               "allegro_hand", "tendon", "shadow_hand", "boxbox_terrain", "pair_capsule_terrain",
               "humanoid_mjcf", "franka", "franka_cabinet", "factory_screw", "trifinger",
-              "ingenuity", "quadcopter", "ma_op3"]
+              "ingenuity", "quadcopter", "ma_op3", "humanoid_amp"]
 # the heightfield cases with actor pairs: both the pairs and the ground touched
 PAIR_TERRAIN = {"boxbox_terrain": 2, "pair_capsule_terrain": 1}
 
@@ -873,7 +938,7 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         qa, qda, na = _host_call(host_kernel, step, params, qa, qda, ctrl, w)
         qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, w)
         _assert_close((qa, qda, na), (qb, qdb, nb_))
-        if name == "humanoid_mjcf":              # chip_smoke's flat-mode net tolerance
+        if name in ("humanoid_mjcf", "humanoid_amp"):    # chip_smoke's flat-mode net tolerance
             np.testing.assert_allclose(na.numpy(), nb_.numpy(), atol=1e-2, rtol=5e-3)
         rows = nb_[..., :3].abs().amax(-1) > 0
         if name in ("allegro_hand", "shadow_hand"):   # the share of envs whose cube is touched
@@ -884,7 +949,7 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
             rows = rows[:, [task.lfinger_body, task.rfinger_body]].any(-1)
         if name == "trifinger":                  # the share of env-fingertips touched
             rows = rows[:, list(task.net_torque_bodies)]
-        if name in ("ingenuity", "quadcopter", "ma_op3"):  # the share of envs with a body touched
+        if name in ("ingenuity", "quadcopter", "ma_op3", "humanoid_amp"):  # a body touched
             rows = rows.any(-1)
         touched = max(touched, float(rows.float().mean()))
         if name in PAIR_TERRAIN:
@@ -901,7 +966,7 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
                 ((z > p[..., 2] - torch.as_tensor(cand["r"])) & free).any(-1).float().mean()))
     if name in ("anymal_terrain", "cylinder_slope", "ball_balance", "pair_capsule", "allegro_hand",
                 "shadow_hand", "humanoid_mjcf", "franka_cabinet", "factory_screw", "trifinger",
-                "ingenuity", "quadcopter", "ma_op3", *PAIR_TERRAIN, *BOX_POSES):
+                "ingenuity", "quadcopter", "ma_op3", "humanoid_amp", *PAIR_TERRAIN, *BOX_POSES):
         assert touched > 0.1                     # the ground or a pair is touched
     if name == "humanoid_mjcf":                  # over the shared budget: the split layout
         assert step.pair_mode == 0 and step.block == fused.BLOCK and step.layout == "split"
@@ -909,6 +974,13 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         mi, mf = step._tables
         assert step.smem_bytes == fused.split_bytes(model.nb, model.nj, model.nq, model.nv, step._nc,
                                                     fused.BLOCK, tables=len(mi) + len(mf)) == 201_264
+    if name == "humanoid_amp":                   # over the split layout's budget too: local
+        assert (step.pair_mode, step.layout, step.smem_bytes) == (0, "local", 0)
+        assert step.layout_bytes == 466_080 and fused.split_bytes(
+            model.nb, model.nj, model.nq, model.nv, step._nc, fused.BLOCK,
+            tables=sum(map(len, step._tables))) == 253_088
+        stats = amp_contact_stats(model, q)
+        assert stats["both_soles_env_share"] > 0.3 and stats["capsule_env_share"] > 0.1, stats
     if name == "ma_op3":                         # feet on table legs, grippers on the table top
         fr = forward_kinematics(model, q, qd)
         depth = torch.stack([c[5] for c in collide.candidates(model, fr)], -1)

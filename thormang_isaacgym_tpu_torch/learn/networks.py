@@ -14,10 +14,14 @@
   value head reads the LSTM's output, unlike rl_games' separate critic)
 - ``ValueNet``: the asymmetric critic over the privileged states, an MLP of
   the actor's ``units`` and ``activation`` and a linear value
+- ``AMPDiscriminator``: the rl_games ``disc:`` block of AMP, an MLP of
+  ``units`` and ``activation`` and a final one-unit layer ``disc_logits``
+  (the layer the logit-weight regulariser of learn/amp.py reads)
 
 Layer names follow the flax modules (trunk_i, vtrunk_i, mu, value, sigma,
-log_std, lstm_l, rnn_ln, cv_i, cv_value) so parity/convert.py maps weights
-one to one. An LSTM layer is flax's ``OptimizedLSTMCell``: gates i, f, g, o;
+log_std, lstm_l, rnn_ln, cv_i, cv_value, disc_i, disc_logits) so
+parity/convert.py maps weights one to one. An LSTM layer is flax's
+``OptimizedLSTMCell``: gates i, f, g, o;
 the input kernels without bias and the hidden kernels with it, here each
 four concatenated into one Linear (``ih``, ``hh``); no forget-gate bias.
 The carry is a (layers, 2, B, units) float32 tensor of (c, h) per layer.
@@ -194,3 +198,28 @@ class ValueNet(nn.Module):
         for layer in self.cv:
             x = self.act(layer(x))
         return self.cv_value(x)[..., 0].float()
+
+
+class AMPDiscriminator(nn.Module):
+    """The AMP discriminator: an MLP of ``units`` with ``activation`` over the
+    (normalised) AMP window, then ``disc_logits``, one logit per row."""
+
+    def __init__(self, num_amp_obs: int, units: Sequence[int] = (1024, 512),
+                 activation: str = "relu", seed: int = 0):
+        super().__init__()
+        self.act = getattr(nn.functional, activation)
+        self.disc = _mlp([num_amp_obs, *units])
+        self.disc_logits = nn.Linear(units[-1] if units else num_amp_obs, 1)
+        _init_linears(self, seed)
+
+    def kernels(self) -> list:
+        """The weight matrices (flax's kernels, not the biases): the weight
+        decay's terms; the last is ``disc_logits``'."""
+        return [lin.weight for lin in self.disc] + [self.disc_logits.weight]
+
+    def forward(self, amp_obs: torch.Tensor) -> torch.Tensor:
+        """amp_obs (B, num_amp_obs) -> logits (B,) float32."""
+        x = amp_obs
+        for layer in self.disc:
+            x = self.act(layer(x))
+        return self.disc_logits(x)[..., 0].float()

@@ -6,14 +6,16 @@ the JAX package:
 
 - :func:`model_params` — ``ModelParams`` leaves -> the port's ModelParams;
 - :func:`load_actor_critic` — flax ``ActorCritic`` or ``ActorCriticRNN``
-  params, with a ``ValueNet`` the asymmetric ``{"ac", "cv"}`` (Dense
+  params, with a ``ValueNet`` the asymmetric ``{"ac", "cv"}``, with an
+  ``AMPDiscriminator`` AMP's ``{"ac", "disc"}`` (Dense
   ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in), ``bias``,
   ``log_std``; an LSTM cell's eight Dense leaves -> its two Linears; the
   LayerNorm's ``scale`` -> ``weight``);
 - :func:`rms_state` — ``RMSState`` (mean, var, count);
 - :func:`train_state` — a JAX PPO ``TrainState`` (params, optax Adam
   moments and count, lr, the three normalizers, epoch) into a port
-  TrainState;
+  TrainState; a JAX ``AMPTrainState`` also its discriminator, ``amp_rms``
+  and the replay ring with its count and pointer;
 - :func:`train_state_from_leaves` — the same from the ordered leaves of a
   JAX checkpoint (``jax.tree.leaves(TrainState)``, npz ``arr_0..arr_N``);
 - :func:`heightfield` — an ``engine.terrain.Heightfield`` (heights, scales,
@@ -73,14 +75,16 @@ def _lstm(prefix, cell) -> list:
             (cell.hh.bias, [(prefix + ("h" + g, "bias"), (H,)) for g in "ifgo"], cat)]
 
 
-def _specs(model, value_net=None) -> list:
+def _specs(model, value_net=None, disc=None) -> list:
     """(torch parameter, [(flax path, flax shape), ...], combine) for every
-    parameter of `model` (ActorCritic or ActorCriticRNN) and `value_net`, in
-    the order of ``TrainState.parameters()``: ``combine`` maps the flax
-    leaves (numpy, in the listed order) onto the parameter. The paths start
-    at the root of the JAX params: ``("params", ...)``, or with a value net
-    ``("ac", "params", ...)`` and ``("cv", "params", ...)``."""
-    root = ("ac", "params") if value_net is not None else ("params",)
+    parameter of `model` (ActorCritic or ActorCriticRNN), `value_net` and
+    `disc` (an AMPDiscriminator), in the order of ``TrainState.parameters()``:
+    ``combine`` maps the flax leaves (numpy, in the listed order) onto the
+    parameter. The paths start at the root of the JAX params:
+    ``("params", ...)``, with a value net ``("ac", "params", ...)`` and
+    ``("cv", "params", ...)``, with a discriminator ``("ac", "params", ...)``
+    and ``("disc", "params", ...)``."""
+    root = ("ac", "params") if value_net is not None or disc is not None else ("params",)
     by_param = {}
     for i, lin in enumerate(model.trunk):
         by_param.update({id(p): e for p, *e in _dense(root + (f"trunk_{i}",), lin)})
@@ -107,6 +111,12 @@ def _specs(model, value_net=None) -> list:
             by_param.update({id(p): e for p, *e in _dense(cv + (f"cv_{i}",), lin)})
         by_param.update({id(p): e for p, *e in _dense(cv + ("cv_value",), value_net.cv_value)})
         params += list(value_net.parameters())
+    if disc is not None:
+        dp = ("disc", "params")
+        for i, lin in enumerate(disc.disc):
+            by_param.update({id(p): e for p, *e in _dense(dp + (f"disc_{i}",), lin)})
+        by_param.update({id(p): e for p, *e in _dense(dp + ("disc_logits",), disc.disc_logits)})
+        params += list(disc.parameters())
     return [(p, *by_param[id(p)]) for p in params]
 
 
@@ -118,21 +128,21 @@ def _get(tree, path):
     return np.array(tree)
 
 
-def _flat_like_torch(model, tree: dict, value_net=None) -> list:
+def _flat_like_torch(model, tree: dict, value_net=None, disc=None) -> list:
     """The flax-shaped `tree` (the structure of the JAX params) as a list of
     tensors in the order of the port's parameters (``_specs``)."""
     return [torch.as_tensor(np.ascontiguousarray(combine([_get(tree, path) for path, _ in leaves])),
                             device=p.device)
-            for p, leaves, combine in _specs(model, value_net)]
+            for p, leaves, combine in _specs(model, value_net, disc)]
 
 
-def load_actor_critic(model, flax_params: dict, value_net=None):
+def load_actor_critic(model, flax_params: dict, value_net=None, disc=None):
     """Copy flax params (ActorCritic or ActorCriticRNN; with `value_net`, the
-    asymmetric ``{"ac": ..., "cv": ...}``) into the port's modules in place;
-    returns `model`."""
+    asymmetric ``{"ac": ..., "cv": ...}``; with `disc`, AMP's ``{"ac": ...,
+    "disc": ...}``) into the port's modules in place; returns `model`."""
     with torch.no_grad():
-        for p, x in zip((p for p, _, _ in _specs(model, value_net)),
-                        _flat_like_torch(model, flax_params, value_net)):
+        for p, x in zip((p for p, _, _ in _specs(model, value_net, disc)),
+                        _flat_like_torch(model, flax_params, value_net, disc)):
             p.copy_(x)
     return model
 
@@ -155,29 +165,37 @@ def _find_adam(opt_state):
 
 
 def train_state(ppo, jax_ts):
-    """A JAX ``learn.ppo.TrainState`` (numpy leaves) -> the port's
-    TrainState for `ppo` (a port PPO on the same task and config)."""
+    """A JAX ``learn.ppo.TrainState`` or ``learn.amp.AMPTrainState`` (numpy
+    leaves) -> the port's TrainState for `ppo` (a port PPO or AMPPPO on the
+    same task and config)."""
     ts = ppo.init(ppo.cfg.seed)
     dev = ppo.device
-    load_actor_critic(ts.model, jax_ts.params, ts.value_net)
+    disc = getattr(ts, "disc", None)
+    load_actor_critic(ts.model, jax_ts.params, ts.value_net, disc)
     adam = _find_adam(jax_ts.opt_state)
     if adam is not None:
-        ts.adam_m = _flat_like_torch(ts.model, adam.mu, ts.value_net)
-        ts.adam_v = _flat_like_torch(ts.model, adam.nu, ts.value_net)
+        ts.adam_m = _flat_like_torch(ts.model, adam.mu, ts.value_net, disc)
+        ts.adam_v = _flat_like_torch(ts.model, adam.nu, ts.value_net, disc)
         ts.adam_step = int(np.array(adam.count))
     ts.lr = _leaf(jax_ts.lr, dev, torch.float32)
     ts.obs_rms = rms_state(jax_ts.obs_rms, dev)
     ts.value_rms = rms_state(jax_ts.value_rms, dev)
     ts.states_rms = rms_state(jax_ts.states_rms, dev)
     ts.epoch = int(np.array(jax_ts.epoch))
+    if disc is not None:
+        ts.amp_rms = rms_state(jax_ts.amp_rms, dev)
+        ts.replay = _leaf(jax_ts.replay, dev, torch.float32)
+        ts.replay_count = int(np.array(jax_ts.replay_count))
+        ts.replay_ptr = int(np.array(jax_ts.replay_ptr))
     return ts
 
 
 def _flax_leaves(ts) -> list:
     """(path, shape) of the flax params' leaves of `ts`'s networks in
     ``jax.tree.leaves`` order (dict keys sorted; a Dense layer's bias before
-    its kernel; ``ac`` before ``cv``)."""
-    return sorted(leaf for _, leaves, _ in _specs(ts.model, ts.value_net) for leaf in leaves)
+    its kernel; ``ac`` before ``cv`` and ``disc``)."""
+    return sorted(leaf for _, leaves, _ in _specs(ts.model, ts.value_net, getattr(ts, "disc", None))
+                  for leaf in leaves)
 
 
 def train_state_from_leaves(ppo, leaves):
@@ -185,13 +203,16 @@ def train_state_from_leaves(ppo, leaves):
     ``TrainState`` leaves in ``jax.tree.leaves`` order, numpy) -> the port's
     TrainState for `ppo`. The order: params; the Adam state's count, mu and
     nu (each shaped like params); lr; obs_rms, value_rms and states_rms
-    (mean, var, count); epoch. A leaf count or shape that does not match
-    `ppo`'s config raises ValueError."""
+    (mean, var, count); epoch; of an AMP checkpoint (``ppo`` an AMPPPO)
+    then amp_rms, the replay ring, its count and its pointer. A leaf count
+    or shape that does not match `ppo`'s config raises ValueError."""
     params = _flax_leaves(ppo.init(ppo.cfg.seed))
     states = max(ppo.num_states, 1)
     n_obs = ppo.env.num_obs
+    amp = getattr(ppo, "num_amp_obs", None)
     shapes = ([s for _, s in params] + [()] + [s for _, s in params] * 2 + [()]
-              + [(n_obs,), (n_obs,), (), (), (), (), (states,), (states,), (), ()])
+              + [(n_obs,), (n_obs,), (), (), (), (), (states,), (states,), (), ()]
+              + ([(amp,), (amp,), (), (ppo.replay_size, amp), (), ()] if amp else []))
     leaves = [np.asarray(x) for x in leaves]
     if len(leaves) != len(shapes):
         raise ValueError(f"checkpoint has {len(leaves)} leaves, template expects "
@@ -218,6 +239,9 @@ def train_state_from_leaves(ppo, leaves):
     rms = [SimpleNamespace(mean=next(it), var=next(it), count=next(it)) for _ in range(3)]
     jax_ts = SimpleNamespace(params=p, opt_state=(adam,), lr=lr, obs_rms=rms[0],
                              value_rms=rms[1], states_rms=rms[2], epoch=next(it))
+    if amp:
+        jax_ts.amp_rms = SimpleNamespace(mean=next(it), var=next(it), count=next(it))
+        jax_ts.replay, jax_ts.replay_count, jax_ts.replay_ptr = next(it), next(it), next(it)
     return train_state(ppo, jax_ts)
 
 

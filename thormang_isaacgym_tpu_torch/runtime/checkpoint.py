@@ -7,7 +7,9 @@ an asymmetric critic ``value_net/<state_dict key>``, ``adam_m/<parameter>``
 and ``adam_v/<parameter>`` (the value net's as ``value_net.<parameter>``),
 ``adam_step``, ``lr``, ``obs_rms/*``, ``value_rms/*`` and ``states_rms/*``
 (mean, var, count), ``epoch`` and ``gen_state`` (the generator of action
-noise and minibatch permutations).
+noise and minibatch permutations). An AMP state adds ``disc/<state_dict
+key>`` (its parameters in the Adam moments as ``disc.<parameter>``),
+``amp_rms/*``, ``replay``, ``replay_count`` and ``replay_ptr``.
 Restoring it and running one more iteration gives the uninterrupted run's
 numbers (the env state is the caller's; it is reproducible from the seed).
 
@@ -26,24 +28,30 @@ import torch
 from thormang_isaacgym_tpu_torch.learn.normalize import RMSState
 
 
+def _modules(ts) -> dict:
+    """The networks of `ts` by name, in the order of ``ts.parameters()``."""
+    mods = {"model": ts.model, "value_net": ts.value_net, "disc": getattr(ts, "disc", None)}
+    return {k: m for k, m in mods.items() if m is not None}
+
+
 def _param_names(ts) -> list:
     """Names of ``ts.parameters()``, in its order."""
-    names = [n for n, _ in ts.model.named_parameters()]
-    if ts.value_net is not None:
-        names += [f"value_net.{n}" for n, _ in ts.value_net.named_parameters()]
-    return names
+    return [n if k == "model" else f"{k}.{n}"
+            for k, m in _modules(ts).items() for n, _ in m.named_parameters()]
 
 
 def _arrays(ts) -> dict:
-    out = {f"model/{k}": v for k, v in ts.model.state_dict().items()}
-    if ts.value_net is not None:
-        out.update({f"value_net/{k}": v for k, v in ts.value_net.state_dict().items()})
+    out = {f"{k}/{n}": v for k, m in _modules(ts).items() for n, v in m.state_dict().items()}
     names = _param_names(ts)
     out.update({f"adam_m/{n}": m for n, m in zip(names, ts.adam_m)})
     out.update({f"adam_v/{n}": v for n, v in zip(names, ts.adam_v)})
     for rms in ("obs_rms", "value_rms", "states_rms"):
         for f in ("mean", "var", "count"):
             out[f"{rms}/{f}"] = getattr(getattr(ts, rms), f)
+    if hasattr(ts, "replay"):
+        out.update({f"amp_rms/{f}": getattr(ts.amp_rms, f) for f in ("mean", "var", "count")})
+        out.update(replay=ts.replay, replay_count=np.int64(ts.replay_count),
+                   replay_ptr=np.int64(ts.replay_ptr))
     out["lr"] = ts.lr
     out["adam_step"] = np.int64(ts.adam_step)
     out["epoch"] = np.int64(ts.epoch)
@@ -62,8 +70,8 @@ def save_train_state(path: str, ts) -> None:
 
 
 def load_train_state(path: str, ppo):
-    """A TrainState for `ppo` (a port PPO on the checkpoint's task and
-    config) holding the checkpoint at `path`, a port or a JAX one. A count
+    """A TrainState for `ppo` (a port PPO or AMPPPO on the checkpoint's task
+    and config) holding the checkpoint at `path`, a port or a JAX one. A count
     or shape of arrays that does not match the config raises ValueError."""
     with open(path, "rb") as f:
         npz = np.load(io.BytesIO(f.read()))
@@ -86,10 +94,9 @@ def load_train_state(path: str, ppo):
         return torch.as_tensor(arrays[k], device=dev)
 
     with torch.no_grad():
-        for prefix, module in (("model/", ts.model), ("value_net/", ts.value_net)):
-            if module is not None:
-                module.load_state_dict({k[len(prefix):]: t(k) for k in arrays
-                                        if k.startswith(prefix)})
+        for name, module in _modules(ts).items():
+            prefix = name + "/"
+            module.load_state_dict({k[len(prefix):]: t(k) for k in arrays if k.startswith(prefix)})
     names = _param_names(ts)
     ts.adam_m = [t(f"adam_m/{n}") for n in names]
     ts.adam_v = [t(f"adam_v/{n}") for n in names]
@@ -100,4 +107,8 @@ def load_train_state(path: str, ppo):
         for r in ("obs_rms", "value_rms", "states_rms"))
     ts.epoch = int(arrays["epoch"])
     ts.gen.set_state(torch.as_tensor(arrays["gen_state"]))
+    if hasattr(ts, "replay"):
+        ts.amp_rms = RMSState(t("amp_rms/mean"), t("amp_rms/var"), t("amp_rms/count"))
+        ts.replay = t("replay")
+        ts.replay_count, ts.replay_ptr = int(arrays["replay_count"]), int(arrays["replay_ptr"])
     return ts

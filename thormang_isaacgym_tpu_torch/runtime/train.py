@@ -4,11 +4,14 @@ reference's ``train.py``).
 Usage:
   python -m thormang_isaacgym_tpu_torch.runtime.train task=Cartpole max_iterations=50
   python -m thormang_isaacgym_tpu_torch.runtime.train task=HumanoidMJCF train=HumanoidPPO
+  python -m thormang_isaacgym_tpu_torch.runtime.train task=HumanoidAMP train=HumanoidAMPPPO
   python -m thormang_isaacgym_tpu_torch.runtime.train task=Cartpole test=true \\
       checkpoint=runs/Cartpole/nn/last.ckpt
   python -m thormang_isaacgym_tpu_torch.runtime.train task=Cartpole device=cpu max_iterations=3
 
-Config composition (``utils/config.py``) -> env -> PPO -> checkpoints under
+Config composition (``utils/config.py``) -> env -> the learner the JAX CLI
+dispatches (``algo: amp_continuous`` AMPPPO, ``ma_ppo`` or a task of more
+than one agent MAPPO, else PPO) -> checkpoints under
 ``<output_root>/<experiment>/nn/`` and the config under
 ``<output_root>/<experiment>/config.yaml``, ``metrics.jsonl`` every 10
 epochs (and the last), TensorBoard scalars under ``summaries/``: the JAX
@@ -36,10 +39,6 @@ from thormang_isaacgym_tpu_torch.utils.config import load_config
 
 def _check_ported(cfg: dict) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
-    algo = ((cfg.get("train") or {}).get("params", {}).get("algo", {})
-            .get("name", "a2c_continuous"))
-    if algo == "amp_continuous":
-        raise NotImplementedError("AMP training (learn/amp.py) is not ported yet: ROADMAP A10")
     if cfg.get("capture_video"):
         raise NotImplementedError("capture_video (runtime/replay.py) is not ported yet: ROADMAP A12")
     if not cfg.get("headless", True):
@@ -62,15 +61,20 @@ def main(argv=None):
     seed = int(cfg.get("seed", 42))
     env = make(task_name, num_envs=int(num_envs), seed=seed, cfg=cfg.get("task") or None,
                device=device)
-    ppo_cfg = PPOConfig.from_rlgames(cfg["train"]) if cfg["train"] else PPOConfig()
-    # the learner, as the JAX CLI dispatches: ma_ppo, or a task with more
-    # than one agent, takes the parameter-shared multi-agent PPO
+    # the learner, as the JAX CLI dispatches: amp_continuous takes AMP;
+    # ma_ppo, or a task with more than one agent, the parameter-shared
+    # multi-agent PPO
     algo = (cfg.get("train") or {}).get("params", {}).get("algo", {}).get("name")
-    if algo == "ma_ppo" or getattr(env.task, "num_agents", 1) > 1:
+    if algo == "amp_continuous":
+        from thormang_isaacgym_tpu_torch.learn.amp import AMPConfig, AMPPPO
+        ppo_cls, cfg_cls = AMPPPO, AMPConfig
+    elif algo == "ma_ppo" or getattr(env.task, "num_agents", 1) > 1:
         from thormang_isaacgym_tpu_torch.learn.ma import MAPPO
-        ppo = MAPPO(env, ppo_cfg, device=device)
+        ppo_cls, cfg_cls = MAPPO, PPOConfig
     else:
-        ppo = PPO(env, ppo_cfg, device=device)
+        ppo_cls, cfg_cls = PPO, PPOConfig
+    ppo_cfg = cfg_cls.from_rlgames(cfg["train"]) if cfg["train"] else cfg_cls()
+    ppo = ppo_cls(env, ppo_cfg, device=device)
 
     exp_name = cfg.get("experiment") or task_name
     run_dir = os.path.join(cfg.get("output_root", "runs"), exp_name)

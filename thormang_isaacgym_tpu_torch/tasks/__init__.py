@@ -35,6 +35,7 @@ TASK_MAP = {
     "Quadcopter": ("thormang_isaacgym_tpu_torch.tasks.quadcopter", "Quadcopter"),
     "Trifinger": ("thormang_isaacgym_tpu_torch.tasks.trifinger", "Trifinger"),
     "MA_OP3": ("thormang_isaacgym_tpu_torch.tasks.ma_op3", "MA_OP3"),
+    "HumanoidAMP": ("thormang_isaacgym_tpu_torch.tasks.humanoid_amp", "HumanoidAMP"),
 }
 
 
@@ -55,7 +56,6 @@ NOT_PORTED = {
                    "not hold",
     "GogoroCombined": "A9, and its URDFs are among the reference's assets, which the repository "
                       "does not hold",
-    "HumanoidAMP": "A8d with A10",
 }
 
 
@@ -69,17 +69,21 @@ def get_task_class(name: str):
     return getattr(importlib.import_module(module), cls)
 
 
-# reference env-block keys -> constructor kwargs (they shape the model or the
-# obs space, so they must reach __init__; the JAX registry's AMP keys come
-# with the slice that ports those tasks)
+# reference env-block keys -> constructor kwargs (they shape the model, the
+# obs space or the motion data, so they must reach __init__)
 _CTOR_KEYS = {
     "observationType": "obs_type",
     "asymmetric_observations": "asymmetric_obs",
     "controlType": "control_type",
+    # AMP (cfg/task/HumanoidAMP.yaml)
+    "stateInit": "state_init",
+    "numAMPObsSteps": "num_amp_obs_steps",
+    "motion_file": "motion_file",
 }
 # reference env-block keys -> Task attribute names that don't follow plain
-# camelCase -> snake_case (only the keys of the registered tasks' YAMLs; the
-# JAX registry's AMP keys come with the slice that ports them).
+# camelCase -> snake_case (only the keys of the registered tasks' YAMLs;
+# HumanoidAMP's hybridInitProb, localRootObs, terminationHeight and
+# enableEarlyTermination need none).
 # BallBalance's actionSpeedScale needs none: it maps to action_speed_scale.
 _ATTR_ALIASES = {
     "episodeLength": "max_episode_length",
