@@ -98,7 +98,26 @@ Phases, one line each (any failure raises and exits non-zero):
     motion library must hold that file's one clip and its frames); every
     metric finite, obs, rewards and states finite of shape (envs[, agents],
     num_obs / num_states), MA_OP3's rewards at least 0 (clipped), AMP's
-    discriminator accuracies in [0, 1]; blocks beside the SM count.
+    discriminator accuracies in [0, 1]; blocks beside the SM count. Then
+    ShadowHand with domain randomisation (``ShadowHand:DR``: ShadowHandPPO,
+    cfg/task/ShadowHand.yaml with task.randomize true and its
+    randomization_params as written, 16384 envs, 3 x 8): the reset state
+    must show the setup DR (``dr_setup_stats``: every body's mass within
+    0.5-1.5x its default and the hand's differing across envs, friction on
+    the 250-bucket grid, per-env gravity).
+ 4b. dr_events: ShadowHand at 16384 envs with the same block in a copy of
+    frequency 10 and episodeLength 16, 40 control steps of random actions
+    (``phase_dr_events``): every env re-randomised, parameters changed only
+    in the envs due, the setup-only leaves untouched, the kernel held
+    against its plain version at every step on the randomised parameters
+    (one substep, the box gate), and the kernel timed on the last step's
+    inputs with the randomised and the default parameters.
+ 4c. sac: SAC (learn/sac.py) on Ant (cfg/task/Ant.yaml, 4096 envs, the
+    units of cfg/train/AntSAC.yaml, 8 iterations) and HumanoidMJCF
+    (cfg/task/Humanoid.yaml, 4096, HumanoidSAC.yaml's units, 7): the first
+    5 iterations collect only; launches iterations x 16, finite losses,
+    alpha moved from 1, env-steps/s over the updating iterations, the
+    replay ring's device bytes.
  5. cli: the training CLI in subprocesses, ``python3 -m
     thormang_isaacgym_tpu_torch.runtime.train task=HumanoidMJCF
     train=HumanoidPPO num_envs=4096 max_iterations=2`` into a temporary
@@ -116,11 +135,12 @@ box modes, its tendon block, timed on ShadowHand, with the block's own
 time and bound beside the instance's, and the flat mode's local-memory and
 split layouts, on HumanoidMJCF; an instance's launches those of every task
 trained through it, ``launches_by_task``: the flat mode Ant's and the
-drones', the local layout HumanoidMJCF's (forced) and HumanoidAMP's (the
+drones' and Ant's with SAC, the split layout HumanoidMJCF's with PPO and
+with SAC, the local layout HumanoidMJCF's (forced) and HumanoidAMP's (the
 gait clip and the walk clip), the heightfield AnymalTerrain's with either policy, the box mode
 AllegroHand's, the Franka family's, Trifinger's and MA_OP3's, the tendon block
-ShadowHand's with either policy) and, last, the {"ok": true, "device": ...}
-line.
+ShadowHand's with either policy, with DR and in the DR events phase) and,
+last, the {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -193,6 +213,22 @@ MA_TASK = "MA_OP3"
 # reference-format clip (learn/poselib.py's path); the CLI, train and play
 AMP_TASK = "HumanoidAMP"
 AMP_WALK = os.path.join(ROOT, "assets", "amp", "motions", "amp_humanoid_walk.npy")
+# the domain-randomisation slice: ShadowHand trained under its YAML's
+# randomization_params (task.randomize: true) at 16384 envs, and the DR
+# events phase: the same task and block in a copy with frequency 10 and
+# episodeLength 16, DR_EVENT_STEPS control steps
+DR_TASK = "ShadowHand"
+DR_LABEL = "ShadowHand:DR"
+DR_EVENTS = "ShadowHand:DR-events"
+DR_EVENT_STEPS = 40
+# the setup-only entries of ShadowHand's block write these leaves (mass,
+# object scale); the events leave them alone
+DR_SETUP_LEAVES = ("body_mass", "body_inertia", "body_com")
+# SAC: (label, task, task YAML, train YAML, iterations); the first 5
+# (SACConfig.num_seed_steps) only collect, so Ant updates in 3 and
+# HumanoidMJCF in 2
+SAC_RUNS = (("Ant:SAC", "Ant", "Ant", "AntSAC", 8),
+            ("HumanoidMJCF:SAC", "HumanoidMJCF", "Humanoid", "HumanoidSAC", 7))
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
 # (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
@@ -1281,14 +1317,17 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
 
 def phase_train(name: str, device, card: str, train_yaml: str | None = None,
                 env_overrides: dict | None = None, iters: int = 3,
-                label: str | None = None) -> dict:
+                label: str | None = None, randomize: bool = False) -> dict:
     """`iters` (at least 2) training iterations of `name` at its YAML's width, with
     cfg/train/<train_yaml>.yaml (default <task>PPO) and `env_overrides` on
     the task YAML's env block, through the learner the CLI dispatches
     (AMPPPO for amp_continuous; MAPPO for a task of more than one agent);
     on flat ground without pairs (not in the local layout) also what the
     ground skip sees on the state the last iteration ends in. AMP's
-    discriminator accuracies must lie in [0, 1]."""
+    discriminator accuracies must lie in [0, 1]. With `randomize`, the
+    YAML's task.randomize is set, so its randomization_params drive domain
+    randomisation, and the setup DR must show in the reset state
+    (``dr_setup_stats``)."""
     import thormang_isaacgym_tpu_torch as tgt
     from thormang_isaacgym_tpu_torch.learn.amp import AMPConfig, AMPPPO
     from thormang_isaacgym_tpu_torch.learn.ma import MAPPO
@@ -1298,6 +1337,8 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
     with open(os.path.join(ROOT, "cfg", "task", f"{cfg_name(name)}.yaml")) as f:
         task_cfg = yaml.safe_load(f)
     task_cfg["env"].update(env_overrides or {})
+    if randomize:
+        task_cfg["task"]["randomize"] = True
     train_yaml = train_yaml or f"{cfg_name(name)}PPO"
     with open(os.path.join(ROOT, "cfg", "train", f"{train_yaml}.yaml")) as f:
         train_cfg = yaml.safe_load(f)
@@ -1311,6 +1352,7 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
     ppo = (AMPPPO if amp else MAPPO if agents > 1 else PPO)(env, cfg, device=device)
     ts = ppo.init(SEED)
     env_state = env.reset(SEED)
+    dr_stats = dr_setup_stats(env, env_state) if randomize else {}
     torch.cuda.synchronize()
     env.physics_step.launches = 0
     times, metrics = [], None
@@ -1345,7 +1387,7 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
     out = dict(launches=launches, expected_launches=expected,
                s_per_iter=times,
                env_steps_per_s=envs * cfg.horizon_length / (sum(steady) / len(steady)),
-               card=card, metrics=metrics)
+               card=card, metrics=metrics, **dr_stats)
     skip = ground_skip_stats(env.task.model, env_state.q) \
         if step.hf is None and step.pair_mode == 0 and step.layout != "local" else {}
     if amp:
@@ -1359,6 +1401,189 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
         substeps=env.task.sim_params.substeps, horizon=cfg.horizon_length,
         minibatch=cfg.minibatch_size, mini_epochs=cfg.mini_epochs,
         mixed_precision=cfg.mixed_precision, **out, **{f"end_state_{k}": v for k, v in skip.items()})
+    return out
+
+
+def dr_setup_stats(env, state) -> dict:
+    """What ShadowHand's setup DR left in the reset state's parameters: each
+    body's mass over its default (the block's last mass entry, the
+    object's, names no prefix of the scene and so applies to every body, as
+    in the JAX package) within [0.5, 1.5] and differing across envs, every
+    friction over its default on the 250-bucket grid of [0.7, 1.3], and the
+    gravity varying across envs. Raises where one does not hold."""
+    base = env.base_params(state.q.device, state.q.shape[0])
+    p = state.params
+    massive = base.body_mass[0] > 0
+    ratio = (p.body_mass / torch.where(base.body_mass > 0, base.body_mass,
+                                       torch.ones_like(base.body_mass)))[:, massive]
+    hand = torch.tensor([not n.startswith("obj/") for n in env.task.model.body_names],
+                        device=massive.device)[massive]
+    spread = ratio[:, hand].std(0)
+    fr = (p.geom_friction / base.geom_friction - 0.7) / (0.6 / 249)
+    grid_err = float((fr - torch.round(fr)).abs().max()) * 0.6 / 249
+    g_std = [float(x) for x in p.gravity.std(0)]
+    out = dict(dr_mass_ratio_min=float(ratio.min()), dr_mass_ratio_max=float(ratio.max()),
+               dr_hand_mass_ratio_std_min=float(spread.min()),
+               dr_friction_grid_max_dist=grid_err,
+               dr_friction_buckets_used=int(torch.unique(torch.round(fr)).numel()),
+               dr_gravity_std=g_std, dr_corr=sorted(state.dr_corr))
+    if not (out["dr_mass_ratio_min"] >= 0.5 - 1e-6 and out["dr_mass_ratio_max"] <= 1.5 + 1e-6
+            and out["dr_hand_mass_ratio_std_min"] > 0.0 and grid_err < 1e-5
+            and min(g_std) > 0.0 and out["dr_corr"] == ["act", "obs"]):
+        raise AssertionError(f"the setup DR did not take effect: {out}")
+    return out
+
+
+def phase_dr_events(device, card: str) -> dict:
+    """ShadowHand at 16384 envs under its YAML's randomization_params, in a
+    copy with frequency 10 and episodeLength 16, for DR_EVENT_STEPS control
+    steps of uniform random actions through step_fn: every env must be
+    re-randomised at least once (last_rand > 0), a step may change an env's
+    parameters only where it was due (its last_rand set to that step), the
+    setup-only leaves never change, and the kernel launches once a control
+    step. At each step the kernel is held against its plain version on that
+    step's first substep (a one-substep build of the instance, as phase 2's
+    hands), on the randomised parameters, the box mode's gate: TOL["boxes"]
+    and an env outside it at a tie (``box_ties``). Then the env's instance
+    is timed on the last step's inputs with the randomised parameters and
+    with the defaults (``ms``, ``default_params_ms``)."""
+    import thormang_isaacgym_tpu_torch as tgt
+    with open(os.path.join(ROOT, "cfg", "task", f"{DR_TASK}.yaml")) as f:
+        cfg = yaml.safe_load(f)          # a copy: the file stays as it is
+    cfg["task"]["randomize"] = True
+    cfg["task"]["randomization_params"]["frequency"] = 10
+    cfg["env"]["episodeLength"] = 16
+    envs = ENVS[DR_TASK]
+    env = tgt.make(DR_TASK, num_envs=envs, seed=SEED, cfg=cfg, device=device)
+    task, model = env.task, env.task.model
+    if (env._dr_freq, task.max_episode_length) != (10, 16):
+        raise AssertionError(f"frequency {env._dr_freq}, episode length {task.max_episode_length}")
+    physics = env.physics_step
+    inputs = {}
+
+    def recording(params, q, qd, ctrl, wrench):
+        inputs["last"] = (params, q, qd, ctrl, wrench)
+        return physics(params, q, qd, ctrl, wrench)
+
+    env.physics_step = recording
+    sp = task.sim_params
+    one = fused.build_fused_step_fn(model, dataclasses.replace(sp, dt=sp.dt / sp.substeps,
+                                                               substeps=1),
+                                    ground=0.0, need_torque=True)
+    state = env.reset(SEED)
+    setup0 = {k: getattr(state.params, k).clone() for k in DR_SETUP_LEAVES}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    physics.launches = 0
+    worst = dict(q=0.0, qd=0.0, net=0.0)
+    outside = at_tie = events = 0
+    t0 = time.perf_counter()
+    for _ in range(DR_EVENT_STEPS):
+        before, last_rand, gs = state.params, state.last_rand, int(state.global_step)
+        actions = torch.rand((envs, env.num_actions), generator=gen, device=device) * 2 - 1
+        state = env.step_fn(state, actions)
+        due = state.last_rand != last_rand
+        events += int(due.sum())
+        for f in dataclasses.fields(before):
+            a, b = getattr(state.params, f.name), getattr(before, f.name)
+            changed = (a != b).reshape(envs, -1).any(1)
+            if bool((changed & ~due).any()):
+                raise AssertionError(f"{f.name} changed in {int((changed & ~due).sum())} envs "
+                                     f"that were not due at step {gs}")
+        for k, v in setup0.items():
+            if not torch.equal(getattr(state.params, k), v):
+                raise AssertionError(f"the setup-only leaf {k} changed at step {gs}")
+        params, q, qd, ctrl, wrench = inputs["last"]
+        k_out = one(params, q, qd, ctrl, wrench)
+        p_out = one.plain(params, q, qd, ctrl, wrench)
+        e = _errors(k_out, p_out, TOL["boxes"])
+        out = ~e["inside"]
+        if bool(out.any()):
+            outside += int(out.sum())
+            at_tie += int(box_ties(model, q[out], qd[out]).sum())
+            e = _errors(k_out, p_out, TOL["boxes"], rows=~out)
+        worst = {k: max(v, e["max_abs_err"][k]) for k, v in worst.items()}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = physics.launches
+    expected = DR_EVENT_STEPS * task.control_freq_inv
+    rerandomised = float((state.last_rand > 0).float().mean())
+    finite = bool(torch.isfinite(state.obs).all()) and bool(torch.isfinite(state.reward).all())
+    # the env's instance timed on the last step's inputs, randomised and default
+    tstep = fused.build_fused_step_fn(model, sp, ground=0.0,
+                                      need_torque=task.net_torque_bodies or False)
+    params, q, qd, ctrl, wrench = inputs["last"]
+    base = env.base_params(device, envs)
+    packed = tstep.pack(params, q, qd, ctrl, wrench)
+    packed_def = tstep.pack(base, q, qd, ctrl, wrench)
+    ms = _time_cuda(lambda: tstep.launch(packed), iters=200, warmup=20)
+    default_ms = _time_cuda(lambda: tstep.launch(packed_def), iters=200, warmup=20)
+    out = dict(launches=launches, expected_launches=expected, steps=DR_EVENT_STEPS,
+               dr_events=events, rerandomised_env_share=rerandomised,
+               compare_max_abs_err=worst, outside_tol_env_steps=outside, of_them_at_a_tie=at_tie,
+               ms=ms, default_params_ms=default_ms, seconds=seconds, card=card,
+               **cull_stats(tstep, q, qd))
+    log("dr_events", task=DR_TASK, envs=envs, frequency=10, episode_length=16,
+        tol={k: {"atol": v[0], "rtol": v[1]} for k, v in TOL["boxes"].items()}, **out)
+    if launches != expected or rerandomised < 1.0 or not finite or outside != at_tie:
+        raise AssertionError(f"DR events: {launches} launches of {expected}, re-randomised "
+                             f"share {rerandomised}, finite {finite}, {outside - at_tie} envs "
+                             f"off a tie")
+    return out
+
+
+def phase_sac(label: str, name: str, task_yaml: str, train_yaml: str, iters: int, device,
+              card: str) -> dict:
+    """SAC (learn/sac.py) on `name` made from cfg/task/<task_yaml>.yaml at its
+    numEnvs, SACConfig with the units of cfg/train/<train_yaml>.yaml (the
+    JAX package reads no other key of it), `iters` train iterations: the
+    first num_seed_steps collect only. Raises unless the kernel launched
+    iters x steps_per_iteration x control_freq_inv times, the losses and
+    alpha are finite, alpha moved from its initial value once updates ran,
+    and obs and rewards are finite. env-steps/s over the updating
+    iterations."""
+    import thormang_isaacgym_tpu_torch as tgt
+    from thormang_isaacgym_tpu_torch.learn.sac import SAC, SACConfig
+    with open(os.path.join(ROOT, "cfg", "task", f"{task_yaml}.yaml")) as f:
+        task_cfg = yaml.safe_load(f)
+    with open(os.path.join(ROOT, "cfg", "train", f"{train_yaml}.yaml")) as f:
+        units = tuple(yaml.safe_load(f)["params"]["network"]["mlp"]["units"])
+    envs = int(task_cfg["env"]["numEnvs"])
+    env = tgt.make(name, num_envs=envs, seed=SEED, cfg=task_cfg, device=device)
+    cfg = SACConfig(units=units)
+    learner = SAC(env, cfg, device=device)
+    ts = learner.init(SEED)
+    env_state = env.reset(SEED)
+    torch.cuda.synchronize()
+    env.physics_step.launches = 0
+    times, history = [], []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        ts, env_state, metrics = learner.train_iteration(ts, env_state)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        history.append(metrics)
+    launches = env.physics_step.launches
+    expected = iters * cfg.steps_per_iteration * env.task.control_freq_inv
+    updating = times[cfg.num_seed_steps:]
+    last = history[-1]
+    out = dict(launches=launches, expected_launches=expected, s_per_iter=times,
+               env_steps_per_s=envs * cfg.steps_per_iteration / (sum(updating) / len(updating)),
+               collect_env_steps_per_s=envs * cfg.steps_per_iteration /
+               (sum(times[1:cfg.num_seed_steps]) / (cfg.num_seed_steps - 1)),
+               buffer_bytes=ts.buffer_bytes, slots=learner.slots, card=card, metrics=last,
+               alpha=[h["alpha"] for h in history])
+    log("sac", task=label, train=train_yaml, envs=envs, units=list(units),
+        steps_per_iteration=cfg.steps_per_iteration, grad_steps=cfg.grad_steps,
+        batch_size=cfg.batch_size, num_seed_steps=cfg.num_seed_steps, layout=env.physics_step.layout,
+        **out)
+    bad = {k: v for k, v in last.items() if not np.isfinite(v)}
+    if launches != expected or bad or last["alpha"] == cfg.init_alpha or \
+            len(updating) < 1 or not bool(torch.isfinite(env_state.obs).all()) or \
+            not bool(torch.isfinite(env_state.reward).all()):
+        raise AssertionError(f"SAC on {name}: {launches} launches of {expected}, non-finite "
+                             f"{bad}, alpha {last['alpha']}")
     return out
 
 
@@ -1467,6 +1692,12 @@ def main() -> None:
     train[MA_TASK] = phase_train(MA_TASK, device, dev_info["kind"],
                                  env_overrides={"numEnvs": ENVS[MA_TASK]})
     train[AMP_TASK] = phase_train(AMP_TASK, device, dev_info["kind"])
+    train[DR_LABEL] = phase_train(DR_TASK, device, dev_info["kind"], label=DR_LABEL,
+                                  randomize=True)
+    train[DR_EVENTS] = phase_dr_events(device, dev_info["kind"])
+    for label, name, task_yaml, train_yaml, iters in SAC_RUNS:
+        train[label] = phase_sac(label, name, task_yaml, train_yaml, iters, device,
+                                 dev_info["kind"])
     # the walk clip through poselib: the library must hold that file's one
     # clip, not the gait clip it falls back to when the file is missing
     from thormang_isaacgym_tpu_torch.learn.poselib import SkeletonMotion
@@ -1480,24 +1711,34 @@ def main() -> None:
         raise AssertionError(f"the walk run's motion library holds {train[walk]['motion_clips']} "
                              f"clips of {train[walk]['motion_frames']} frames, not the file's "
                              f"1 clip of {walk_frames}")
-    # each instance's launches by task: the flat instance's Ant's and the
-    # drones', its local layout's HumanoidMJCF's (forced) and HumanoidAMP's
-    # (with the gait clip and the walk clip), the heightfield's
-    # AnymalTerrain's with either policy, the box instance's AllegroHand's,
-    # the Franka family's, Trifinger's and MA_OP3's, the tendon block's
-    # ShadowHand's with either policy
+    # each instance's launches by task: the flat instance's Ant's, the
+    # drones' and Ant's with SAC, its split layout's HumanoidMJCF's with PPO
+    # and with SAC, its local layout's HumanoidMJCF's (forced) and
+    # HumanoidAMP's (with the gait clip and the walk clip), the
+    # heightfield's AnymalTerrain's with either policy, the box instance's
+    # AllegroHand's, the Franka family's, Trifinger's and MA_OP3's, the
+    # tendon block's ShadowHand's with either policy, with DR and in the DR
+    # events phase
     by_task = dict(
         flat_local=(("HumanoidMJCF:local", "flat_local"), (AMP_TASK, AMP_TASK), (walk, walk)),
-        flat=(("Ant", "flat"), ("Ingenuity", "Ingenuity"), ("Quadcopter", "Quadcopter")),
+        flat=(("Ant", "flat"), ("Ingenuity", "Ingenuity"), ("Quadcopter", "Quadcopter"),
+              ("Ant:SAC", "Ant:SAC")),
+        flat_split=(("HumanoidMJCF", "flat_split"), ("HumanoidMJCF:SAC", "HumanoidMJCF:SAC")),
         heightfield=(("AnymalTerrain", "heightfield"),
                      ("AnymalTerrain:LSTM", "AnymalTerrain:LSTM")),
         boxes=(("AllegroHand", "boxes"), *((n, n) for n in FRANKA_TASKS),
                ("Trifinger", "Trifinger"), (MA_TASK, MA_TASK)),
-        tendons=(("ShadowHand", "tendons"), ("ShadowHand:AsymmLSTM", "ShadowHand:AsymmLSTM")))
-    # phase 3's times of the tasks in each instance's launches
+        tendons=(("ShadowHand", "tendons"), ("ShadowHand:AsymmLSTM", "ShadowHand:AsymmLSTM"),
+                 (DR_LABEL, DR_LABEL), (DR_EVENTS, DR_EVENTS)))
+    # phase 3's times of the tasks in each instance's launches; ShadowHand
+    # with DR the DR events phase's, on its randomised parameters, beside
+    # ShadowHand's bound (the same rows and widths)
     timed = {"Ant": timing["flat"], "AnymalTerrain": timing["heightfield"],
              "AllegroHand": timing["boxes"], "ShadowHand": timing["tendons"],
-             "HumanoidMJCF:local": timing["flat_local"],
+             "HumanoidMJCF:local": timing["flat_local"], "HumanoidMJCF": timing["flat_split"],
+             "Ant:SAC": timing["flat"], "HumanoidMJCF:SAC": timing["flat_split"],
+             **{n: dict(ms=train[DR_EVENTS]["ms"], bound_ms=timing["tendons"]["bound_ms"])
+                for n in (DR_LABEL, DR_EVENTS)},
              **{n: timing[n] for n in FRANKA_TASKS + NEW_TASKS + (MA_TASK, AMP_TASK)}}
     phase_cli("HumanoidMJCF", "HumanoidPPO", 4096)
     phase_cli("Trifinger", "TrifingerPPO", ENVS["Trifinger"])

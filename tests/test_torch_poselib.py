@@ -13,14 +13,13 @@ named).
   retarget config (the reference's schema).
 - ``default_motion_lib`` on the file, on a directory of an .npy and an
   .npz, and on a missing path (the gait clip), against JAX's stacked
-  arrays; an .fbx file raises NotImplementedError naming its ROADMAP item.
+  arrays (an .fbx file goes through learn/fbx.py: tests/test_torch_fbx.py).
 - ``plot_skeleton_motion`` writes a PNG of a SkeletonState.
 """
 import json
 import os
 
 import numpy as np
-import pytest
 import torch
 
 from thormang_isaacgym_tpu.learn import motion_lib as jml
@@ -135,10 +134,6 @@ def test_default_motion_lib_matches_jax(tmp_path):
             np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k)),
                                           err_msg=f"{path}: {k}")
         assert isinstance(got.root_pos, torch.Tensor) and got.root_pos.dtype == torch.float32
-    fbx = tmp_path / "clip.fbx"
-    fbx.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        tml.default_motion_lib(str(fbx))
 
 
 def test_plot_skeleton_motion_writes_a_png(tmp_path):

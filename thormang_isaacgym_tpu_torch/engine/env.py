@@ -6,14 +6,26 @@ Port of ``thormang_isaacgym_tpu/engine/env.py``. One step is a function of an
   step_fn : (EnvState, actions) -> EnvState'
 
 in the reference's order: masked auto-reset of envs done on the previous
-step -> clip(actions) -> pre_physics -> physics x control_freq_inv ->
-non-finite quarantine -> post_physics (obs / reward / done) -> timeout
-bookkeeping -> clip(obs). Nothing in ``step_fn`` waits for the device.
+step -> domain randomisation of the envs that are due -> action noise ->
+clip(actions) -> pre_physics -> physics x control_freq_inv -> non-finite
+quarantine -> post_physics (obs / reward / done) -> timeout bookkeeping ->
+observation noise -> clip(obs). Nothing in ``step_fn`` waits for the
+device.
 
 Randomness is counter-based: every draw is a hash of (seed, salt, env id,
 episode, draw index) (:class:`EnvRandom`), so an env's reset state depends
 only on its id and episode count. The streams are deterministic and
 replayable; they are not bit-equal to the JAX package's threefry streams.
+The salts (``SALT``): the init's reset 0, the stagger 3, the reset 17, the
+domain randomisation at init 23 and at an event 29, the correlated noise
+101 (observations) and 102 (actions), all keyed on the episode; the action
+noise 31, the observation noise 37 and the tasks' noise hooks 41 (actions)
+and 43 (observations), keyed on ``global_step`` so they change every step.
+
+Domain randomisation (``engine/dr.py``, ``task.dr_config``) follows the
+reference: an env that resets ``frequency`` or more steps after its last
+event draws new parameters from the model's defaults and new correlated
+noise; ``setup_only`` entries run only at init.
 """
 from __future__ import annotations
 
@@ -22,10 +34,13 @@ from typing import Any, Optional
 
 import torch
 
+from thormang_isaacgym_tpu_torch.engine import dr
 from thormang_isaacgym_tpu_torch.models.robot import ModelParams, RobotModel
 from thormang_isaacgym_tpu_torch.ops.sim import SimParams, build_step_fn
 
 _M32 = 0xFFFFFFFF
+SALT = dict(init=0, stagger=3, reset=17, dr_setup=23, dr=29, corr_obs=101, corr_act=102,
+            act_noise=31, obs_noise=37, act_hook=41, obs_hook=43)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -70,8 +85,8 @@ class EnvRandom:
 
 
 def tree_map(fn, *trees):
-    """Map over the tensors of tensors, tuples and dataclasses (task states,
-    ModelParams)."""
+    """Map over the tensors of tensors, tuples, dicts and dataclasses (task
+    states, ModelParams)."""
     t0 = trees[0]
     if isinstance(t0, torch.Tensor):
         return fn(*trees)
@@ -81,6 +96,8 @@ def tree_map(fn, *trees):
             for f in dataclasses.fields(t0)})
     if isinstance(t0, tuple):
         return tuple(tree_map(fn, *xs) for xs in zip(*trees))
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     raise TypeError(f"tree_map: unsupported node {type(t0).__name__}")
 
 
@@ -112,6 +129,10 @@ class EnvState:
     last_episode_return: torch.Tensor  # (B,)
     task: Any                  # task-specific state
     metrics: Any               # dict of (B,) per-task metrics
+    last_rand: torch.Tensor    # (B,) int64 global_step of the env's last DR event
+    # the correlated noise's standard samples, (B, dim) under "obs" / "act",
+    # redrawn at an env's DR event; empty without correlated noise
+    dr_corr: dict
 
 
 class Task:
@@ -168,6 +189,14 @@ class Task:
     def compute_states(self, state: EnvState, task_state) -> torch.Tensor:
         return state.q.new_zeros(state.q.shape[0], 0)
 
+    def observation_noise(self, rng: EnvRandom, obs: torch.Tensor, task_state) -> torch.Tensor:
+        """A task's own observation noise, before the clip (identity)."""
+        return obs
+
+    def action_noise(self, rng: EnvRandom, actions: torch.Tensor) -> torch.Tensor:
+        """A task's own action noise, before the clip (identity)."""
+        return actions
+
 
 class VecEnv:
     """Binds a Task to its batched init / step functions.
@@ -183,8 +212,19 @@ class VecEnv:
         self.device = task.device
         self.stagger_episodes = stagger_episodes
         self.model = task.model
-        if task.dr_config:
-            raise NotImplementedError("domain randomization is not ported yet")
+        dr_cfg = task.dr_config or {}
+        self._dr_fn, self._dr_active = dr.make_dr_fn(dr_cfg, task.model)
+        self._dr_freq = int(dr_cfg.get("frequency", 600))
+        self._obs_noise_fn = dr.make_noise_fn(dr_cfg.get("observations"))
+        self._act_noise_fn = dr.make_noise_fn(dr_cfg.get("actions"))
+        self._dr_any = (self._dr_active or self._obs_noise_fn is not None
+                        or self._act_noise_fn is not None)
+        # the correlated noise: (name, noise fn, width) of each channel with
+        # a range_correlated
+        self._corr = [(name, fn, dim) for name, fn, dim in (
+            ("obs", self._obs_noise_fn, task.num_obs), ("act", self._act_noise_fn, task.num_actions))
+            if fn is not None and "range_correlated" in fn.spec]
+        self._base = {}
         tq_bodies = getattr(task, "net_torque_bodies", None)
         if tq_bodies is not None:
             need_torque = tuple(int(b) for b in tq_bodies)
@@ -204,13 +244,19 @@ class VecEnv:
         params0 = task.model.default_params(dev).batch(B)
         task_state = task.default_task_state()
         episode = torch.zeros(B, dtype=torch.int64, device=dev)
-        q, qd, params, task_state = task.reset_fn(EnvRandom(seed, episode, 0),
+        q, qd, params, task_state = task.reset_fn(EnvRandom(seed, episode, SALT["init"]),
                                                   params0, task_state)
         progress0 = torch.zeros(B, dtype=torch.int64, device=dev)
         if self.stagger_episodes:
-            u = EnvRandom(seed, episode, 3).uniform(1)[:, 0]
+            u = EnvRandom(seed, episode, SALT["stagger"]).uniform(1)[:, 0]
             span = max(int(task.max_episode_length) - 1, 1)
             progress0 = torch.clamp((u * span).to(torch.int64), max=span - 1)
+        zero_step = torch.zeros((), dtype=torch.int64, device=dev)
+        if self._dr_active:
+            base = self.base_params(dev, B)
+            rng = EnvRandom(seed, episode, SALT["dr_setup"])
+            params = self._dr_fn.apply(self.dr_draws(rng, base, setup=True), params, base,
+                                       zero_step, setup=True)
         zf = torch.zeros(B, device=dev)
         A = getattr(task, "num_agents", 1)
         state = EnvState(
@@ -221,10 +267,11 @@ class VecEnv:
             done=zf, timeout=zf, progress=progress0,
             net_contact=torch.zeros(B, nb, 3, device=dev),
             net_torque=torch.zeros(B, nb, 3, device=dev),
-            seed=int(seed), episode=episode,
-            global_step=torch.zeros((), dtype=torch.int64, device=dev),
+            seed=int(seed), episode=episode, global_step=zero_step,
             episode_return=zf, last_episode_return=zf,
-            task=task_state, metrics={})
+            task=task_state, metrics={},
+            last_rand=torch.zeros(B, dtype=torch.int64, device=dev),
+            dr_corr=self.corr_draws(seed, episode))
         obs, _, _, task_state, metrics = task.post_physics(state, task_state)
         states = task.compute_states(state, task_state) if task.num_states else state.states
         return dataclasses.replace(state, obs=torch.clamp(obs, -task.clip_obs, task.clip_obs),
@@ -237,7 +284,7 @@ class VecEnv:
         do_reset = state.done > 0
         episode = state.episode + do_reset.to(torch.int64)
         q_r, qd_r, params_r, task_r = task.reset_fn(
-            EnvRandom(state.seed, episode, 17), state.params, state.task)
+            EnvRandom(state.seed, episode, SALT["reset"]), state.params, state.task)
         q = mask_select(do_reset, q_r, state.q)
         qd = mask_select(do_reset, qd_r, state.qd)
         params = mask_select(do_reset, params_r, state.params)
@@ -251,12 +298,35 @@ class VecEnv:
                                state.progress)
         episode_return = torch.where(do_reset, torch.zeros_like(state.episode_return),
                                      state.episode_return)
+
+        # frequency-gated domain randomisation at the reset (vec_task.py:547-566);
+        # `due` and the schedule read global_step before the increment
+        last_rand, dr_corr = state.last_rand, state.dr_corr
+        if self._dr_any:
+            gs = state.global_step
+            due = do_reset & (gs - state.last_rand >= self._dr_freq)
+            if self._dr_active:
+                base = self.base_params(q.device, q.shape[0])
+                rng = EnvRandom(state.seed, episode, SALT["dr"])
+                params_dr = self._dr_fn.apply(self.dr_draws(rng, base, setup=False), params,
+                                              base, gs, setup=False)
+                params = mask_select(due, params_dr, params)
+            if dr_corr:
+                dr_corr = mask_select(due, self.corr_draws(state.seed, episode), dr_corr)
+            last_rand = torch.where(due, gs, state.last_rand)
+
         state = dataclasses.replace(
             state, q=q, qd=qd, params=params, task=task_state, progress=progress,
-            episode=episode, episode_return=episode_return,
-            global_step=state.global_step + 1)
+            episode=episode, episode_return=episode_return, last_rand=last_rand,
+            dr_corr=dr_corr, global_step=state.global_step + 1)
 
-        # ---- 2. clip actions ----
+        # ---- 2. action noise + clip (vec_task.py:324-327) ----
+        gs = state.global_step
+        if type(task).action_noise is not Task.action_noise:
+            actions = task.action_noise(self.step_random(state, "act_hook"), actions)
+        if self._act_noise_fn is not None:
+            std = self.noise_draw("act", self.step_random(state, "act_noise"), actions)
+            actions = self._act_noise_fn.apply(std, actions, dr_corr.get("act"), gs)
         actions = torch.clamp(actions, -task.clip_actions, task.clip_actions)
 
         # ---- 3. pre-physics + physics ----
@@ -284,7 +354,12 @@ class VecEnv:
         timeout = progress >= task.max_episode_length - 1
         done = torch.where(timeout, torch.ones_like(done_task), done_task)
 
-        # ---- 5. clip obs ----
+        # ---- 5. observation noise + clip (vec_task.py:353-357) ----
+        if type(task).observation_noise is not Task.observation_noise:
+            obs = task.observation_noise(self.step_random(state, "obs_hook"), obs, task_state)
+        if self._obs_noise_fn is not None:
+            std = self.noise_draw("obs", self.step_random(state, "obs_noise"), obs)
+            obs = self._obs_noise_fn.apply(std, obs, dr_corr.get("obs"), gs)
         obs = torch.clamp(obs, -task.clip_obs, task.clip_obs)
         states = task.compute_states(dataclasses.replace(state, task=task_state), task_state) \
             if task.num_states else state.states
@@ -295,6 +370,37 @@ class VecEnv:
             timeout=(timeout & (done_task < 0.5)).to(torch.float32),
             episode_return=episode_return, last_episode_return=last_episode_return,
             task=task_state, metrics=metrics)
+
+    def base_params(self, device, B: int) -> ModelParams:
+        """The model's default parameters batched over B, which every DR
+        event scales from (built once per device and width)."""
+        key = (torch.device(device), B)
+        if key not in self._base:
+            self._base[key] = self.task.model.default_params(device).batch(B)
+        return self._base[key]
+
+    # ---- the random draws of domain randomisation (the tests feed the JAX
+    # package's draws through these) ----
+    def dr_draws(self, rng: EnvRandom, base: ModelParams, setup: bool) -> dict:
+        """The standard samples of one DR event, {entry index: (B, ...)}."""
+        return self._dr_fn.draw(rng, base, setup)
+
+    def corr_draws(self, seed: int, episode: torch.Tensor) -> dict:
+        """Fresh correlated-noise standard samples, {"obs" / "act": (B, dim)},
+        keyed on the episode with fixed salts."""
+        return {name: dr.standard_draw(fn.dist, EnvRandom(seed, episode, SALT[f"corr_{name}"]),
+                                       (dim,))
+                for name, fn, dim in self._corr}
+
+    def noise_draw(self, name: str, rng: EnvRandom, x: torch.Tensor) -> torch.Tensor:
+        """The per-step noise's standard samples shaped like `x`."""
+        fn = self._obs_noise_fn if name == "obs" else self._act_noise_fn
+        return fn.draw(rng, x)
+
+    @staticmethod
+    def step_random(state: EnvState, salt: str) -> EnvRandom:
+        """A stream of this step: keyed on global_step (after the increment)."""
+        return EnvRandom(state.seed, state.global_step.expand(state.q.shape[0]), SALT[salt])
 
     def reset(self, seed: int) -> EnvState:
         return self.init_fn(seed)

@@ -18,6 +18,7 @@ dof_vel is the wrapped finite difference of dof_pos.
 """
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -280,11 +281,27 @@ class MotionLib:
 
 
 def _load_any(path: str) -> dict:
-    """One clip from the .npz layout or a reference poselib SkeletonMotion
-    .npy; a binary .fbx raises NotImplementedError (learn/poselib.py)."""
-    if path.endswith((".npy", ".fbx")):
-        from thormang_isaacgym_tpu_torch.learn import poselib
+    """One clip from the .npz layout, a reference poselib SkeletonMotion
+    .npy, or a binary .fbx mocap file (learn/fbx.py). A CMU clip (``cmu`` in
+    its name) retargets through the reference's own config beside it,
+    ``configs/retarget_cmu_to_amp.json``, with ``cmu_tpose.npy`` and
+    ``amp_humanoid_tpose.npy`` from its directory and its first two frames
+    (the exporter's bind pose) trimmed."""
+    from thormang_isaacgym_tpu_torch.learn import poselib
+    if path.endswith(".npy"):
         return poselib.load_motion_file(path)
+    if path.endswith(".fbx"):
+        cfg = None
+        if "cmu" in os.path.basename(path):
+            base = os.path.dirname(os.path.abspath(path))
+            cfg_path = os.path.join(base, "configs", "retarget_cmu_to_amp.json")
+            if os.path.exists(cfg_path):
+                with open(cfg_path) as f:
+                    cfg = json.load(f)
+                cfg = dict(cfg, source_tpose=os.path.join(base, "cmu_tpose.npy"),
+                           target_tpose=os.path.join(base, "amp_humanoid_tpose.npy"),
+                           trim_frame_beg=2, trim_frame_end=-1)
+        return poselib.load_motion_file(path, retarget_cfg=cfg)
     return load_clip(path)
 
 

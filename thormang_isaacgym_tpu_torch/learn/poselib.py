@@ -28,8 +28,7 @@ the target tpose (unmapped target joints inherit their nearest mapped
 ancestor), then ``retarget_motion.py``'s ``project_joints`` and the
 feet-on-ground shift plus ``root_height_offset``.
 
-A binary ``.fbx`` file raises NotImplementedError: its reader
-(``learn/fbx.py``) is ROADMAP A10c.
+A binary ``.fbx`` mocap file goes through ``learn/fbx.py``.
 """
 from __future__ import annotations
 
@@ -342,16 +341,17 @@ def to_amp_clip(motion: SkeletonMotion) -> dict:
 
 
 def load_motion_file(path: str, retarget_cfg: str | dict | None = None):
-    """Load a SkeletonMotion npy -> MotionLib clip.
+    """Load a SkeletonMotion npy or a binary .fbx mocap file -> MotionLib
+    clip.
 
     If the motion's skeleton is not the AMP humanoid, `retarget_cfg` (a
     retarget config json path or dict, reference schema) retargets it
-    first. A binary .fbx mocap file raises NotImplementedError: its reader,
-    learn/fbx.py, is not ported yet (ROADMAP A10c)."""
+    first. A .fbx file goes through learn/fbx.py."""
     if path.endswith(".fbx"):
-        raise NotImplementedError(f"{path}: reading .fbx mocap files (learn/fbx.py) is not "
-                                  "ported yet: ROADMAP A10c")
-    m = SkeletonMotion.from_file(path)
+        from thormang_isaacgym_tpu_torch.learn.fbx import load_fbx_motion
+        m = load_fbx_motion(path)
+    else:
+        m = SkeletonMotion.from_file(path)
     amp_nodes = {"pelvis", "torso", "head", "right_upper_arm",
                  "left_upper_arm", "right_thigh", "left_thigh"}
     if not amp_nodes <= set(m.skeleton.node_names):

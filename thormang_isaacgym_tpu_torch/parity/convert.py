@@ -18,6 +18,11 @@ the JAX package:
   and the replay ring with its count and pointer;
 - :func:`train_state_from_leaves` — the same from the ordered leaves of a
   JAX checkpoint (``jax.tree.leaves(TrainState)``, npz ``arr_0..arr_N``);
+- :func:`sac_train_state` — a JAX ``learn.sac.SACTrainState`` (actor, both
+  critics, the target critic, log_alpha, each Adam's moments and count, the
+  replay ring with its position, ``full`` flag and the iteration count)
+  into the port's; :func:`sac_flat` — the flax actor or critic params as a
+  list in the order of the port module's parameters;
 - :func:`heightfield` — an ``engine.terrain.Heightfield`` (heights, scales,
   origin) -> the port's Heightfield on `device`;
 - :func:`anymal_terrain_task_state` — an ``AnymalTerrainTaskState`` -> the
@@ -243,6 +248,59 @@ def train_state_from_leaves(ppo, leaves):
         jax_ts.amp_rms = SimpleNamespace(mean=next(it), var=next(it), count=next(it))
         jax_ts.replay, jax_ts.replay_count, jax_ts.replay_ptr = next(it), next(it), next(it)
     return train_state(ppo, jax_ts)
+
+
+def _sac_dense(module) -> list:
+    """(flax layer name, nn.Linear) of a port SquashedActor or DoubleQ in
+    the order of its parameters."""
+    if hasattr(module, "q1"):
+        return [*((f"q1_{i}", lin) for i, lin in enumerate(module.q1)), ("q1_out", module.q1_out),
+                *((f"q2_{i}", lin) for i, lin in enumerate(module.q2)), ("q2_out", module.q2_out)]
+    return [*((f"a_{i}", lin) for i, lin in enumerate(module.trunk)),
+            ("mu", module.mu), ("log_std", module.log_std)]
+
+
+def sac_flat(module, tree: dict) -> list:
+    """Flax params of SAC's actor or critic (``{"params": {name: {"kernel"
+    (in, out), "bias"}}}``, numpy) as tensors in the order of `module`'s
+    parameters (weight (out, in), bias)."""
+    dev = next(module.parameters()).device
+    out = []
+    for name, _ in _sac_dense(module):
+        layer = tree["params"][name]
+        out += [torch.as_tensor(np.ascontiguousarray(np.array(layer["kernel"]).T), device=dev),
+                torch.as_tensor(np.array(layer["bias"]), device=dev)]
+    return out
+
+
+def _sac_adam(opt_state, moments):
+    """An optax adam state -> the port's Adam; `moments` maps the moment
+    trees onto lists of tensors."""
+    from thormang_isaacgym_tpu_torch.learn.sac import Adam
+    adam = _find_adam(opt_state)
+    return Adam(moments(adam.mu), moments(adam.nu), int(np.array(adam.count)))
+
+
+def sac_train_state(sac, jax_ts):
+    """A JAX ``SACTrainState`` (numpy leaves) -> the port's SACTrainState for
+    `sac` (a port SAC on the same env and config); the generator is the
+    fresh state's."""
+    ts = sac.init(0)
+    dev = sac.device
+    with torch.no_grad():
+        for module, tree in ((ts.actor, jax_ts.actor_params), (ts.critic, jax_ts.critic_params),
+                             (ts.target_critic, jax_ts.target_critic_params)):
+            for p, x in zip(module.parameters(), sac_flat(module, tree)):
+                p.copy_(x)
+        ts.log_alpha.copy_(_leaf(jax_ts.log_alpha, dev, torch.float32))
+    ts.actor_opt = _sac_adam(jax_ts.actor_opt, lambda t: sac_flat(ts.actor, t))
+    ts.critic_opt = _sac_adam(jax_ts.critic_opt, lambda t: sac_flat(ts.critic, t))
+    ts.alpha_opt = _sac_adam(jax_ts.alpha_opt, lambda t: [_leaf(t, dev, torch.float32)])
+    ts.buffer = {k: _leaf(v, dev, torch.float32) for k, v in jax_ts.buffer.items()}
+    ts.buffer_pos = int(np.array(jax_ts.buffer_pos))
+    ts.buffer_full = bool(np.array(jax_ts.buffer_full))
+    ts.step = int(np.array(jax_ts.step))
+    return ts
 
 
 def heightfield(hf, device="cpu") -> Heightfield:

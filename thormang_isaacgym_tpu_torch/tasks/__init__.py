@@ -180,8 +180,10 @@ def make(task_name: str, num_envs: int | None = None, seed: int = 42,
     `cfg` is a reference-shaped task config dict (cfg/task/<X>.yaml): its
     env block drives task parameters and its sim block dt/substeps/gravity.
     A task's ground (``task.ground_height_fn()``, e.g. AnymalTerrain's
-    heightfield) goes to the env. Domain randomization (task.randomize) is
-    not ported yet and raises. Blocks other than env, sim and task (the
+    heightfield) goes to the env. ``task.randomize`` goes to the task's
+    constructor, and with it a ``task.randomization_params`` block replaces
+    the task's own ``dr_config`` (domain randomisation, engine/dr.py). Blocks
+    other than env, sim and task (the
     Factory YAMLs' ``rl`` and ``ctrl``) are not read, as the JAX package's
     ``make`` does not read them: a Factory task takes its class's
     controller (``tasks/factory.py _CTRL_YAML``)."""
@@ -194,9 +196,8 @@ def make(task_name: str, num_envs: int | None = None, seed: int = 42,
     cfg = cfg or {}
     env_cfg = cfg.get("env", {}) or {}
     task_blk = cfg.get("task", {})
-    if (isinstance(task_blk, dict) and task_blk.get("randomize")) or kwargs.get("randomize"):
-        raise NotImplementedError("domain randomization (randomize: true) is not ported yet")
-    kwargs.pop("randomize", None)
+    if isinstance(task_blk, dict) and "randomize" in task_blk and "randomize" not in kwargs:
+        kwargs["randomize"] = bool(task_blk["randomize"])
     for ykey, ckey in _CTOR_KEYS.items():
         if ykey in env_cfg and ckey not in kwargs:
             kwargs[ckey] = env_cfg[ykey]
@@ -207,6 +208,11 @@ def make(task_name: str, num_envs: int | None = None, seed: int = 42,
     task = cls(seed=seed, device=device, **kwargs)
     if env_cfg:
         apply_cfg_env(task, env_cfg)
+    # the YAML's randomization_params drive domain randomisation, over any
+    # dr_config the task set itself
+    if isinstance(task_blk, dict) and task_blk.get("randomize") \
+            and isinstance(task_blk.get("randomization_params"), dict):
+        task.dr_config = task_blk["randomization_params"]
     apply_cfg_sim(task, cfg.get("sim"))
     ground = task.ground_height_fn() if hasattr(task, "ground_height_fn") else None
     return VecEnv(task, ground_height_fn=ground, stagger_episodes=stagger)

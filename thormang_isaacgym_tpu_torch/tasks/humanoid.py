@@ -16,6 +16,7 @@ and ``cfg/task/Humanoid.yaml``, with the fork's reward).
   termination_height
 - feet force-torque: each foot's net contact wrench in the foot frame
 - reset: dof pos U(-0.1, 0.1) around the initial pose, vel U(-0.05, 0.05)
+- ``randomize``: each body's mass x U(0.9, 1.1) every 600 steps (``MASS_DR``)
 """
 from __future__ import annotations
 
@@ -41,6 +42,16 @@ NV_HUMANOID = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."
 # z -0.0275..0.015)
 _FOOT_BOX = {"type": "box", "size": (0.108, 0.072, 0.021),
              "pos": (0.0, 0.015, -0.006), "quat": (1.0, 0, 0, 0)}
+
+
+# the mass randomisation both humanoids take with ``randomize`` (every
+# 600 steps, each body's mass x U(0.9, 1.1) on the actor ``humanoid``)
+MASS_DR = {
+    "frequency": 600,
+    "actor_params": {"humanoid": {"rigid_body_properties": {
+        "mass": {"range": [0.9, 1.1], "operation": "scaling",
+                 "distribution": "uniform"}}}},
+}
 
 
 def _sphere(r, pos):
@@ -74,7 +85,7 @@ class Humanoid(Task):
     termination_height = 0.8
 
     def __init__(self, num_envs: int = 4096, seed: int = 42, device=None,
-                 asset_path: str | None = None, **_):
+                 asset_path: str | None = None, randomize: bool = False, **_):
         super().__init__(num_envs, seed, device)
         path = asset_path or REF_THORMANG
         if not os.path.exists(path):
@@ -99,6 +110,8 @@ class Humanoid(Task):
         # thormang URDF effort limits are a nominal 1000 Nm; cap at 300 Nm
         self._setup(model, np.full(model.nj, 300.0, np.float32),
                     ("l_leg_an_r_link", "r_leg_an_r_link"))
+        if randomize:
+            self.dr_config = MASS_DR
 
     def _setup(self, model, motor_efforts: np.ndarray, feet: tuple) -> None:
         dev = self.device
@@ -218,7 +231,8 @@ class HumanoidMJCF(Humanoid):
     """The classic Humanoid spec: nv_humanoid MJCF, 21 DOFs, obs 110 / act 21;
     motor efforts from the MJCF actuator gears."""
 
-    def __init__(self, num_envs: int = 4096, seed: int = 42, device=None, **_):
+    def __init__(self, num_envs: int = 4096, seed: int = 42, device=None,
+                 randomize: bool = False, **_):
         Task.__init__(self, num_envs, seed, device)
         model = load_mjcf(NV_HUMANOID)
         d = model._defaults
@@ -229,3 +243,5 @@ class HumanoidMJCF(Humanoid):
         if (self.num_obs, self.num_actions) != (110, 21):
             raise ValueError(f"nv_humanoid compiled to obs {self.num_obs} / act "
                              f"{self.num_actions}, expected 110 / 21")
+        if randomize:
+            self.dr_config = MASS_DR

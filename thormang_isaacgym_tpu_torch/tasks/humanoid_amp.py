@@ -101,7 +101,7 @@ class HumanoidAMP(Task):
 
     def __init__(self, num_envs: int = 4096, seed: int = 42, device=None,
                  state_init: str = "Random", num_amp_obs_steps: int = 2,
-                 motion_file: str | None = None, **_):
+                 motion_file: str | None = None, randomize: bool = False, **_):
         super().__init__(num_envs, seed, device)
         if num_amp_obs_steps < 2:
             raise ValueError(f"numAMPObsSteps must be at least 2, got {num_amp_obs_steps}")

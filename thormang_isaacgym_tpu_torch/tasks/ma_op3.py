@@ -94,8 +94,6 @@ class MA_OP3(Task):
     def __init__(self, num_envs: int = 8, seed: int = 42, device=None,
                  randomize: bool = False, **_):
         super().__init__(num_envs, seed, device)
-        if randomize:
-            raise NotImplementedError("domain randomization (randomize: true) is not ported yet")
         dev = self.device
         op3 = load_op3(self.kp, self.kd)
         table = load_table()

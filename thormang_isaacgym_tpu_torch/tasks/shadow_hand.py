@@ -23,6 +23,8 @@ tendons) holds a free cube palm-up and turns it to a goal orientation.
   0.2 toward the limits
 - random object forces (``forceScale``, probability per env loguniform in
   [0.001, 0.1], decay 0.99 per 0.08 s) through the body-wrench path
+- ``randomize``: the domain randomisation of ``cfg/task/ShadowHand.yaml``'s
+  ``randomization_params`` (engine/dr.py); AllegroHand passes it through
 
 Random draws are the port's per-env murmur3 streams (``EnvRandom``): the
 reset's on the env's episode, the force kicks' (salt 77) and the goal
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -49,6 +52,7 @@ from thormang_isaacgym_tpu_torch.ops.dynamics import tendon_tables
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
 from thormang_isaacgym_tpu_torch.tasks.common import normal
+from thormang_isaacgym_tpu_torch.utils.config import CFG_ROOT, load_yaml
 
 HAND_POS = (0.0, 0.0, 0.5)
 # cube spawn over the palm, clearing the cube's half diagonal in every orientation
@@ -137,8 +141,6 @@ class ShadowHand(Task):
                  goal_curriculum: bool = True, hand_model=None,
                  object_urdf: str | None = None, **_):
         super().__init__(num_envs, seed, device)
-        if randomize:
-            raise NotImplementedError("domain randomization (randomize: true) is not ported yet")
         if obs_type not in NUM_OBS:
             raise ValueError(f"obs_type {obs_type!r}: one of {sorted(NUM_OBS)}")
         dev = self.device
@@ -181,6 +183,12 @@ class ShadowHand(Task):
             friction_vel=0.01, plane_friction=1.0,
             max_depenetration_velocity=1.0)
         self.dt = self.sim_params.dt
+        if randomize:
+            # ShadowHand.yaml's whole randomization_params block: correlated
+            # obs / action noise, gravity, tendon, dof, mass and friction
+            # blocks with 250 buckets, setup-only mass and object scale
+            self.dr_config = load_yaml(os.path.join(CFG_ROOT, "task", "ShadowHand.yaml")) \
+                ["task"]["randomization_params"]
         # device constants built once (a constant made in step_fn is a host copy)
         self._object_start = torch.tensor(self.object_start, device=dev)
         self._goal_pos = torch.tensor(self.goal_pos, device=dev)

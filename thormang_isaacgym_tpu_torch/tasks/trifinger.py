@@ -112,8 +112,6 @@ class Trifinger(Task):
     def __init__(self, num_envs: int = 16384, seed: int = 42, device=None,
                  asymmetric_obs: bool = True, randomize: bool = False, **_):
         super().__init__(num_envs, seed, device)
-        if randomize:
-            raise NotImplementedError("domain randomization (randomize: true) is not ported yet")
         dev = self.device
         robot = load_trifinger()
         cube = load_urdf(make_cube_urdf(CUBE_SIZE))
