@@ -130,12 +130,28 @@ Phases, one line each (any failure raises and exits non-zero):
     thormang_isaacgym_tpu_torch.runtime.train_multi tasks=Ant,HumanoidMJCF
     num_envs=4096 max_iterations=2``: exit 0, every task's metrics finite
     in both rows, each task's env-steps/s.
+ 6. dp: data-parallel training through the CLI, two ranks on the one card
+    over gloo (``multi_host=true coordinator=127.0.0.1:<port>
+    num_processes=2 process_id=r``, Ant with AntPPO, 4096 envs in all, 2
+    iterations): both exit 0 (each rank holds its parameters to rank 0's
+    before every logging epoch's checkpoints), rank 0's metrics finite and
+    counting global env steps, rank 1 writing nothing, each rank 2 x 16
+    launches (``Ant:DP`` in the flat instance's launches_by_task). The two
+    contexts time-slice the card: no scaling figure.
+ 7. export: the export CLI of rank 0's last.ckpt; the .pt2 program on
+    cuda and the port's numpy forward against the parity outputs, atol 1e-5.
+ 8. replay: the CLI's play of that checkpoint with capture_video=true at 64
+    envs, one episode: eval.gif opens with PIL with one frame for every
+    second logged state (``Ant:replay``: a launch per step).
+ 9. viewer: LiveViewer on Ant at 4096 envs in process, 5 control steps
+    (``Ant:viewer``), the stepped state rendered; GET /state equals the
+    replay geometry of q row 0; a POST of escape, then ViewerClosed.
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
 box modes, its tendon block, timed on ShadowHand, with the block's own
 time and bound beside the instance's, and the flat mode's local-memory and
 split layouts, on HumanoidMJCF; an instance's launches those of every task
 trained through it, ``launches_by_task``: the flat mode Ant's and the
-drones' and Ant's with SAC, the split layout HumanoidMJCF's with PPO and
+drones' and Ant's with SAC, data parallel, in the replay and the viewer, the split layout HumanoidMJCF's with PPO and
 with SAC, the local layout HumanoidMJCF's (forced) and HumanoidAMP's (the
 gait clip and the walk clip), the heightfield AnymalTerrain's with either policy, the box mode
 AllegroHand's, the Franka family's, Trifinger's and MA_OP3's, the tendon block
@@ -229,6 +245,13 @@ DR_SETUP_LEAVES = ("body_mass", "body_inertia", "body_com")
 # HumanoidMJCF in 2
 SAC_RUNS = (("Ant:SAC", "Ant", "Ant", "AntSAC", 8),
             ("HumanoidMJCF:SAC", "HumanoidMJCF", "Humanoid", "HumanoidSAC", 7))
+# the last slice: data-parallel training (two ranks of the CLI on the one
+# card, Ant at 4096 envs in all), the export and the video-capturing play of
+# rank 0's checkpoint, and the live viewer on Ant at 4096 envs
+DP_ENVS = 4096
+DP_ITERS = 2
+REPLAY_ENVS = 64
+VIEWER_STEPS = 5
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
 # (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
@@ -1664,6 +1687,165 @@ def phase_cli_multi(tasks: tuple, envs: int) -> dict:
     return out
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dp(root: str) -> dict:
+    """Data-parallel training through the CLI as a user launches it: two
+    processes (``multi_host=true coordinator=127.0.0.1:<port>
+    num_processes=2 process_id=r``) of ``task=Ant train=AntPPO
+    num_envs=4096 max_iterations=2`` on the one card, over gloo (NCCL
+    refuses two ranks on one GPU), rank r writing under `root`/r<r>. Both
+    must exit 0 (each checks the replicas' parameters against rank 0's at
+    every logging epoch and raises if they differ), rank 0's metrics.jsonl
+    must be finite and count the run's global env steps, rank 1 must write
+    nothing, and each rank must report DP_ITERS x 16 launches of its own
+    2048 envs. The two ranks' contexts time-slice the card: the rate proves
+    the collective path and is no scaling figure."""
+    coord = f"127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "thormang_isaacgym_tpu_torch.runtime.train", "task=Ant",
+         "train=AntPPO", f"num_envs={DP_ENVS}", f"max_iterations={DP_ITERS}", "multi_host=true",
+         f"coordinator={coord}", "num_processes=2", f"process_id={r}",
+         f"output_root={os.path.join(root, f'r{r}')}", "experiment=dp"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"data-parallel rank {r} exited {p.returncode}:\n{out[-2000:]}\n"
+                                 f"{err[-4000:]}")
+    launches = [json.loads(out.strip().splitlines()[-1])["kernel_launches"] for out, _ in outs]
+    with open(os.path.join(root, "r0", "dp", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    horizon = 16                                # cfg/train/AntPPO.yaml
+    if [r["env_steps"] for r in rows] != [(e + 1) * horizon * DP_ENVS for e in range(DP_ITERS)] \
+            or not all(np.isfinite(v) for r in rows for v in r.values() if not isinstance(v, str)):
+        raise AssertionError(f"rank 0's metrics.jsonl: {rows}")
+    if os.path.exists(os.path.join(root, "r1")):
+        raise AssertionError("rank 1 wrote a run directory")
+    if launches != [DP_ITERS * horizon] * 2:
+        raise AssertionError(f"the ranks launched the kernel {launches} times, expected "
+                             f"{DP_ITERS * horizon} each")
+    out = dict(launches=sum(launches), launches_by_rank=launches, seconds=seconds,
+               env_steps_per_s_run=rows[-1]["fps"], reward_mean=[r["reward_mean"] for r in rows],
+               kl=[r["kl"] for r in rows],
+               rank_lines=[o.strip().splitlines()[0] for o, _ in outs])
+    log("dp", task="Ant", train="AntPPO", envs=DP_ENVS, ranks=2, backend="gloo",
+        envs_per_rank=DP_ENVS // 2, **out)
+    return out
+
+
+def phase_export(ckpt: str, root: str) -> dict:
+    """The export CLI of `ckpt` (task=Ant train=AntPPO) on the card: the
+    .pt2 program reloaded on cuda must give the parity outputs, and the
+    port's numpy forward (obs_rms applied) agree with them, at atol 1e-5 in
+    float32."""
+    from thormang_isaacgym_tpu_torch.runtime import export
+    out_dir = os.path.join(root, "export")
+    export.main(["task=Ant", "train=AntPPO", f"checkpoint={ckpt}", f"export_dir={out_dir}"])
+    with np.load(os.path.join(out_dir, "Ant_weights.npz")) as z:
+        weights = {k: z[k] for k in z.files}
+    with open(os.path.join(out_dir, "Ant_meta.json")) as f:
+        meta = json.load(f)
+    obs = np.load(os.path.join(out_dir, "Ant_parity_obs.npy"))
+    want = np.load(os.path.join(out_dir, "Ant_parity_out.npy"))
+    program = torch.export.load(os.path.join(out_dir, "Ant_policy.pt2")).module().to("cuda")
+    with torch.no_grad():
+        got = program(torch.as_tensor(obs, device="cuda")).cpu().numpy()
+    err_pt2 = float(np.abs(got - want).max())
+    err_np = float(np.abs(export.numpy_policy_forward(weights, meta, obs) - want).max())
+    out = dict(max_abs_err_pt2=err_pt2, max_abs_err_numpy=err_np, parity_rows=int(obs.shape[0]),
+               obs_rms="obs_rms/mean" in weights, files=sorted(os.listdir(out_dir)))
+    log("export", **out)
+    if not (err_pt2 <= 1e-5 and err_np <= 1e-5):
+        raise AssertionError(f"the export disagrees with its parity outputs: {out}")
+    return out
+
+
+def phase_replay(ckpt: str, root: str) -> dict:
+    """The CLI's play of `ckpt` with capture_video=true at REPLAY_ENVS envs
+    and one episode: videos/eval.gif must open with PIL with one frame for
+    every second logged state (env 0's first 300)."""
+    from PIL import Image
+    res = _run([sys.executable, "-m", "thormang_isaacgym_tpu_torch.runtime.train", "task=Ant",
+                "train=AntPPO", f"num_envs={REPLAY_ENVS}", "test=true", "test_episodes=1",
+                "capture_video=true", f"checkpoint={ckpt}", f"output_root={root}",
+                "experiment=replay"], "replay")
+    played = json.loads(res["stdout_tail"][-1])
+    gif = os.path.join(root, "replay", "videos", "eval.gif")
+    with Image.open(gif) as im:
+        frames, size = im.n_frames, im.size
+    want = (min(played["steps"], 300) + 1) // 2
+    out = dict(res, **played, launches=played["kernel_launches"], gif_frames=frames,
+               gif_size=list(size), expected_frames=want)
+    log("replay", **out)
+    if frames != want or not np.isfinite(played["play_mean_return"]):
+        raise AssertionError(f"eval.gif has {frames} frames, expected {want}: {played}")
+    if played["kernel_launches"] != played["steps"]:
+        raise AssertionError(f"the play launched the kernel {played['kernel_launches']} times in "
+                             f"{played['steps']} steps")
+    return out
+
+
+def phase_viewer(device) -> dict:
+    """The live viewer in process: Ant at its YAML's 4096 envs on the card,
+    VIEWER_STEPS control steps of zero actions, the stepped state rendered;
+    GET /state on localhost must equal the replay geometry of q row 0
+    (runtime/replay.py encode_geoms); a POST of escape, then render raises
+    ViewerClosed."""
+    import urllib.request
+
+    import thormang_isaacgym_tpu_torch as tgt
+    from thormang_isaacgym_tpu_torch.runtime.replay import encode_geoms
+    from thormang_isaacgym_tpu_torch.runtime.viewer import LiveViewer, ViewerClosed
+    with open(os.path.join(ROOT, "cfg", "task", "Ant.yaml")) as f:
+        task_cfg = yaml.safe_load(f)
+    env = tgt.make("Ant", seed=SEED, cfg=task_cfg, device=device)
+    state = env.reset(SEED)
+    env.physics_step.launches = 0
+    for _ in range(VIEWER_STEPS):
+        state = env.step_fn(state, torch.zeros(env.num_envs, env.num_actions, device=device))
+    launches = env.physics_step.launches
+    viewer = LiveViewer(env, announce=False)
+    try:
+        viewer.enable_viewer_sync = False
+        t0 = time.perf_counter()
+        viewer.render(state)
+        render_s = time.perf_counter() - t0
+        served = json.loads(urllib.request.urlopen(viewer.url + "state", timeout=30).read())
+        want = encode_geoms(env.task.model, state.q[0].cpu().numpy())
+        if served["geoms"] != want:
+            raise AssertionError("GET /state differs from the replay geometry of q row 0")
+        req = urllib.request.Request(viewer.url + "key", data=b'{"key": "Escape"}', method="POST")
+        urllib.request.urlopen(req, timeout=30).read()
+        try:
+            viewer.render(state)
+        except ViewerClosed:
+            closed = True
+        else:
+            closed = False
+    finally:
+        viewer.close()
+    if not closed or launches != VIEWER_STEPS:
+        raise AssertionError(f"ESC did not close the viewer ({closed}) or {launches} launches")
+    out = dict(envs=env.num_envs, steps=VIEWER_STEPS, launches=launches, geoms=len(want),
+               render_s=render_s, closed_on_escape=closed)
+    log("viewer", **out)
+    return out
+
+
 def main() -> None:
     dev_info = phase_device()
     device = torch.device("cuda")
@@ -1722,7 +1904,8 @@ def main() -> None:
     by_task = dict(
         flat_local=(("HumanoidMJCF:local", "flat_local"), (AMP_TASK, AMP_TASK), (walk, walk)),
         flat=(("Ant", "flat"), ("Ingenuity", "Ingenuity"), ("Quadcopter", "Quadcopter"),
-              ("Ant:SAC", "Ant:SAC")),
+              ("Ant:SAC", "Ant:SAC"), ("Ant:DP", "Ant:DP"), ("Ant:replay", "Ant:replay"),
+              ("Ant:viewer", "Ant:viewer")),
         flat_split=(("HumanoidMJCF", "flat_split"), ("HumanoidMJCF:SAC", "HumanoidMJCF:SAC")),
         heightfield=(("AnymalTerrain", "heightfield"),
                      ("AnymalTerrain:LSTM", "AnymalTerrain:LSTM")),
@@ -1745,6 +1928,12 @@ def main() -> None:
     phase_cli(MA_TASK, "MA_OP3PPO", None, play=False)       # no play: the JAX package has none
     phase_cli(AMP_TASK, "HumanoidAMPPPO", None)
     phase_cli_multi(("Ant", "HumanoidMJCF"), 4096)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        train["Ant:DP"] = phase_dp(tmp)
+        ckpt = os.path.join(tmp, "r0", "dp", "nn", "last.ckpt")
+        phase_export(ckpt, tmp)
+        train["Ant:replay"] = phase_replay(ckpt, tmp)
+    train["Ant:viewer"] = phase_viewer(device)
     # the split layout's first launch ran first, the local one's adds to it,
     # the box instance's to both
     reserved = dict(flat_split=stack_bytes["flat_split"],

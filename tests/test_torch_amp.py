@@ -360,8 +360,12 @@ def test_make_with_humanoid_amp_yaml_matches_jax(monkeypatch):
     state = env.reset(0)
     state = env.step(state, torch.zeros(2, 28))
     assert tuple(state.task.amp_obs.shape) == (2, 2, 105) and bool(torch.isfinite(state.obs).all())
-    # the registry's unported entries are the Gogoro tasks alone
-    assert sorted(NOT_PORTED) == ["Gogoro", "GogoroCombined", "GogoroPaper"]
+    # every entry of the JAX registry resolves in the port's
+    from thormang_isaacgym_tpu.tasks import TASK_MAP as JTASK_MAP
+    from thormang_isaacgym_tpu_torch.tasks import get_task_class
+    assert NOT_PORTED == {}
+    for name in JTASK_MAP:
+        assert get_task_class(name).__name__ == JTASK_MAP[name][1], name
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tgt.make("HumanoidAMP", num_envs=2, seed=0, cfg=cfg)

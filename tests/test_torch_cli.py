@@ -39,14 +39,15 @@
   checkpoint after 2 iterations, restored, runs one more iteration bit for
   bit as the uninterrupted run (the discriminator, its Adam moments, the
   ring and amp_rms).
-- Guards: no CUDA and no ``device=`` raises (it does not train on the CPU);
-  ``capture_video=true`` and ``headless=false`` raise NotImplementedError
-  naming their ROADMAP items.
+- Guards: no CUDA and no ``device=`` raises (it does not train on the CPU).
+- The play's ``capture_video=true`` writes ``videos/eval.gif`` and
+  ``headless=false`` serves the live viewer, which ESC closes.
 """
 import dataclasses
 import json
 import math
 import os
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -334,12 +335,46 @@ def test_main_without_cuda_or_device_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["task=Cartpole", "capture_video=true"], "ROADMAP A12"),
-    (["task=Cartpole", "headless=false"], "ROADMAP A12"),
+    (["task=Cartpole", "capture_video=true"], "video"),
+    (["task=Cartpole", "headless=false"], "viewer"),
 ])
-def test_unported_paths_raise(argv, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(argv + ["device=cpu", "num_envs=8", f"output_root={tmp_path}"])
+def test_unported_paths_raise(argv, item, tmp_path, monkeypatch):
+    """The play paths that raised before the replay and the viewer were
+    ported: capture_video writes videos/eval.gif of env 0 (a frame for every
+    second logged state); headless=false serves the live viewer, whose
+    /state carries env 0's geoms, and an ESC posted to it ends the play."""
+    from PIL import Image
+    from thormang_isaacgym_tpu_torch.runtime import replay as treplay
+    from thormang_isaacgym_tpu_torch.runtime import viewer as tviewer
+    seen, logged = [], []
+    real_video = treplay.render_video
+
+    def render_video(log, path, every=1, **kw):
+        logged.append(len(log))
+        return real_video(log, path, every=every, **kw)
+
+    monkeypatch.setattr(treplay, "render_video", render_video)
+    real_render = tviewer.LiveViewer.render
+
+    def render(self, state):
+        real_render(self, state)
+        seen.append(json.loads(urllib.request.urlopen(self.url + "state", timeout=10).read()))
+        if len(seen) == 3:
+            req = urllib.request.Request(self.url + "key", data=b'{"key": "Escape"}',
+                                         method="POST")
+            urllib.request.urlopen(req, timeout=10).read()
+
+    monkeypatch.setattr(tviewer.LiveViewer, "render", render)
+    ret = train.main(argv + ["device=cpu", "num_envs=8", "test=true", "test_episodes=1",
+                             f"output_root={tmp_path}"])
+    assert math.isfinite(ret)
+    gif = tmp_path / "Cartpole" / "videos" / "eval.gif"
+    if item == "video":
+        with Image.open(gif) as im:
+            assert logged and im.n_frames == (logged[0] + 1) // 2
+        assert not seen
+    else:
+        assert len(seen) == 3 and all(s["geoms"] for s in seen) and not gif.exists()
 
 
 @pytest.fixture(scope="module")

@@ -6,15 +6,16 @@
   alone from the same per-task seeds (``task_seeds``), bit for bit: the
   weights, the Adam state, the normalizers, the metrics and the env state.
   The seeds differ between the tasks and with the run's seed.
-- ``mesh`` other than None raises, naming ROADMAP A11.
+- ``mesh=True`` without a process group raises (``parallel/mesh.py``); the
+  data-parallel run is tests/test_torch_parallel.py's.
 - ``train_multi.main`` on the CPU (Cartpole and Ant, 8 envs, 2 iterations,
   a row every iteration) writes the JAX CLI's rows: ``epoch``, each task's
   metrics under its name, ``time``, ``env_steps_all_tasks`` (sum over the
   tasks of (epoch + 1) x horizon x num_envs) and ``fps``; each task's
   PPOConfig is the JAX CLI's (its <Task>PPO.yaml, the minibatch capped at
   num_envs x horizon, mixed precision off).
-- A task the port does not have yet (the JAX CLI's default ``Gogoro``)
-  raises, naming its ROADMAP item.
+- The JAX CLI's default ``Gogoro,Humanoid`` raises FileNotFoundError naming
+  the missing URDF (the reference's assets are not in the repository).
 """
 import dataclasses
 import json
@@ -78,7 +79,7 @@ def test_train_iteration_equals_each_task_alone():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(RuntimeError, match="torch.distributed is not initialized"):
         MultiTaskPPO(_envs(), {n: _cfg() for n in TASKS}, mesh=True, device="cpu")
     with pytest.raises(ValueError, match="same"):
         MultiTaskPPO(_envs(), {"Ant": _cfg()}, device="cpu")
@@ -120,8 +121,8 @@ def test_train_multi_writes_the_jax_rows(tmp_path, monkeypatch):
 
 
 def test_unported_task_raises(tmp_path):
-    with pytest.raises(KeyError, match="not yet ported: ROADMAP A9"):
+    with pytest.raises(FileNotFoundError, match="scooter_V13.urdf"):
         train_multi.main(["tasks=Gogoro", "num_envs=8", "device=cpu", f"output_root={tmp_path}"])
-    with pytest.raises(KeyError, match="'Gogoro' is not yet ported"):            # the default list
+    with pytest.raises(FileNotFoundError, match="gogoro asset not found"):       # the default list
         train_multi.main(["num_envs=8", "device=cpu", f"output_root={tmp_path}"])
     assert not any(tmp_path.iterdir())

@@ -65,11 +65,14 @@ def _fmix(h: torch.Tensor) -> torch.Tensor:
 class EnvRandom:
     """Per-env uniform draws keyed on (seed, salt, env id, episode).
 
-    ``uniform(n)`` returns (B, n) floats in [low, high); successive calls
-    continue the same streams."""
+    The env ids are ``id0 + arange(B)``: a data-parallel rank that owns the
+    global envs [id0, id0 + B) draws what one process of all the envs draws
+    for those rows. ``uniform(n)`` returns (B, n) floats in [low, high);
+    successive calls continue the same streams."""
 
-    def __init__(self, seed: int, episode: torch.Tensor, salt: int):
-        ids = torch.arange(episode.shape[0], device=episode.device, dtype=torch.int64)
+    def __init__(self, seed: int, episode: torch.Tensor, salt: int, id0: int = 0):
+        ids = torch.arange(int(id0), int(id0) + episode.shape[0], device=episode.device,
+                           dtype=torch.int64)
         h = _fmix(torch.full_like(ids, int(seed) & _M32))
         h = _fmix(h ^ (int(salt) & _M32))
         h = _fmix(h ^ ids)
@@ -82,6 +85,13 @@ class EnvRandom:
         h = _fmix(self._key[:, None] ^ draw[None, :])
         u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
         return low + (high - low) * u
+
+    @staticmethod
+    def of_step(state: "EnvState", salt: int) -> "EnvRandom":
+        """A stream of this step for every env of `state`, keyed on its
+        global_step (a task's per-step draws)."""
+        B = state.q.shape[0]
+        return EnvRandom(state.seed, state.global_step.expand(B), salt, state.env_id0)
 
 
 def tree_map(fn, *trees):
@@ -103,8 +113,14 @@ def tree_map(fn, *trees):
 
 def mask_select(mask: torch.Tensor, new, old):
     """Env-axis select: new where mask, else old (any tree of tensors)."""
+    return mask_select_with(mask, new, old, mask.shape[0])
+
+
+def mask_select_with(mask: torch.Tensor, new, old, B: int):
+    """Env-axis select over B envs: new where mask, else old (any tree of
+    tensors whose leaves lead with the env axis)."""
     def sel(n, o):
-        return torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+        return torch.where(mask.reshape((B,) + (1,) * (n.dim() - 1)), n, o)
     return tree_map(sel, new, old)
 
 
@@ -133,6 +149,7 @@ class EnvState:
     # the correlated noise's standard samples, (B, dim) under "obs" / "act",
     # redrawn at an env's DR event; empty without correlated noise
     dr_corr: dict
+    env_id0: int = 0           # global id of env 0 (a data-parallel rank's first)
 
 
 class Task:
@@ -211,6 +228,9 @@ class VecEnv:
         self.task = task
         self.device = task.device
         self.stagger_episodes = stagger_episodes
+        # the global id of this env's row 0; parallel/mesh.py shard_ppo sets
+        # a data-parallel rank's (its random streams are those rows')
+        self.env_id0 = 0
         self.model = task.model
         dr_cfg = task.dr_config or {}
         self._dr_fn, self._dr_active = dr.make_dr_fn(dr_cfg, task.model)
@@ -244,17 +264,18 @@ class VecEnv:
         params0 = task.model.default_params(dev).batch(B)
         task_state = task.default_task_state()
         episode = torch.zeros(B, dtype=torch.int64, device=dev)
-        q, qd, params, task_state = task.reset_fn(EnvRandom(seed, episode, SALT["init"]),
+        id0 = self.env_id0
+        q, qd, params, task_state = task.reset_fn(EnvRandom(seed, episode, SALT["init"], id0),
                                                   params0, task_state)
         progress0 = torch.zeros(B, dtype=torch.int64, device=dev)
         if self.stagger_episodes:
-            u = EnvRandom(seed, episode, SALT["stagger"]).uniform(1)[:, 0]
+            u = EnvRandom(seed, episode, SALT["stagger"], id0).uniform(1)[:, 0]
             span = max(int(task.max_episode_length) - 1, 1)
             progress0 = torch.clamp((u * span).to(torch.int64), max=span - 1)
         zero_step = torch.zeros((), dtype=torch.int64, device=dev)
         if self._dr_active:
             base = self.base_params(dev, B)
-            rng = EnvRandom(seed, episode, SALT["dr_setup"])
+            rng = EnvRandom(seed, episode, SALT["dr_setup"], id0)
             params = self._dr_fn.apply(self.dr_draws(rng, base, setup=True), params, base,
                                        zero_step, setup=True)
         zf = torch.zeros(B, device=dev)
@@ -271,7 +292,7 @@ class VecEnv:
             episode_return=zf, last_episode_return=zf,
             task=task_state, metrics={},
             last_rand=torch.zeros(B, dtype=torch.int64, device=dev),
-            dr_corr=self.corr_draws(seed, episode))
+            dr_corr=self.corr_draws(seed, episode), env_id0=id0)
         obs, _, _, task_state, metrics = task.post_physics(state, task_state)
         states = task.compute_states(state, task_state) if task.num_states else state.states
         return dataclasses.replace(state, obs=torch.clamp(obs, -task.clip_obs, task.clip_obs),
@@ -284,7 +305,8 @@ class VecEnv:
         do_reset = state.done > 0
         episode = state.episode + do_reset.to(torch.int64)
         q_r, qd_r, params_r, task_r = task.reset_fn(
-            EnvRandom(state.seed, episode, SALT["reset"]), state.params, state.task)
+            EnvRandom(state.seed, episode, SALT["reset"], state.env_id0), state.params,
+            state.task)
         q = mask_select(do_reset, q_r, state.q)
         qd = mask_select(do_reset, qd_r, state.qd)
         params = mask_select(do_reset, params_r, state.params)
@@ -307,7 +329,7 @@ class VecEnv:
             due = do_reset & (gs - state.last_rand >= self._dr_freq)
             if self._dr_active:
                 base = self.base_params(q.device, q.shape[0])
-                rng = EnvRandom(state.seed, episode, SALT["dr"])
+                rng = EnvRandom(state.seed, episode, SALT["dr"], state.env_id0)
                 params_dr = self._dr_fn.apply(self.dr_draws(rng, base, setup=False), params,
                                               base, gs, setup=False)
                 params = mask_select(due, params_dr, params)
@@ -388,8 +410,8 @@ class VecEnv:
     def corr_draws(self, seed: int, episode: torch.Tensor) -> dict:
         """Fresh correlated-noise standard samples, {"obs" / "act": (B, dim)},
         keyed on the episode with fixed salts."""
-        return {name: dr.standard_draw(fn.dist, EnvRandom(seed, episode, SALT[f"corr_{name}"]),
-                                       (dim,))
+        return {name: dr.standard_draw(fn.dist, EnvRandom(seed, episode, SALT[f"corr_{name}"],
+                                                          self.env_id0), (dim,))
                 for name, fn, dim in self._corr}
 
     def noise_draw(self, name: str, rng: EnvRandom, x: torch.Tensor) -> torch.Tensor:
@@ -400,7 +422,7 @@ class VecEnv:
     @staticmethod
     def step_random(state: EnvState, salt: str) -> EnvRandom:
         """A stream of this step: keyed on global_step (after the increment)."""
-        return EnvRandom(state.seed, state.global_step.expand(state.q.shape[0]), SALT[salt])
+        return EnvRandom.of_step(state, SALT[salt])
 
     def reset(self, seed: int) -> EnvState:
         return self.init_fn(seed)

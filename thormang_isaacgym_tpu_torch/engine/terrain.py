@@ -4,8 +4,9 @@ height lookup on tensors.
 Port of ``thormang_isaacgym_tpu/engine/terrain.py``. The sub-terrain
 generators that :class:`TerrainGrid` uses and the grid itself are the JAX
 package's numpy code, with the same ``RandomState`` call order, so a seed
-gives bit-equal heights. (The Gogoro terrains, Perlin and stepping stones,
-come with the slice that ports Gogoro.)
+gives bit-equal heights; so are the generators no grid uses (the linear
+slope, stepping stones and the Perlin octaves of the reference's Gogoro
+variants).
 
 :class:`Heightfield` keeps the numpy ``heights`` and a float32 ``table``
 (heights x vertical scale) on a device. ``height_fn`` and
@@ -93,6 +94,12 @@ def random_uniform_terrain(shape, min_h, max_h, step, rng):
     return rng.choice(levels, size=shape).astype(np.float32)
 
 
+def sloped_terrain(shape, slope):
+    """Linear slope along x; slope in height units per cell."""
+    i = np.arange(shape[0])[:, None]
+    return np.broadcast_to(i * slope, shape).astype(np.float32)
+
+
 def pyramid_sloped_terrain(shape, slope):
     """Pyramid: peak (or pit, slope < 0) at the centre."""
     H, W = shape
@@ -120,6 +127,51 @@ def discrete_obstacles_terrain(shape, max_height, min_size, max_size, num_rects,
         j = rng.randint(0, max(1, shape[1] - h))
         hf[i:i + w, j:j + h] = rng.uniform(-max_height, max_height)
     return hf
+
+
+def stepping_stones_terrain(shape, stone_size, stone_distance, max_height, depth, rng):
+    hf = np.full(shape, depth, np.float32)
+    pitch = stone_size + stone_distance
+    for i0 in range(0, shape[0], pitch):
+        for j0 in range(0, shape[1], pitch):
+            hf[i0:i0 + stone_size, j0:j0 + stone_size] = rng.uniform(0, max_height)
+    return hf
+
+
+def perlin_terrain(shape, res=(2, 8), octaves=2, persistence=0.5, rng=None):
+    """Perlin octaves (the reference's rand_perlin_2d, gogoro_new.py:764-790)."""
+    rng = rng or np.random.RandomState(0)
+    out = np.zeros(shape, np.float32)
+    frequency, amplitude = 2, 1.0
+    for _ in range(octaves):
+        out += amplitude * _perlin(shape, (frequency * res[0], frequency * res[1]), rng)
+        frequency *= 2
+        amplitude *= persistence
+    return out
+
+
+def _perlin(shape, res, rng):
+    d0, d1 = shape[0] // res[0], shape[1] // res[1]
+    angles = 2 * np.pi * rng.rand(res[0] + 1, res[1] + 1)
+    grads = np.stack([np.cos(angles), np.sin(angles)], -1)
+    gy, gx = np.meshgrid(np.arange(shape[1]) / d1 % 1, np.arange(shape[0]) / d0 % 1)
+    grid = np.stack([gx, gy], -1)
+
+    def g(di, dj):
+        gg = grads[di:di + res[0], dj:dj + res[1]]
+        return np.repeat(np.repeat(gg, d0, 0), d1, 1)[:shape[0], :shape[1]]
+
+    def dot(grad, sx, sy):
+        return (np.stack([gx + sx, gy + sy], -1) * grad).sum(-1)
+
+    n00 = dot(g(0, 0), 0, 0)
+    n10 = dot(g(1, 0), -1, 0)
+    n01 = dot(g(0, 1), 0, -1)
+    n11 = dot(g(1, 1), -1, -1)
+    t = 6 * grid**5 - 15 * grid**4 + 10 * grid**3
+    nx0 = n00 * (1 - t[..., 0]) + n10 * t[..., 0]
+    nx1 = n01 * (1 - t[..., 0]) + n11 * t[..., 0]
+    return np.sqrt(2) * (nx0 * (1 - t[..., 1]) + nx1 * t[..., 1]).astype(np.float32)
 
 
 class TerrainGrid:

@@ -223,7 +223,8 @@ class AMPPPO(PPO):
                 mb_batch.update(amp_cur=amp_flat[idx[:amp_mb]], amp_replay=rep_rows[ep, i],
                                 amp_demo=demo_rows[i])
                 loss, aux = self._loss(ts, mb_batch)
-                self._apply_grads(ts, self.grads(loss, params))
+                grads, aux = self.reduce(self.grads(loss, params), aux)
+                self._apply_grads(ts, grads)
                 ts.lr = self._adaptive_lr(ts.lr, aux["kl"].detach())
                 for k in keys:
                     auxs[k].append(aux[k].detach())

@@ -10,8 +10,10 @@ The JAX package traces every task's iteration into one compiled XLA program
 and can shard each task's env axis over a device mesh. The port has no
 program to compile: it loops over the tasks in Python, each iteration's
 kernels queued on the device in turn, and claims no speed from running them
-together. A mesh (``parallel/mesh.py``) is not ported: ``mesh`` other than
-None raises (ROADMAP A11).
+together. ``mesh`` (a process group, or True for every rank) makes each
+task's learner data parallel over it (``parallel/mesh.py shard_ppo``): each
+rank steps its own share of every task's envs and the gradients are averaged
+task by task.
 """
 from __future__ import annotations
 
@@ -35,11 +37,14 @@ class MultiTaskPPO:
     def __init__(self, envs: dict, cfgs: dict, mesh=None, device=None):
         if set(envs) != set(cfgs) or not envs:
             raise ValueError("envs and cfgs must name the same, non-empty set of tasks")
-        if mesh is not None:
-            raise NotImplementedError("multi-task training over a device mesh (parallel/mesh.py) "
-                                      "is not ported yet: ROADMAP A11")
         self.names = sorted(envs)
         self.algos = {n: PPO(envs[n], cfgs[n], device=device) for n in self.names}
+        self._init = {n: None for n in self.names}
+        if mesh is not None:
+            from thormang_isaacgym_tpu_torch.parallel.mesh import make_mesh, shard_ppo
+            group = make_mesh() if mesh is True else mesh
+            for n in self.names:
+                self._init[n] = shard_ppo(self.algos[n], group)[1]
 
     def init(self, seed: int):
         """({name: TrainState}, {name: EnvState}), each task from its own
@@ -47,8 +52,11 @@ class MultiTaskPPO:
         tss, ess = {}, {}
         for i, name in enumerate(self.names):
             init_seed, env_seed = task_seeds(seed, i)
-            tss[name] = self.algos[name].init(init_seed)
-            ess[name] = self.algos[name].env.reset(env_seed)
+            if self._init[name] is not None:
+                tss[name], ess[name] = self._init[name](init_seed, env_seed)
+            else:
+                tss[name] = self.algos[name].init(init_seed)
+                ess[name] = self.algos[name].env.reset(env_seed)
         return tss, ess
 
     def train_iteration(self, tss: dict, env_states: dict):

@@ -340,6 +340,13 @@ def to_amp_clip(motion: SkeletonMotion) -> dict:
                              motion.fps)
 
 
+def amp_tpose_path() -> str:
+    """Where the reference's AMP humanoid T-pose (a SkeletonState .npy,
+    which the repository does not hold yet) belongs: ``assets/amp/``."""
+    return os.path.normpath(os.path.join(os.path.dirname(__file__), "..", "..", "assets", "amp",
+                                         "amp_humanoid_tpose.npy"))
+
+
 def load_motion_file(path: str, retarget_cfg: str | dict | None = None):
     """Load a SkeletonMotion npy or a binary .fbx mocap file -> MotionLib
     clip.

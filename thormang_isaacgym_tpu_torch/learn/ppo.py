@@ -24,6 +24,13 @@ central critic. Port of ``thormang_isaacgym_tpu/learn/ppo.py``:
 
 Randomness (init, action noise, minibatch permutations) comes from explicit
 ``torch.Generator``s seeded from the config.
+
+Data parallel (``parallel/mesh.py shard_ppo``): each rank rolls out its own
+envs and trains on its own transitions (``minibatch_size`` counts them);
+after each minibatch's backward pass ``reduce`` averages the gradients and
+the losses and KL over the ranks, so every rank applies the same update and
+adapts the same learning rate. The normalisers and the advantage
+normalisation stay rank-local, as under JAX's ``shard_map``.
 """
 from __future__ import annotations
 
@@ -183,6 +190,9 @@ class PPO:
             raise ValueError(f"horizon_length {config.horizon_length} is not a multiple of "
                              f"seq_len {config.seq_len}")
         self.use_bf16 = bool(config.mixed_precision) and self.device.type == "cuda"
+        # the data-parallel process group (parallel/mesh.py shard_ppo); None
+        # trains alone
+        self.group = None
 
     # ------------------------------------------------------------------
     def init(self, seed: int | None = None) -> TrainState:
@@ -427,6 +437,17 @@ class PPO:
         lr = torch.where(kl < 0.5 * cfg.kl_threshold, lr * 1.5, lr)
         return torch.clamp(lr, 1e-6, 1e-2)
 
+    def reduce(self, grads: list, aux: dict):
+        """(grads, aux) averaged over the data-parallel ranks in one
+        collective: the gradients and every aux entry (losses, KL), as JAX's
+        ``pmean`` over the env axis; unchanged without a group."""
+        if self.group is None:
+            return grads, aux
+        from thormang_isaacgym_tpu_torch.parallel.mesh import all_reduce_mean
+        keys = sorted(aux)
+        out = all_reduce_mean(list(grads) + [aux[k].detach() for k in keys], self.group)
+        return out[:len(grads)], dict(zip(keys, out[len(grads):]))
+
     @staticmethod
     def grads(loss, params) -> list:
         """d loss / d params, zero for a parameter the loss does not reach
@@ -504,7 +525,8 @@ class PPO:
             for i in range(nmb):
                 idx = perm[i * mb:(i + 1) * mb]
                 loss, aux = loss_fn(ts, {k: v[idx] for k, v in batch.items()})
-                self._apply_grads(ts, self.grads(loss, params))
+                grads, aux = self.reduce(self.grads(loss, params), aux)
+                self._apply_grads(ts, grads)
                 for k in auxs:
                     auxs[k].append(aux[k].detach())
                 kls.append(aux["kl"].detach())

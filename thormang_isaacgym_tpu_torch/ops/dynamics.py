@@ -1,7 +1,9 @@
 """Articulated-body forward dynamics (Featherstone ABA), batched over envs.
 
-Port of ``thormang_isaacgym_tpu/ops/dynamics.py`` (``aba``, ``passive_forces``,
-``drive_forces``) on (B, ...) tensors, one tree depth level per op:
+Port of ``thormang_isaacgym_tpu/ops/dynamics.py`` (``aba``,
+``joint_reflected_inertia``, ``articulated_joint_inertia``,
+``passive_forces``, ``drive_forces``) on (B, ...) tensors, one tree depth
+level per op:
 
 - gravity enters as an explicit per-body force, so a floating base is a
   plain 6x6 solve: a_root = -IA^{-1} pA;
@@ -138,6 +140,47 @@ def aba(model: RobotModel, params: ModelParams, q: torch.Tensor,
     a_pack = torch.cat([a_ang, a_lin_w], dim=-1)
     rows = [a_pack[:, r] for r in range(nr) if model.roots_floating[r]]
     return torch.cat(rows + [qdd_j], dim=-1)
+
+
+def joint_reflected_inertia(model: RobotModel, params: ModelParams) -> torch.Tensor:
+    """(B, nj) lower bound of each joint's reflected inertia: S^T I_child S +
+    armature (the child body's spatial inertia about its own origin along
+    the joint axis)."""
+    S = consts(model, params.body_mass.device)["S"]                  # (nj, 6)
+    nr = model.n_roots
+    Ic = sp.inertia_matrix(params.body_mass[:, nr:], params.body_com[:, nr:],
+                           params.body_inertia[:, nr:])                # (B, nj, 6, 6)
+    return torch.sum(S * (Ic @ S[:, :, None])[..., 0], dim=-1) + params.dof_armature
+
+
+def articulated_joint_inertia(model: RobotModel, params: ModelParams,
+                              joint_q: torch.Tensor, precomputed=None) -> torch.Tensor:
+    """(B, nj) each joint's apparent inertia at `joint_q` (B, nj): D_i =
+    S_i^T IA_i S_i + armature from the articulated-body recursion (the ABA's
+    pass 2 without the bias terms); a locked downstream joint passes its
+    whole subtree's inertia on. `precomputed` = (pos_local, quat_local)."""
+    c = consts(model, joint_q.device)
+    S_all, nr = c["S"], model.n_roots
+    pos_local, quat_local = precomputed if precomputed is not None else \
+        joint_local_pose(model, joint_q)
+    R_loc = Q.to_matrix(quat_local)
+    IA_full = sp.inertia_matrix(params.body_mass, params.body_com, params.body_inertia)
+    levels = c["levels"]
+    IA_c = [IA_full[:, 0:nr]] + [IA_full[:, lv["start"]:lv["end"]] for lv in levels]
+    D_c = [None] * len(levels)
+    for k in range(len(levels) - 1, -1, -1):
+        lv = levels[k]
+        j = slice(lv["start"] - nr, lv["end"] - nr)
+        Sj = S_all[j]
+        IA_L = IA_c[k + 1]
+        Ui = (IA_L @ Sj[:, :, None])[..., 0]
+        Di = torch.sum(Sj * Ui, dim=-1) + params.dof_armature[:, j]
+        D_c[k] = Di
+        D_proj = Di + params.dof_locked[:, j] * _LOCK_BIG
+        Ia = IA_L - Ui[..., :, None] * (Ui[..., None, :] / D_proj[..., None, None])
+        IA_t = sp.transform_inertia_to_parent(R_loc[:, j], pos_local[:, j], Ia)
+        IA_c[k] = IA_c[k].index_add(1, lv["parent_local"], IA_t)
+    return torch.cat(D_c, 1) if D_c else joint_q.new_zeros(joint_q.shape[0], 0)
 
 
 def passive_forces(params: ModelParams, joint_q: torch.Tensor,

@@ -331,6 +331,18 @@ def check_caps(model: RobotModel, attractors=()) -> None:
             f"{na} attractors / {MAX_ATTRACTORS})")
 
 
+def fused_eligible(model: RobotModel, ground, attractors) -> bool:
+    """Whether the kernel runs `model` over `ground` (None, a constant height
+    or a Heightfield; a callable is the plain path's alone) within its caps."""
+    if ground is not None and not isinstance(ground, (int, float, Heightfield)):
+        return False
+    try:
+        check_caps(model, attractors)
+    except NotImplementedError:
+        return False
+    return True
+
+
 def kernel_tables(model: RobotModel, sp: SimParams, n_steps: int,
                   ground, tq_bodies: tuple, attractors=()):
     """The kernel's static model data: (int32 table, float32 table).

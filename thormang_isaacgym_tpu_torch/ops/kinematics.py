@@ -144,3 +144,20 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor, qd: torch.Tensor,
         vel_c.append(vl)
     return BodyFrames(pos=torch.cat(pos_c, 1), quat=torch.cat(quat_c, 1),
                       omega=torch.cat(om_c, 1), vel=torch.cat(vel_c, 1))
+
+
+def geom_world_poses(model: RobotModel, frames: BodyFrames):
+    """World pose of every collision geom: (B, ng, 3) pos, (B, ng, 4) quat,
+    and the (B, ng, 3) angular and linear velocity of the geom origin."""
+    dev = frames.pos.device
+    gbody = torch.as_tensor([g.body for g in model.geoms], dtype=torch.long, device=dev)
+    gpos = torch.as_tensor(np.array([g.pos for g in model.geoms], np.float32).reshape(-1, 3),
+                           device=dev)
+    gquat = torch.as_tensor(np.array([g.quat for g in model.geoms], np.float32).reshape(-1, 4),
+                            device=dev)
+    bpos, bquat = frames.pos[:, gbody], frames.quat[:, gbody]
+    pos_w = bpos + Q.rotate(bquat, gpos.expand_as(bpos))
+    quat_w = Q.mul(bquat, gquat.expand_as(bquat))
+    omega_w = frames.omega[:, gbody]
+    vel_w = frames.vel[:, gbody] + torch.linalg.cross(omega_w, pos_w - bpos, dim=-1)
+    return pos_w, quat_w, omega_w, vel_w

@@ -15,7 +15,12 @@ its class's own dt and substeps.
 Arguments (``key=value``): tasks (default ``Gogoro,Humanoid``, the JAX CLI's,
 whose URDFs need the reference's assets), num_envs (1024), max_iterations
 (100), seed (42), experiment (``multi_<tasks>``), output_root (``runs``),
-log_every (10), device (CUDA; raises where there is none).
+log_every (10), device (CUDA; raises where there is none), and the data-
+parallel keys of ``runtime/train.py`` (``multi_host``, ``coordinator``,
+``num_processes``, ``process_id``, or torchrun's environment): then
+``num_envs`` is each task's global count, every task's learner is data
+parallel over the ranks (``MultiTaskPPO(mesh=True)``, as the JAX CLI passes
+``mesh=True`` over more than one device), and rank 0 alone writes.
 
 Writes ``<output_root>/<experiment>/metrics.jsonl``: one row every
 ``log_every`` epochs and at the last, with each task's metrics under its
@@ -29,9 +34,11 @@ import os
 import sys
 import time
 
-from thormang_isaacgym_tpu_torch.engine.env import resolve_device
+import yaml
+
 from thormang_isaacgym_tpu_torch.learn.multitask import MultiTaskPPO
 from thormang_isaacgym_tpu_torch.learn.ppo import PPOConfig
+from thormang_isaacgym_tpu_torch.parallel.distributed import host_local_batch, maybe_initialize
 from thormang_isaacgym_tpu_torch.tasks import cfg_name, make
 from thormang_isaacgym_tpu_torch.utils.config import CFG_ROOT, load_yaml
 
@@ -52,7 +59,10 @@ def main(argv=None):
     max_iter = int(args.get("max_iterations", 100))
     seed = int(args.get("seed", 42))
     exp = args.get("experiment", "multi_" + "_".join(task_names))
-    device = resolve_device(args.get("device"))
+    dist_info = maybe_initialize({k: yaml.safe_load(v) for k, v in args.items()})
+    device = dist_info["device"]
+    use_mesh = dist_info["num_processes"] > 1
+    writer = dist_info["process_id"] == 0
 
     envs, cfgs = {}, {}
     for name in task_names:
@@ -62,17 +72,21 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, minibatch_size=min(cfg.minibatch_size, num_envs * cfg.horizon_length),
             mixed_precision=False)
-        envs[name] = make(name, num_envs=num_envs, seed=seed, device=device)
+        envs[name] = make(name, num_envs=host_local_batch(num_envs), seed=seed, device=device)
         cfgs[name] = cfg
-    mt = MultiTaskPPO(envs, cfgs, device=device)
+    mt = MultiTaskPPO(envs, cfgs, mesh=True if use_mesh else None, device=device)
 
     run_dir = os.path.join(args.get("output_root", "runs"), exp)
-    os.makedirs(run_dir, exist_ok=True)
+    if writer:
+        os.makedirs(run_dir, exist_ok=True)
     log_path = os.path.join(run_dir, "metrics.jsonl")
     t0 = time.time()
-    print(f"multi-task: {task_names} x {num_envs} envs on {device}", flush=True)
+    print(f"multi-task: {task_names} x {num_envs} envs on {device}, "
+          f"mesh={'%d ranks' % dist_info['num_processes'] if use_mesh else 'off'}", flush=True)
 
     def cb(epoch, tss, row):
+        if not writer:
+            return
         row = dict(row)
         row["time"] = round(time.time() - t0, 1)
         steps = sum((epoch + 1) * cfgs[n].horizon_length * num_envs for n in task_names)
@@ -87,4 +101,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    sys.exit(rc)

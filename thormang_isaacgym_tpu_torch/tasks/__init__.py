@@ -1,8 +1,10 @@
 """Task registry: ``make`` and ``apply_cfg_env`` over the reference-shaped
 ``cfg/task/*.yaml`` files. Port of ``thormang_isaacgym_tpu/tasks/__init__.py``.
 
-Only the tasks of the slices so far are registered; the other entries of
-the JAX package's registry wait for later slices. Tasks import lazily.
+Every entry of the JAX package's registry is registered. Tasks import
+lazily. The Gogoro tasks need the reference's URDFs, which the repository
+does not hold: they take ``asset_path=`` and raise FileNotFoundError naming
+a missing file.
 """
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ import importlib
 import numpy as np
 
 TASK_MAP = {
+    "Gogoro": ("thormang_isaacgym_tpu_torch.tasks.gogoro", "Gogoro"),
+    "GogoroPaper": ("thormang_isaacgym_tpu_torch.tasks.gogoro_paper", "GogoroPaper"),
+    "GogoroCombined": ("thormang_isaacgym_tpu_torch.tasks.gogoro_combined", "GogoroCombined"),
     "Cartpole": ("thormang_isaacgym_tpu_torch.tasks.cartpole", "Cartpole"),
     "Ant": ("thormang_isaacgym_tpu_torch.tasks.ant", "Ant"),
     "Humanoid": ("thormang_isaacgym_tpu_torch.tasks.humanoid", "Humanoid"),
@@ -49,22 +54,13 @@ def cfg_name(task_name: str) -> str:
     return CFG_NAMES.get(task_name, task_name)
 
 
-# the JAX registry's entries still to port, with their ROADMAP item
-NOT_PORTED = {
-    "Gogoro": "A9, and its URDF is one of the reference's assets, which the repository does not hold",
-    "GogoroPaper": "A9, and its URDF is one of the reference's assets, which the repository does "
-                   "not hold",
-    "GogoroCombined": "A9, and its URDFs are among the reference's assets, which the repository "
-                      "does not hold",
-}
+# the JAX registry's entries still to port: none
+NOT_PORTED: dict = {}
 
 
 def get_task_class(name: str):
-    if name in NOT_PORTED:
-        raise KeyError(f"task {name!r} is not yet ported: ROADMAP {NOT_PORTED[name]}; "
-                       f"ported: {sorted(TASK_MAP)}")
     if name not in TASK_MAP:
-        raise KeyError(f"unknown or not yet ported task {name!r}; ported: {sorted(TASK_MAP)}")
+        raise KeyError(f"unknown task {name!r}; registered: {sorted(TASK_MAP)}")
     module, cls = TASK_MAP[name]
     return getattr(importlib.import_module(module), cls)
 

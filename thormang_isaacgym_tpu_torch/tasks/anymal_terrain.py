@@ -149,11 +149,10 @@ class AnymalTerrain(Anymal):
     def pre_physics(self, state, actions):
         ctrl, wrench, task = super().pre_physics(state, actions)
         t = state.task
-        B = actions.shape[0]
         # the reference sets the root velocity; the same impulse here is a
         # one-control-step base wrench F = m dv / dt
         push_now = (state.progress % self.push_interval) == (self.push_interval - 1)
-        dv = EnvRandom(state.seed, state.global_step.expand(B), 311).uniform(2, -1.0, 1.0)
+        dv = EnvRandom.of_step(state, 311).uniform(2, -1.0, 1.0)
         base_mass = state.params.body_mass[:, 0]
         wrench[:, 0, 3:5] += base_mass[:, None] * dv / self.dt * push_now[:, None]
         task = dataclasses.replace(task, last_actions=t.actions, last_dof_vel=state.qd[:, 6:])

@@ -40,6 +40,7 @@ TRAY_THICK = 0.02
 LEG_R = 0.02
 LEG_OUTER = TRAY_RADIUS - 0.1
 LEG_LEN = LEG_OUTER - 2 * LEG_R
+LEG_INNER = LEG_OUTER - LEG_LEN / math.sqrt(2)
 TRAY_H = LEG_LEN * math.sqrt(2) + 2 * LEG_R + 0.5 * TRAY_THICK
 BALL_R = 0.1
 _LEG_ANGLES = (0.0, 2 * math.pi / 3, 4 * math.pi / 3)

@@ -134,13 +134,12 @@ class Ingenuity(Task):
         return Controls(z, z, z), wrench, state.task
 
     def post_physics(self, state, prev_task):
-        B = state.q.shape[0]
         pos, quat = state.q[:, 0:3], state.q[:, 3:7]
         omega_w = Q.rotate(quat, state.qd[:, 0:3])
         linvel = state.qd[:, 3:6]
         # the target resampled every 500 steps
         due = ((state.progress % 500) == 0) & (state.progress > 0)
-        new_t = _sample_target(EnvRandom(state.seed, state.global_step.expand(B), 501).uniform(3))
+        new_t = _sample_target(EnvRandom.of_step(state, 501).uniform(3))
         target = torch.where(due[:, None], new_t, prev_task.target)
         obs = torch.cat([target - pos, quat, linvel / 2.0, omega_w], -1)
         d = torch.linalg.norm(target - pos, dim=-1)

@@ -265,7 +265,7 @@ class ShadowHand(Task):
         wrench = torch.zeros(B, self.model.nb, 6, device=actions.device)
         rb_force = t.rb_force
         if self.force_scale > 0.0:
-            u = EnvRandom(state.seed, state.global_step.expand(B), 77).uniform(5)
+            u = EnvRandom.of_step(state, 77).uniform(5)
             decay = self.force_decay ** (self.dt / self.force_decay_interval)
             kick = u[:, 0] < t.force_prob
             new_f = normal(u[:, 1:5])[:, :3] * (self.object_mass * self.force_scale)
@@ -379,7 +379,7 @@ class ShadowHand(Task):
         done = done.to(reward.dtype)
 
         # on success a new goal, within the cap of the orientation just reached
-        u = EnvRandom(state.seed, state.global_step.expand(B), 303).uniform(7)
+        u = EnvRandom.of_step(state, 303).uniform(7)
         new_goals = _curriculum_goal(u, obj_rot, t.goal_cap, self.curriculum_min_angle)
         goal_rot = torch.where(goal_reached[:, None], new_goals, t.goal_rot)
 
