@@ -146,15 +146,33 @@ Phases, one line each (any failure raises and exits non-zero):
  9. viewer: LiveViewer on Ant at 4096 envs in process, 5 control steps
     (``Ant:viewer``), the stepped state rendered; GET /state equals the
     replay geometry of q row 0; a POST of escape, then ViewerClosed.
+ 10. parity: the Cartpole and Ant rows of scripts/record_parity_torch.py's
+    SPECS (JAX's CPU-lane rows: 64 envs, 60 epochs, no task config, seed 7,
+    staggered episodes) trained on the card through its ``run_row``
+    (``PPO.train``); each must pass JAX's pass rule (last reward_mean at its
+    floor, a strict rise, the drawdown bound) and launch the kernel once a
+    control step, 60 x 16 (``Parity:Cartpole``, ``Parity:Ant``).
+ 11. lift: the training CLI trains FactoryTaskNutBoltPick 2 iterations at
+    128 envs, then scripts/eval_factory_lift_torch.py plays its last.ckpt
+    through the reach (96 steps), align (30), close (60) and lift (120):
+    exactly one launch a control step, 306 (``Lift:FactoryPick``); the
+    success rate is printed, not gated (a 2-iteration policy does not
+    grasp).
+ 12. scaling: scripts/record_scaling_torch.py's card lane (Ant, 4096 envs in
+    all, one rank, then two ranks over gloo on the one card, 3 timed blocks
+    of one iteration after a warm-up): every rank exits 0, the two ranks'
+    parameters equal (``check_replicas``), each rank 4 x 16 launches
+    (``Scaling:Ant``); t1 / t2 and each rank's seconds in PPO.reduce.
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
 box modes, its tendon block, timed on ShadowHand, with the block's own
 time and bound beside the instance's, and the flat mode's local-memory and
 split layouts, on HumanoidMJCF; an instance's launches those of every task
 trained through it, ``launches_by_task``: the flat mode Ant's and the
-drones' and Ant's with SAC, data parallel, in the replay and the viewer, the split layout HumanoidMJCF's with PPO and
+drones' and Ant's with SAC, data parallel, in the replay and the viewer,
+the parity rows' Cartpole and Ant and the scaling lane's Ant, the split layout HumanoidMJCF's with PPO and
 with SAC, the local layout HumanoidMJCF's (forced) and HumanoidAMP's (the
 gait clip and the walk clip), the heightfield AnymalTerrain's with either policy, the box mode
-AllegroHand's, the Franka family's, Trifinger's and MA_OP3's, the tendon block
+AllegroHand's, the Franka family's, Trifinger's, MA_OP3's and the lift's, the tendon block
 ShadowHand's with either policy, with DR and in the DR events phase) and,
 last, the {"ok": true, "device": ...} line.
 """
@@ -182,6 +200,7 @@ from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import Controls, SimParams
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.append(os.path.join(ROOT, "scripts"))   # the twins of phases 10-12
 # the test scenes the CPU tests hold the kernel's source against: the
 # pair-capsule scene and the BallBalance contact states
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -252,6 +271,10 @@ DP_ENVS = 4096
 DP_ITERS = 2
 REPLAY_ENVS = 64
 VIEWER_STEPS = 5
+PARITY_ROWS = ("Cartpole", "Ant")
+LIFT_TASK = "FactoryTaskNutBoltPick"
+LIFT_STEPS = 96 + 30 + 60 + 120             # reach, align, close, lift
+SCALING_ITERS = 1                            # timed iterations a block
 SEED = 0
 # (atol, rtol) of kernel vs plain version: q and qd those of tests/test_fused.py
 # (kernel vs op path); net atol 1e-2 N, set from the worst error measured on
@@ -1846,6 +1869,74 @@ def phase_viewer(device) -> dict:
     return out
 
 
+def phase_parity(device) -> dict:
+    """The PARITY_ROWS of scripts/record_parity_torch.py's SPECS on the card
+    (``run_row``: make with no task config, PPO.train at JAX's width, epochs
+    and seed). Raises unless each row passes JAX's rule and launched the
+    kernel once a control step of its run."""
+    import record_parity_torch as parity
+    out = {}
+    for spec in parity.SPECS:
+        task, train_yaml, envs, epochs = spec[:4]
+        if task not in PARITY_ROWS:
+            continue
+        row = parity.run_row(spec, device)
+        expected = epochs * parity.ppo_config(train_yaml, envs).horizon_length
+        row.update(launches=row["kernel_launches"], expected_launches=expected)
+        log("parity", task=task, **row)
+        if not row["passed"]:
+            raise AssertionError(f"{task} fails JAX's parity rule: last {row['last']}, first "
+                                 f"{row['first']}, peak {row['peak']}, floor {row['floor']}")
+        if row["launches"] != expected:
+            raise AssertionError(f"{task}'s parity run launched the kernel {row['launches']} "
+                                 f"times, expected {expected}")
+        out[f"Parity:{task}"] = row
+    return out
+
+
+def phase_lift(root: str) -> dict:
+    """The CLI trains LIFT_TASK 2 iterations at 128 envs into `root`; then
+    scripts/eval_factory_lift_torch.py plays its last.ckpt through the
+    scripted close and lift. Raises unless the play launched the kernel
+    exactly once a control step (LIFT_STEPS) and its numbers are finite;
+    the success rate is not gated."""
+    train = _run([sys.executable, "-m", "thormang_isaacgym_tpu_torch.runtime.train",
+                  f"task={LIFT_TASK}", f"train={LIFT_TASK}PPO", "num_envs=128", "max_iterations=2",
+                  f"output_root={root}", "experiment=lift"], "lift training")
+    import eval_factory_lift_torch
+    res = eval_factory_lift_torch.main([os.path.join(root, "lift", "nn", "last.ckpt")])
+    out = dict(res, launches=res["kernel_launches"], expected_launches=LIFT_STEPS,
+               train_seconds=train["seconds"])
+    log("lift", task=LIFT_TASK, **out)
+    finite = all(np.isfinite(res[k]) for k in ("reach_keypoint_dist", "success_rate",
+                                                 "nut_height_above_table_mean"))
+    if res["kernel_launches"] != LIFT_STEPS or res["num_envs"] != 128 or not finite:
+        raise AssertionError(f"the lift play: {res}")
+    return out
+
+
+def phase_scaling(root: str) -> dict:
+    """scripts/record_scaling_torch.py's card lane, REPEATS blocks of
+    SCALING_ITERS timed iterations, its record written under `root`. It
+    raises unless every rank exits 0, and a rank exits non-zero unless its
+    parameters equal rank 0's (``check_replicas``); each rank must launch
+    the kernel once a control step of its warm-up and timed iterations."""
+    import record_scaling_torch
+    rec = record_scaling_torch.main(
+        ["--lane", "card", "--iters", str(SCALING_ITERS),
+         "--out", os.path.join(root, "scaling.json")])["lanes"]["card"]
+    per_rank = (1 + SCALING_ITERS * rec["repeats"]) * rec["horizon"]
+    launches = [p["launches_by_rank"] for p in rec["points"]]
+    out = dict(launches=sum(map(sum, launches)), launches_by_point=launches,
+               points=rec["points"], efficiency_min=rec["efficiency_min"], card=rec["card"])
+    log("scaling", task=rec["task"], envs=rec["num_envs_total"], **out)
+    if [p["ranks"] for p in rec["points"]] != [1, 2] or \
+            launches != [[per_rank], [per_rank, per_rank]] or \
+            rec["points"][1]["replicas_equal"] is not True:
+        raise AssertionError(f"the scaling lane: {rec}")
+    return out
+
+
 def main() -> None:
     dev_info = phase_device()
     device = torch.device("cuda")
@@ -1905,12 +1996,14 @@ def main() -> None:
         flat_local=(("HumanoidMJCF:local", "flat_local"), (AMP_TASK, AMP_TASK), (walk, walk)),
         flat=(("Ant", "flat"), ("Ingenuity", "Ingenuity"), ("Quadcopter", "Quadcopter"),
               ("Ant:SAC", "Ant:SAC"), ("Ant:DP", "Ant:DP"), ("Ant:replay", "Ant:replay"),
-              ("Ant:viewer", "Ant:viewer")),
+              ("Ant:viewer", "Ant:viewer"),
+              *((k, k) for k in ("Parity:Cartpole", "Parity:Ant", "Scaling:Ant"))),
         flat_split=(("HumanoidMJCF", "flat_split"), ("HumanoidMJCF:SAC", "HumanoidMJCF:SAC")),
         heightfield=(("AnymalTerrain", "heightfield"),
                      ("AnymalTerrain:LSTM", "AnymalTerrain:LSTM")),
         boxes=(("AllegroHand", "boxes"), *((n, n) for n in FRANKA_TASKS),
-               ("Trifinger", "Trifinger"), (MA_TASK, MA_TASK)),
+               ("Trifinger", "Trifinger"), (MA_TASK, MA_TASK),
+               ("Lift:FactoryPick", "Lift:FactoryPick")),
         tendons=(("ShadowHand", "tendons"), ("ShadowHand:AsymmLSTM", "ShadowHand:AsymmLSTM"),
                  (DR_LABEL, DR_LABEL), (DR_EVENTS, DR_EVENTS)))
     # phase 3's times of the tasks in each instance's launches; ShadowHand
@@ -1934,6 +2027,10 @@ def main() -> None:
         phase_export(ckpt, tmp)
         train["Ant:replay"] = phase_replay(ckpt, tmp)
     train["Ant:viewer"] = phase_viewer(device)
+    train.update(phase_parity(device))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lift_") as tmp:
+        train["Lift:FactoryPick"] = phase_lift(tmp)
+        train["Scaling:Ant"] = phase_scaling(tmp)
     # the split layout's first launch ran first, the local one's adds to it,
     # the box instance's to both
     reserved = dict(flat_split=stack_bytes["flat_split"],

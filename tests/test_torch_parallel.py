@@ -420,3 +420,38 @@ def test_multitask_over_a_process_group(dp_runs):
         np.testing.assert_array_equal(a[f"{n}_kl"], b[f"{n}_kl"])
         assert np.isfinite(a[n]).all() and np.isfinite(a[f"{n}_kl"])
         assert (int(a[f"{n}_id0"]), int(b[f"{n}_id0"])) == (0, 4)
+
+
+def test_jax_shard_ppo_keeps_a_normaliser_per_shard():
+    """The data-parallel normaliser state, read from JAX's own ``shard_ppo``
+    (not the vmap above): two iterations of Cartpole (8 envs, 4 a device)
+    on 2 of the 8 virtual CPU devices. ``out_specs`` declares the train
+    state replicated, but each device keeps the buffer its shard computed:
+    the parameters are equal on both devices (the gradients are
+    ``pmean``ed), the normalisers are not, and each counts only its own
+    shard's T x 4 rows an iteration (1e-4 + 2 x 16; 1e-4 + 2 x 32 had they
+    been one global state). So the port's rank-local normalisers are
+    JAX's."""
+    from jax.sharding import Mesh
+
+    import thormang_isaacgym_tpu as tgx
+    from thormang_isaacgym_tpu.parallel.mesh import ENV_AXIS, shard_ppo
+    cfg = jppo.PPOConfig(units=(16, 16), horizon_length=4, minibatch_size=16, mini_epochs=1,
+                         mixed_precision=False, normalize_input=True, normalize_value=True)
+    ppo = jppo.PPO(tgx.make("Cartpole", num_envs=8, seed=0), cfg, axis_name=ENV_AXIS)
+    train_iter, init = shard_ppo(ppo, Mesh(np.array(jax.devices()[:2]), (ENV_AXIS,)))
+    ts, es = init(jax.random.key(0))
+    for i in range(2):
+        ts, es, _ = train_iter(ts, es, jax.random.key(i + 1))
+
+    def shards(x):
+        return [np.asarray(s.data) for s in sorted(x.addressable_shards, key=lambda s: s.device.id)]
+
+    for name in ("obs_rms", "value_rms"):
+        rms = getattr(ts, name)
+        mean = shards(rms.mean)
+        assert len(mean) == 2 and not np.array_equal(mean[0], mean[1]), name
+        np.testing.assert_allclose(shards(rms.count), [1e-4 + 2 * 16] * 2, rtol=1e-6)
+    for leaf in jax.tree.leaves(ts.params):
+        a, b = shards(leaf)
+        np.testing.assert_array_equal(a, b)

@@ -4,6 +4,14 @@ against its JAX twin, and the audit that none is missing any more.
 - Every ``.py`` of the JAX package has a twin at the same relative path in
   the port, and no public top-level name of a JAX module is missing from
   its twin.
+- Every public method of every public JAX class, inherited ones included,
+  has a counterpart in the port's class of the same name: a method of the
+  same name (the port's may be inherited from its own base class, as
+  ``MAPPO`` and ``AMPPPO`` take ``PPO.rollout`` with their ``_record``
+  hooks where JAX overrides ``rollout``), ``forward`` for ``__call__``
+  (flax's modules against torch's), or an entry of ``RESTRUCTURED``, which
+  names the counterpart and must name a method the port lacks.
+  ``RobotModel.np_topology`` and ``MotionLib.total_length`` against JAX's.
 - ``sloped_terrain``, ``stepping_stones_terrain``, ``perlin_terrain`` and
   ``_perlin``: bit-equal on the same ``np.random`` generator.
 - ``geom_world_poses`` on Ant and ShadowHand states (atol 1e-5; the
@@ -18,6 +26,8 @@ against its JAX twin, and the audit that none is missing any more.
   and a drift raises.
 """
 import ast
+import importlib
+import inspect
 import os
 
 import jax
@@ -78,6 +88,71 @@ def test_every_jax_module_and_public_name_has_a_twin():
             if lack:
                 missing[rel] = sorted(lack)
     assert missing == {}
+
+
+# JAX class.method (path below the package) -> the port's counterpart
+RESTRUCTURED = {
+    "engine.terrain.Heightfield.clustered_fn":
+        "Heightfield.height_and_grad_fn: on a GPU the plain gather is the fast form "
+        "(port engine/terrain.py's docstring)",
+}
+
+
+def _methods(cls, pkg):
+    """The public methods (and ``__call__``) of `cls` defined in `pkg`'s
+    classes along its MRO."""
+    out = set()
+    for k in cls.__mro__:
+        if not k.__module__.startswith(pkg + "."):
+            continue
+        for n, v in vars(k).items():
+            if (not n.startswith("_") or n == "__call__") and \
+                    (inspect.isfunction(v) or isinstance(v, (staticmethod, classmethod))):
+                out.add(n)
+    return out
+
+
+def test_every_public_method_of_every_jax_class_has_a_twin():
+    missing, restructured = {}, set()
+    for d, _, files in os.walk(JROOT):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, f[:-3]), JROOT).replace(os.sep, ".")
+            rel = rel[:-len(".__init__")] if rel.endswith("__init__") else rel
+            jmod = importlib.import_module(f"thormang_isaacgym_tpu.{rel}".rstrip("."))
+            tmod = importlib.import_module(f"thormang_isaacgym_tpu_torch.{rel}".rstrip("."))
+            for name, jcls in vars(jmod).items():
+                if name.startswith("_") or not inspect.isclass(jcls) or \
+                        jcls.__module__ != jmod.__name__:
+                    continue
+                tcls = getattr(tmod, name)
+                mine = _methods(tcls, "thormang_isaacgym_tpu_torch")
+                if hasattr(tcls, "forward"):
+                    mine.add("__call__")
+                for m in sorted(_methods(jcls, "thormang_isaacgym_tpu") - mine):
+                    key = f"{rel}.{name}.{m}"
+                    if key in RESTRUCTURED:
+                        restructured.add(key)
+                    else:
+                        missing.setdefault(f"{rel}.{name}", []).append(m)
+    assert missing == {}
+    assert restructured == set(RESTRUCTURED)
+
+
+def test_np_topology_and_total_length_match_jax():
+    from thormang_isaacgym_tpu.models import franka as jfranka
+    from thormang_isaacgym_tpu_torch.models import franka as tfranka
+    for g, w in zip(tfranka.load_franka().np_topology(), jfranka.load_franka().np_topology()):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    from thormang_isaacgym_tpu.learn import motion_lib as jml
+    from thormang_isaacgym_tpu_torch.learn import motion_lib as tml
+    clips = [jml.make_gait_clip(fps=30, n_cycles=n) for n in (1, 2)]
+    want = jml.MotionLib(clips, weights=[1.0, 3.0]).total_length()
+    got = tml.MotionLib([tml.make_gait_clip(fps=30, n_cycles=n) for n in (1, 2)],
+                        weights=[1.0, 3.0]).total_length()
+    assert isinstance(got, float) and got == pytest.approx(want, rel=1e-6)
 
 
 @pytest.mark.parametrize("case", ["sloped", "stepping_stones", "perlin", "perlin_raw"])

@@ -238,6 +238,10 @@ class MotionLib:
     def num_motions(self):
         return self.root_pos.shape[0]
 
+    def total_length(self):
+        """The clips' summed length, seconds."""
+        return float(torch.sum(self.lengths))
+
     # ---- sampling ----
     def ids_at(self, u: torch.Tensor) -> torch.Tensor:
         """The motion ids of uniform draws `u` in [0, 1) by `weights` (the

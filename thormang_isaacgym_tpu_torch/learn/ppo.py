@@ -543,3 +543,28 @@ class PPO:
             entropy=torch.stack(auxs["entropy"]).mean(),
             lr=ts.lr)
         return ts, env_state, metrics
+
+    # ------------------------------------------------------------------
+    def train(self, num_epochs: int, seed: int | None = None, log_every: int = 10,
+              callback=None):
+        """The host loop: ``init(seed)``, ``env.reset(seed)`` and `num_epochs`
+        train iterations (default seed the config's). Every `log_every`-th
+        epoch and the last log a row: the iteration's metrics as floats, the
+        env-mean of each ``env_state.metrics`` entry as ``env/<name>``, and
+        ``epoch``; ``callback(epoch, ts, row)`` sees each row. Returns
+        (ts, env_state, history). MAPPO and AMPPPO train through it."""
+        seed = self.cfg.seed if seed is None else seed
+        ts = self.init(seed)
+        env_state = self.env.reset(seed)
+        history = []
+        for epoch in range(num_epochs):
+            ts, env_state, metrics = self.train_iteration(ts, env_state)
+            if epoch % log_every == 0 or epoch == num_epochs - 1:
+                row = {k: float(v) for k, v in metrics.items()}
+                for k, v in (env_state.metrics or {}).items():
+                    row[f"env/{k}"] = float(v.float().mean())
+                row["epoch"] = epoch
+                history.append(row)
+                if callback:
+                    callback(epoch, ts, row)
+        return ts, env_state, history

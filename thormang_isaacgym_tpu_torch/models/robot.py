@@ -173,6 +173,17 @@ class RobotModel:
         return ModelParams(**{k: torch.as_tensor(np.asarray(v), device=device)
                               for k, v in self._defaults.items()})
 
+    def np_topology(self):
+        """(parent, joint_type, joint_axis, joint_pos, joint_quat) as numpy
+        arrays (int32, int32, float32 x 3)."""
+        return (
+            np.array(self.parent, dtype=np.int32),
+            np.array(self.joint_type, dtype=np.int32),
+            np.array(self.joint_axis, dtype=np.float32),
+            np.array(self.joint_pos, dtype=np.float32),
+            np.array(self.joint_quat, dtype=np.float32),
+        )
+
 
 def make_defaults(nb: int, nj: int, ng: int, *, body_mass, body_com,
                   body_inertia, dof_lower, dof_upper, dof_velocity_limit,
