@@ -11,20 +11,23 @@ Phases, one line each (any failure raises and exits non-zero):
  2. compare: the fused kernel against its plain PyTorch version on the card,
     at 4096 envs (the hands 16384, FrankaCubeStack 8192, the Factory tasks
     128) from seeded numpy states, 1 and 5
-    control steps: Cartpole and Ant (flat ground), HumanoidMJCF (flat ground
-    in the split layout: over the shared budget; its first launch also
-    measures the stack the CUDA runtime reserves for it, before any local
-    instance has run), HumanoidMJCF again with the local layout forced (the
-    budget rule's SMEM_BUDGET set to 0, the layout of a model over even the
-    split layout's budget; the first local launch, which measures the local
-    layout's stack; its first step's outputs bit for bit the split
-    layout's), HumanoidAMP (29 bodies, 38 candidates: the local layout by the
-    budget rule, its first launch's stack bytes beside the local layout's
-    reservation; the gait clip's states on the ground, ``amp_contact_state``:
-    both box soles down in half the envs, lying on the torso's capsule and
-    the pelvis in an eighth; the shares printed), the two-link tendon scene
-    of tests/test_fused.py (block B4b: its coupled length below, inside and
-    above its bounds), AnymalTerrain
+    control steps: Cartpole and Ant (flat ground), HumanoidAMP (29 bodies,
+    38 candidates: over the split layout's budget too, so the lean split
+    layout by the budget rule; its first launch measures the stack the CUDA
+    runtime reserves for it, before any other split or local instance has
+    run; the gait clip's states on the ground, ``amp_contact_state``: both
+    box soles down in half the envs, lying on the torso's capsule and the
+    pelvis in an eighth; the shares printed), HumanoidMJCF (flat ground in
+    the split layout: over the shared budget; its first launch measures what
+    the split layout's stack adds), HumanoidMJCF again with the local layout
+    forced (the budget rule's SMEM_BUDGET set to 0, the layout of a model
+    over even the lean split layout's budget; the first local launch, which
+    measures what the local layout's stack adds; its first step's outputs
+    bit for bit the split layout's), HumanoidAMP with the local layout
+    forced (its first step bit for bit the lean split layout's, its first
+    launch's stack bytes beside the local layout's reservation), the
+    two-link tendon scene of tests/test_fused.py (block B4b: its coupled
+    length below, inside and above its bounds), AnymalTerrain
     (heightfield mode, bases placed on the terrain grid), BallBalance (pair
     mode: actor pairs and attractors, the ball resting in the tray or pressed
     into a leg), the pair-capsule scene of tests/test_fused.py
@@ -60,7 +63,7 @@ Phases, one line each (any failure raises and exits non-zero):
     below and above their bounds).
  3. time: kernel, plain version and whole wrapper, Ant, AnymalTerrain,
     BallBalance, HumanoidMJCF (split, and local forced) and HumanoidAMP
-    (local) at 4096 envs,
+    (lean split) at 4096 envs,
     AllegroHand and ShadowHand at 16384, FrankaCabinet (4096),
     FrankaCubeStack (8192), FactoryTaskNutBoltPick (128), Trifinger
     (16384), Ingenuity (4096), Quadcopter (8192) and MA_OP3 (4096) (CUDA
@@ -71,10 +74,11 @@ Phases, one line each (any failure raises and exits non-zero):
     share of pair candidates in contact, per env and per warp of 32, the
     hands also of the pairs that pass the box instance's cull
     (``cull_stats``); ShadowHand also the tendon block's own time (the
-    tendon loop cut out) beside its bound; HumanoidMJCF also the stack bytes
-    each layout's first launch reserved (phase 2) and, in the split layout,
-    the share of ground candidates in contact per env and per warp of 32
-    (``ground_skip_stats``: what its warp-level ground skip sees).
+    tendon loop cut out) beside its bound; HumanoidMJCF and HumanoidAMP
+    also the stack bytes each layout's first launch reserved (phase 2) and,
+    in the split layouts, the share of ground candidates in contact per env
+    and per warp of 32 (``ground_skip_stats``: what its warp-level ground
+    skip sees; HumanoidAMP also ``amp_contact_stats``).
  4. train: make(task, cfg=cfg/task/<task>.yaml) at the YAML's numEnvs,
     PPO(PPOConfig.from_rlgames(cfg/train/<task>PPO.yaml)), 3
     train_iterations, for Ant (4096 envs, 3 x 16 kernel launches),
@@ -92,8 +96,8 @@ Phases, one line each (any failure raises and exits non-zero):
     (16384, LSTM 1024 before a 512 MLP, 211 states, 3 x 16), and MA_OP3
     with MAPPO (MA_OP3PPO, 4096 envs, the numEnvs of the reference's other
     tasks: the YAML's 8 cannot fill its minibatch; 3 x 24), and HumanoidAMP
-    with AMPPPO (HumanoidAMPPPO: 1024-512 actor, critic and discriminator,
-    horizon 16, 4096 envs, 3 x 32; then 2 x 32 on
+    with AMPPPO in the lean split layout (HumanoidAMPPPO: 1024-512 actor,
+    critic and discriminator, horizon 16, 4096 envs, 3 x 32; then 2 x 32 on
     assets/amp/motions/amp_humanoid_walk.npy through learn/poselib.py, whose
     motion library must hold that file's one clip and its frames); every
     metric finite, obs, rewards and states finite of shape (envs[, agents],
@@ -165,13 +169,14 @@ Phases, one line each (any failure raises and exits non-zero):
     (``Scaling:Ant``); t1 / t2 and each rank's seconds in PPO.reduce.
 Then a {"kernels": [...]} line (the kernel's flat, heightfield, pair and
 box modes, its tendon block, timed on ShadowHand, with the block's own
-time and bound beside the instance's, and the flat mode's local-memory and
-split layouts, on HumanoidMJCF; an instance's launches those of every task
+time and bound beside the instance's, the flat mode's local-memory and
+split layouts, on HumanoidMJCF, and its lean split layout, on HumanoidAMP;
+an instance's launches those of every task
 trained through it, ``launches_by_task``: the flat mode Ant's and the
 drones' and Ant's with SAC, data parallel, in the replay and the viewer,
 the parity rows' Cartpole and Ant and the scaling lane's Ant, the split layout HumanoidMJCF's with PPO and
-with SAC, the local layout HumanoidMJCF's (forced) and HumanoidAMP's (the
-gait clip and the walk clip), the heightfield AnymalTerrain's with either policy, the box mode
+with SAC, the lean split layout HumanoidAMP's (the gait clip and the walk
+clip), the local layout HumanoidMJCF's (forced), the heightfield AnymalTerrain's with either policy, the box mode
 AllegroHand's, the Franka family's, Trifinger's, MA_OP3's and the lift's, the tendon block
 ShadowHand's with either policy, with DR and in the DR events phase) and,
 last, the {"ok": true, "device": ...} line.
@@ -242,11 +247,13 @@ LSTM_TRAIN = (("AnymalTerrain:LSTM", "AnymalTerrain", "AnymalTerrainPPO_LSTM", {
 # MA_OP3PPO's minibatch of 16384 env transitions); the CLI at the YAML's 8
 MA_TASK = "MA_OP3"
 # the AMP slice: HumanoidAMP (29 bodies, 38 ground candidates: over the split
-# layout's budget too, so the flat instance's local layout, its first
-# training path) compared, timed and trained with AMPPPO (HumanoidAMPPPO.yaml)
+# layout's budget too, so the flat instance's lean split layout) compared
+# (also with the local layout forced), timed and trained with AMPPPO
+# (HumanoidAMPPPO.yaml)
 # at its YAML's 4096 envs; one more iteration on the repository's
 # reference-format clip (learn/poselib.py's path); the CLI, train and play
 AMP_TASK = "HumanoidAMP"
+AMP_LOCAL = f"{AMP_TASK}:local"
 AMP_WALK = os.path.join(ROOT, "assets", "amp", "motions", "amp_humanoid_walk.npy")
 # the domain-randomisation slice: ShadowHand trained under its YAML's
 # randomization_params (task.randomize: true) at 16384 envs, and the DR
@@ -335,21 +342,29 @@ ALSO_REPLACES = dict(pairs=["thormang_isaacgym_tpu/ops/fused.py:1323"],
                             "thormang_isaacgym_tpu/ops/fused.py:597",
                             "thormang_isaacgym_tpu/ops/fused.py:1235",
                             "thormang_isaacgym_tpu/ops/fused.py:1323"])
-REPLACES["flat_local"] = REPLACES["flat_split"] = REPLACES["flat"]
-# the compare case whose first launch measures the split layout's stack
-# reservation, before any local instance has run (Cartpole and Ant take the
-# shared layout), and the one whose first launch measures the local
-# layout's: it runs before any other local-memory instance
+REPLACES["flat_local"] = REPLACES["flat_split"] = REPLACES["flat_split_lean"] = REPLACES["flat"]
+# the compare cases whose first launch measures a layout's stack reservation,
+# in this order and before any local instance has run (Cartpole and Ant take
+# the shared layout, which reserves nothing): the lean split layout's
+# (HumanoidAMP), what the split layout's adds to it (HumanoidMJCF), then
+# what the local layout's adds (HumanoidMJCF with the local layout forced);
+# the layout each case of these and of LOCAL_FORCED must take
+FIRST_LEAN = AMP_TASK
 FIRST_SPLIT = "HumanoidMJCF"
 FIRST_LOCAL = "HumanoidMJCF:local"
+CASE_LAYOUT = {FIRST_LEAN: "split_lean", FIRST_SPLIT: "split", FIRST_LOCAL: "local",
+                AMP_LOCAL: "local"}
+# the cases run with the local layout forced, and the case whose inputs each
+# takes and whose first control step it must repeat bit for bit
+LOCAL_FORCED = {FIRST_LOCAL: FIRST_SPLIT, AMP_LOCAL: FIRST_LEAN}
 # the box instance's first launch (after the local layout's), whose stack
 # reservation the Franka family's lines carry
 FIRST_BOX = "BoxBox"
-# later cases whose first launch is measured too: HumanoidAMP's of the local
-# instance (HumanoidMJCF:local reserved its stack) and MA_OP3's of the box
-# instance; each instance is built and its stack reserved, so they should
-# add nothing
-STACK_CHECKS = (AMP_TASK, MA_TASK)
+# later cases whose first launch is measured too: HumanoidAMP's with the
+# local layout forced (HumanoidMJCF:local reserved its stack) and MA_OP3's of
+# the box instance; each instance is built and its stack reserved, so they
+# should add nothing
+STACK_CHECKS = (AMP_LOCAL, MA_TASK)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -362,7 +377,7 @@ def log(phase: str, **kv) -> None:
 @contextlib.contextmanager
 def local_layout(forced: bool):
     """With `forced`, the local layout forced on the flat instance (the
-    budget rule's SMEM_BUDGET set to 0), as a model over even the split
+    budget rule's SMEM_BUDGET set to 0), as a model over even the lean split
     layout's budget takes it."""
     budget = fused.SMEM_BUDGET
     if forced:
@@ -861,18 +876,20 @@ def first_launch_bytes(step, packed) -> int:
 
 
 def phase_compare(device):
-    """Worst error of each kernel mode, {"flat": x, "flat_split": s,
-    "flat_local": u, "heightfield": y, "pairs": z, "boxes": w, "tendons":
-    v}, and the stack bytes of the first launch of FIRST_SPLIT, FIRST_LOCAL
-    and FIRST_BOX, {"flat_split": a, "flat_local": b, "boxes": c} (b what
-    the local layout's first launch adds to the split layout's reservation,
-    which a process keeps, c what the box instance's adds to both); a case
-    whose model has tendons counts for its mode and
-    for "tendons", a flat case over the shared budget (HumanoidMJCF) for
-    its layout's entry, with the flat mode's TOL. HumanoidMJCF runs twice on
-    the same inputs: in the split layout and with the local layout forced,
-    whose first control step must give the split layout's outputs bit for
-    bit.
+    """Worst error of each kernel mode, {"flat": x, "flat_split_lean": l,
+    "flat_split": s, "flat_local": u, "heightfield": y, "pairs": z,
+    "boxes": w, "tendons": v}, and the stack bytes of the first launch of
+    FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL and FIRST_BOX, {"flat_split_lean":
+    a, "flat_split": b, "flat_local": c, "boxes": d} (b what the split
+    layout's first launch adds to the lean split layout's reservation, which
+    a process keeps, c what the local layout's adds to both, d what the box
+    instance's adds to all three), and of STACK_CHECKS; a case whose model
+    has tendons counts for its mode and for "tendons", a flat case over the
+    shared budget (HumanoidAMP, HumanoidMJCF) for its layout's entry, with
+    the flat mode's TOL. HumanoidAMP and HumanoidMJCF run twice on the same
+    inputs: in the lean split and the split layout, then with the local
+    layout forced, whose first control step must give the same outputs bit
+    for bit.
 
     Cartpole, Ant, the two-link tendon scene, BallBalance, the capsule-box
     and sphere-box scenes and the Franka arm alone are held against the
@@ -898,18 +915,19 @@ def phase_compare(device):
     and edge-edge) must be in contact somewhere. Each tendon scene must have
     env-tendons below and above their bounds, and inside."""
     rng = np.random.default_rng(SEED)
-    worst = dict(flat=0.0, flat_split=0.0, flat_local=0.0, heightfield=0.0, pairs=0.0, boxes=0.0,
-                 tendons=0.0)
+    worst = dict(flat=0.0, flat_split_lean=0.0, flat_split=0.0, flat_local=0.0, heightfield=0.0,
+                 pairs=0.0, boxes=0.0, tendons=0.0)
     box_active = {}
     stack_bytes = {}
     local_launched = False
-    split_first = None                    # the split layout's first control step, kernel outputs
+    # the inputs and first control step's kernel outputs of LOCAL_FORCED's cases
+    first_in, first_out = {}, {}
     budget = fused.SMEM_BUDGET
-    for case in ("Cartpole", "Ant", FIRST_SPLIT, FIRST_LOCAL, AMP_TASK, "AnymalTerrain", "BallBalance",
-                 "PairCapsule", "BoxBox", "CapBox", "SphereBox", "AllegroHand", "ShadowHand",
-                 "Tendon", "FrankaArm", *FRANKA_CONTACT, *NEW_TASKS, MA_TASK):
+    for case in ("Cartpole", "Ant", FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL, AMP_LOCAL, "AnymalTerrain",
+                 "BallBalance", "PairCapsule", "BoxBox", "CapBox", "SphereBox", "AllegroHand",
+                 "ShadowHand", "Tendon", "FrankaArm", *FRANKA_CONTACT, *NEW_TASKS, MA_TASK):
         name = case.split(":")[0]
-        fused.SMEM_BUDGET = 0 if case == FIRST_LOCAL else budget     # the local layout forced
+        fused.SMEM_BUDGET = 0 if case in LOCAL_FORCED else budget     # the local layout forced
         if name == "PairCapsule":
             task = PairCapsule()
         elif name == "Tendon":
@@ -932,8 +950,7 @@ def phase_compare(device):
             ("flat", "pairs", "boxes")[step.pair_mode]
         layout = step.layout
         entry = f"flat_{layout}" if mode == "flat" and layout != "shared" else mode
-        if case in (FIRST_SPLIT, FIRST_LOCAL) and \
-                layout != ("local" if case == FIRST_LOCAL else "split"):
+        if case in CASE_LAYOUT and layout != CASE_LAYOUT[case]:
             raise AssertionError(f"{case} took the {layout} layout")
         if mode == "boxes" and step.n_steps != 1:
             raise AssertionError("the box mode's tie analysis takes one substep per launch")
@@ -945,15 +962,18 @@ def phase_compare(device):
             params, q0, qd0, ctrl, wrench = franka_arm_inputs(task.model, rng, device)
         elif isinstance(task, BoxPair):
             params, q0, qd0, ctrl, wrench = box_pair_inputs(task, rng, device)
+        elif case in LOCAL_FORCED:
+            params, q0, qd0, ctrl, wrench = first_in[LOCAL_FORCED[case]]
         elif name == FIRST_SPLIT:
-            # its own stream (the same for both layouts), so the other cases
-            # keep the inputs they had
+            # its own stream, so the other cases keep the inputs they had
             params, q0, qd0, ctrl, wrench = random_inputs(
                 task, np.random.default_rng(SEED + 2), device)
         else:
             params, q0, qd0, ctrl, wrench = random_inputs(task, rng, device)
+        if case in LOCAL_FORCED.values():
+            first_in[case] = params, q0, qd0, ctrl, wrench
         envs = q0.shape[0]
-        if case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX):
+        if case in (FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX):
             if local_launched and case != FIRST_BOX:
                 raise AssertionError(f"{case}'s first launch comes after a local instance's")
             stack_bytes[entry] = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
@@ -986,8 +1006,8 @@ def phase_compare(device):
                     # the kernel from the plain version's state of this step
                     k_out = step(params, qb, qdb, ctrl, wrench)
                 qa, qda, na = step(params, qa, qda, ctrl, wrench)
-                if case == FIRST_SPLIT and n_ctrl == 1:
-                    split_first = (qa, qda, na)
+                if case in LOCAL_FORCED.values() and n_ctrl == 1:
+                    first_out[case] = (qa, qda, na)
                 q_in, qd_in = qb, qdb
                 qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, wrench)
                 if name in STEPWISE:
@@ -1024,16 +1044,18 @@ def phase_compare(device):
                     env_share_within_tol=free["env_share_within_tol"]))
             if mode == "boxes":
                 extra_n.update(outside_tol_env_steps=outside, of_them_at_a_tie=at_tie)
-            if case == FIRST_LOCAL and n_ctrl == 1:
+            if case in LOCAL_FORCED and n_ctrl == 1:
+                ref = CASE_LAYOUT[LOCAL_FORCED[case]]
                 same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                           for a, b in zip((qa, qda, na), split_first))
-                extra_n.update(bitwise_equal_to_split_layout=same)
+                           for a, b in zip((qa, qda, na), first_out[LOCAL_FORCED[case]]))
+                extra_n[f"bitwise_equal_to_{ref}_layout"] = same
                 if not same:
-                    raise AssertionError(f"{name}: the local and split layouts disagree")
-            if case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX):
-                # a process keeps its largest reservation: the local layout's
-                # first launch adds what its frame needs beyond the split's,
-                # the box instance's what its frame needs beyond those
+                    raise AssertionError(f"{name}: the local and {ref} layouts disagree")
+            if case in (FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX):
+                # a process keeps its largest reservation: the split layout's
+                # first launch adds what its frame needs beyond the lean
+                # split's, the local layout's beyond those, the box
+                # instance's what its frame needs beyond all three
                 extra_n.update(first_launch_stack_bytes=stack_bytes[entry],
                                stack_reserved_bytes=sum(stack_bytes.values()))
             if case in STACK_CHECKS:
@@ -1050,7 +1072,7 @@ def phase_compare(device):
                 raise AssertionError(f"fused kernel disagrees with the plain version: {name} "
                                      f"{gate['max_abs_err']}, {outside - at_tie} envs off a tie")
         expected = (12 if name in STEPWISE else 6) + \
-            (case in (FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX, *STACK_CHECKS))
+            (case in (FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX, *STACK_CHECKS))
         if step.launches != expected:
             raise AssertionError(f"compare launched the kernel {step.launches} times, "
                                  f"expected {expected}")
@@ -1351,7 +1373,7 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
     cull = cull_stats(step, q, qd) if step.pair_mode else \
         ground_skip_stats(m, q) if hf is None and step.layout != "local" else {}
     if name == AMP_TASK:
-        cull = amp_contact_stats(m, q)
+        cull.update(amp_contact_stats(m, q))
     if stack_bytes is not None:
         out["first_launch_stack_bytes"] = stack_bytes
     log("time", model=name, envs=envs, substeps=step.n_steps, block=step.block,
@@ -1430,7 +1452,7 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
         raise AssertionError("privileged states are not finite of shape (B, num_states)")
     steady = times[1:]       # the first iteration excluded
     step = env.physics_step
-    out = dict(launches=launches, expected_launches=expected,
+    out = dict(launches=launches, expected_launches=expected, layout=env.physics_step.layout,
                s_per_iter=times,
                env_steps_per_s=envs * cfg.horizon_length / (sum(steady) / len(steady)),
                card=card, metrics=metrics, **dr_stats)
@@ -1440,7 +1462,7 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
         out.update(motion_clips=env.task.motion_lib.num_motions(),
                    motion_frames=int(env.task.motion_lib.num_frames.sum()),
                    replay_count=ts.replay_count)
-    log("train", task=label or name, train=train_yaml, envs=envs, agents=agents, layout=step.layout,
+    log("train", task=label or name, train=train_yaml, envs=envs, agents=agents,
         **launch_blocks(step, envs), num_states=ppo.num_states,
         network="lstm" if ppo.is_rnn else "mlp", asymmetric=ppo.asymmetric,
         dt=env.task.sim_params.dt,
@@ -1954,7 +1976,7 @@ def main() -> None:
     for name in NEW_TASKS:
         timing[name] = phase_time(name, device, stack_bytes["boxes"] if name == "Trifinger" else None)
     timing[MA_TASK] = phase_time(MA_TASK, device, stack_bytes[MA_TASK])
-    timing[AMP_TASK] = phase_time(AMP_TASK, device, stack_bytes[AMP_TASK])
+    timing[AMP_TASK] = phase_time(AMP_TASK, device, stack_bytes["flat_split_lean"])
     for mode, name in modes:
         with local_layout(mode == "flat_local"):
             train[mode] = phase_train(name, device, dev_info["kind"])
@@ -1984,16 +2006,20 @@ def main() -> None:
         raise AssertionError(f"the walk run's motion library holds {train[walk]['motion_clips']} "
                              f"clips of {train[walk]['motion_frames']} frames, not the file's "
                              f"1 clip of {walk_frames}")
+    for label in (AMP_TASK, walk):
+        if train[label]["layout"] != CASE_LAYOUT[FIRST_LEAN]:
+            raise AssertionError(f"{label} trained in the {train[label]['layout']} layout")
     # each instance's launches by task: the flat instance's Ant's, the
     # drones' and Ant's with SAC, its split layout's HumanoidMJCF's with PPO
-    # and with SAC, its local layout's HumanoidMJCF's (forced) and
-    # HumanoidAMP's (with the gait clip and the walk clip), the
-    # heightfield's AnymalTerrain's with either policy, the box instance's
-    # AllegroHand's, the Franka family's, Trifinger's and MA_OP3's, the
-    # tendon block's ShadowHand's with either policy, with DR and in the DR
-    # events phase
+    # and with SAC, its lean split layout's HumanoidAMP's (with the gait
+    # clip and the walk clip), its local layout's HumanoidMJCF's (forced),
+    # the heightfield's AnymalTerrain's with either policy, the box
+    # instance's AllegroHand's, the Franka family's, Trifinger's and
+    # MA_OP3's, the tendon block's ShadowHand's with either policy, with DR
+    # and in the DR events phase
     by_task = dict(
-        flat_local=(("HumanoidMJCF:local", "flat_local"), (AMP_TASK, AMP_TASK), (walk, walk)),
+        flat_local=(("HumanoidMJCF:local", "flat_local"),),
+        flat_split_lean=((AMP_TASK, AMP_TASK), (walk, walk)),
         flat=(("Ant", "flat"), ("Ingenuity", "Ingenuity"), ("Quadcopter", "Quadcopter"),
               ("Ant:SAC", "Ant:SAC"), ("Ant:DP", "Ant:DP"), ("Ant:replay", "Ant:replay"),
               ("Ant:viewer", "Ant:viewer"),
@@ -2031,11 +2057,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lift_") as tmp:
         train["Lift:FactoryPick"] = phase_lift(tmp)
         train["Scaling:Ant"] = phase_scaling(tmp)
-    # the split layout's first launch ran first, the local one's adds to it,
-    # the box instance's to both
-    reserved = dict(flat_split=stack_bytes["flat_split"],
-                    flat_local=stack_bytes["flat_split"] + stack_bytes["flat_local"])
-    reserved["boxes"] = reserved["flat_local"] + stack_bytes["boxes"]
+    # the lean split layout's first launch ran first, the split one's adds
+    # to it, the local one's to both, the box instance's to all three
+    timing["flat_split_lean"] = timing[AMP_TASK]
+    reserved, held = {}, 0
+    for mode in ("flat_split_lean", "flat_split", "flat_local", "boxes"):
+        held += stack_bytes[mode]
+        reserved[mode] = held
     kernels = [dict(
         name=f"fused_step[{mode}]", route="cuda",
         source="thormang_isaacgym_tpu_torch/csrc/fused_step.cu",
@@ -2053,7 +2081,7 @@ def main() -> None:
             **{f"{key}_by_task": {n: timed[n][key] for n, _ in by_task[mode] if n in timed}
                for key in ("ms", "bound_ms")}}
            if mode in by_task else {}))
-        for mode, _ in modes]
+        for mode, _ in (*modes, ("flat_split_lean", AMP_TASK))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_info["kind"],
                                              "count": dev_info["count"]}}), flush=True)

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Write a copy of the port package whose CUDA kernel leaves out, or adds,
 named parts of the shared round-pair instance (``fused_step_kernel`` with
-kPA and kSM in csrc/fused_step.cu), or places the split layout's state
+kPA and kSM in csrc/fused_step.cu), or places the split layouts' state
 otherwise, so that each part of a design can be timed against the whole, on
 one card in one call:
 
     python3 scripts/kernel_variant.py --out DIR [--tree SRC] [--drop skip rows split_skip]
-        [--add tables] [--place A|B]
-    python3 scripts/time_flat_kernel.py --tree DIR --task BallBalance|HumanoidMJCF
+        [--add tables] [--place B|C|notables|rows|lean_rl]
+    python3 scripts/time_flat_kernel.py --tree DIR --task BallBalance|HumanoidMJCF|HumanoidAMP
 
 Parts it can leave out:
   skip    the warp-level skip of a ground or pair candidate out of contact in
@@ -32,6 +32,11 @@ the input rows in device memory):
   notables   the tables in device memory
   rows    the body rows (mass, com, inertia, gravity scale: 11 a body)
           staged in shared memory too, the other rows in device memory
+Another placement of the lean split layout (``kSplitLean``: the split
+layout's, but the candidates' state recomputed in the contact's second
+pass instead of kept):
+  lean_rl  the candidates' state kept in shared memory, the joint rotations
+          Rl (9 words a joint) local, beside IA
 
 Every other instance compiles from the same source as in SRC (default: this
 repository), and the variant computes the same outputs bit for bit (the
@@ -86,7 +91,7 @@ PLACE = {
     ],
     "C": [
         IA_LOCAL, NO_TABLES, SPLIT_TABLES_PY,
-        (KERNEL, "constexpr bool kKept = kSW;", "constexpr bool kKept = kSM;"),
+        (KERNEL, "constexpr bool kKept = kSW && kLayout != kSplitLean;", "constexpr bool kKept = kSM;"),
         (*SPLIT_WORDS, "  return lane_words(nb, nj, nq, nv, 0, false, 0, 0);"),
         (*SPLIT_WORDS_PY, "    return sweep_lane_words(nb, nj, nq, nv, 0)"),
     ],
@@ -105,6 +110,19 @@ PLACE = {
         (*SPLIT_WORDS_PY, "    return (sweep_lane_words(nb, nj, nq, nv, nc, rows=11 * nb) - 21 * nb) | 1"),
     ],
 }
+# the lean split layout's other placement (``kSplitLean``: the split
+# layout's without the candidates' kept state, recomputed in the contact's
+# second pass): the kept state in shared memory and the joint rotations Rl
+# local instead
+PLACE["lean_rl"] = [
+    (KERNEL, "constexpr bool kKept = kSW && kLayout != kSplitLean;", "constexpr bool kKept = kSW;"),
+    (KERNEL, "float (&Rl)[MAXB][9] = kSW ? carve",
+     "float (&Rl)[MAXB][9] = kSW && kLayout != kSplitLean ? carve"),
+    (KERNEL, "  return split_lane_words(nb, nj, nq, nv, 0);",
+     "  return (split_lane_words(nb, nj, nq, nv, nc) - 9 * nj) | 1;"),
+    (WRAPPER, "    return split_lane_words(nb, nj, nq, nv, 0)",
+     "    return (split_lane_words(nb, nj, nq, nv, nc) - 9 * nj) | 1"),
+]
 ADD = {
     "tables": [
         (KERNEL, "constexpr bool kTables = kSM && !kPA;", "constexpr bool kTables = kSM;"),

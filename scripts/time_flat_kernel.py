@@ -2,6 +2,8 @@
 """Time the fused CUDA kernel on Ant or Anymal (its flat instance),
 HumanoidMJCF (the flat instance in its split layout: over the shared
 budget; cfg/task/Humanoid.yaml; the local layout in a tree without it),
+HumanoidAMP (the flat instance in its lean split layout: over the split
+layout's budget too; the local layout in a tree without it),
 AnymalTerrain (its heightfield instance), BallBalance (its pair instance,
 the round kinds and attractors), the pair-capsule scene of chip_smoke.py
 (the pair instance's sphere-capsule and capsule-capsule kinds, 4096 envs),
@@ -10,7 +12,7 @@ tendon block) at the task YAML's width (4096 envs; the hands 16384), from
 the port package found in a given source tree, so two trees (a change and
 its parent) can be compared on one card in one call.
 
-    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|Anymal|AnymalTerrain|BallBalance|PairCapsule|AllegroHand|ShadowHand|HumanoidMJCF]
+    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|Anymal|AnymalTerrain|BallBalance|PairCapsule|AllegroHand|ShadowHand|HumanoidMJCF|HumanoidAMP]
         [--iters 300] [--envs N] [--block N [N ...]] [--local] [--split] [--stack] [--dump PATH]
     python3 scripts/time_flat_kernel.py --compare A.npy B.npy
 
@@ -27,7 +29,12 @@ the cube pressed into the palm and fingers as tests/test_torch_fused.py
 places it; Anymal dt 0.02 s with 2 substeps on flat ground, placed as
 AnymalTerrain is; HumanoidMJCF dt 0.0166 s with 2 substeps and the feet's
 torque rows, standing at its spawn height with its joints and base tilted
-and efforts of its motor gears; a tree without HumanoidMJCF cannot time it),
+and efforts of its motor gears; a tree without HumanoidMJCF cannot time it;
+HumanoidAMP dt 0.0166 s with 2 substeps and the feet's torque rows (its
+training step builds none), on the gait clip's states lowered onto the
+ground as tests/test_torch_fused.py's ``amp_contact_state`` places them,
+both soles down in half the envs, lying on the torso's capsule in an
+eighth, PD targets near the joints),
 the block size, layout and dynamic shared bytes of the launch,
 the options' results and the ptxas register and stack line of the
 instance. Run it for the two trees in turns (parent, change, change,
@@ -62,7 +69,7 @@ Options:
              equal bit for bit. Needs no card.
   --sass P   save ``cuobjdump -sass`` of the tree's kernel library to P.
   --compare-sass A B   per instance (its template flags, the layout last:
-             0 local, 1 shared, 2 split; a tree with a bool kSM flag gives 0
+             0 local, 1 shared, 2 split, 3 lean split; a tree with a bool kSM flag gives 0
              or 1, one without it 0), whether two such files hold the same
              instructions, the function names aside. Needs no card.
 """
@@ -81,10 +88,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # each task's instance (kHF, kPA, kBX)
 INSTANCE = {"Ant": (0, 0, 0), "Anymal": (0, 0, 0), "AnymalTerrain": (1, 0, 0),
             "BallBalance": (0, 1, 0), "PairCapsule": (0, 1, 0), "AllegroHand": (0, 1, 1),
-            "ShadowHand": (0, 1, 1), "HumanoidMJCF": (0, 0, 0)}
+            "ShadowHand": (0, 1, 1), "HumanoidMJCF": (0, 0, 0), "HumanoidAMP": (0, 0, 0)}
 _HEADER = 48
-# the kernel's layouts by their codes (kLocal, kShared, kSplit in csrc/fused_step.cu)
-LAYOUT_CODES = {"local": 0, "shared": 1, "split": 2}
+# the kernel's layouts by their codes (kLocal, kShared, kSplit, kSplitLean in
+# csrc/fused_step.cu)
+LAYOUT_CODES = {"local": 0, "shared": 1, "split": 2, "split_lean": 3}
 # the tasks whose cfg/task YAML carries another name (the port's tasks.CFG_NAMES;
 # a parent tree may not have it)
 CFG_NAMES = {"HumanoidMJCF": "Humanoid"}
@@ -197,6 +205,12 @@ def task_inputs(name, task, B, rng):
         q[:, 7:] = np.clip(task._init_jq + rng.uniform(-0.2, 0.2, (B, m.nj)), lo, hi)
         gears = task.motor_efforts.cpu().numpy()
         return q, rng.normal(size=(B, m.nv)) * 0.5, z, rng.uniform(-1, 1, (B, m.nj)) * gears
+    if name == "HumanoidAMP":
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from test_torch_fused import amp_contact_state
+        q, qd = amp_contact_state(task, rng, B)
+        # as in training: PD targets near the joints, no effort
+        return q, qd, q[:, 7:] + rng.normal(size=(B, m.nj)) * 0.05, z
     if name in ("AllegroHand", "ShadowHand"):
         sys.path.insert(0, os.path.join(ROOT, "tests"))
         from test_torch_fused import allegro_contact_q, shadow_contact_q
@@ -287,9 +301,12 @@ def main() -> None:
         apply_cfg_sim(task, cfg["sim"])
         m = task.model
         ground = task.ground_height_fn() if hasattr(task, "ground_height_fn") else 0.0
+        tq = getattr(task, "net_torque_bodies", None) or False
+        if args.task == "HumanoidAMP":
+            tq = tuple(m.body_id(f) for f in ("right_foot", "left_foot"))
         step = fused.build_fused_step_fn(m, task.sim_params, ground=ground,
                                          attractors=getattr(task, "attractors", None),
-                                         need_torque=getattr(task, "net_torque_bodies", None) or False)
+                                         need_torque=tq)
         q, qd, targets, effort = task_inputs(args.task, task, B, np.random.default_rng(1))
 
         def t(x):

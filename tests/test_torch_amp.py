@@ -105,8 +105,8 @@ def test_model_matches_jax():
                                       err_msg=k)
     from thormang_isaacgym_tpu_torch.ops import fused
     f = fused.build_fused_step_fn(tm, tha.HumanoidAMP(num_envs=2, device="cpu").sim_params)
-    # over the shared and the split layouts' budget: the flat instance's local layout
-    assert (f.pair_mode, f.layout, f.smem_bytes) == (0, "local", 0)
+    # over the shared and the split layouts' budget: the flat instance's lean split layout
+    assert (f.pair_mode, f.layout, f.smem_bytes) == (0, "split_lean", 228_768)
     assert f.layout_bytes > fused.SMEM_BUDGET
 
 

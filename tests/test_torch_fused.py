@@ -24,8 +24,9 @@ coupled length on both sides of each bound and inside) and on ShadowHand
 43 ground candidates: over the shared-memory budget) runs the flat instance in
 its split layout (the sweep state alone in shared memory), free running, its
 net also held at chip_smoke's flat-mode tolerance (atol 1e-2 N); HumanoidAMP
-(29 bodies, 38 candidates: over the split layout's budget too) its local
-layout, from the gait clip's states on the ground (``amp_contact_state``:
+(29 bodies, 38 candidates: over the split layout's budget too) its lean
+split layout (the split layout's slice without the candidates' kept state,
+recomputed in the contact's second pass), from the gait clip's states on the ground (``amp_contact_state``:
 both soles down, or lying on a capsule), held as HumanoidMJCF. Tolerances of
 tests/test_fused.py: q atol=rtol 2e-3, qd atol=rtol 2e-2, net atol 1.0 /
 rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine
@@ -632,6 +633,8 @@ extern "C" int host_launch(const int* mi, const float* mf, const float* hf, cons
       fused_step_kernel<false, false, false, kShared>(mi, mf, hf, in, out, B);
     else if (layout == kSplit)
       fused_step_kernel<false, false, false, kSplit>(mi, mf, hf, in, out, B);
+    else if (layout == kSplitLean)
+      fused_step_kernel<false, false, false, kSplitLean>(mi, mf, hf, in, out, B);
     else
       fused_step_kernel<false, false, false, kLocal>(mi, mf, hf, in, out, B);
     for (int w = 0; w < words; ++w) {
@@ -653,6 +656,10 @@ extern "C" int host_lane_words(int nb, int nj, int nq, int nv, int nc, int hf, i
 extern "C" int host_split_lane_words(int nb, int nj, int nq, int nv, int nc) {
   return split_lane_words(nb, nj, nq, nv, nc);
 }
+
+extern "C" int host_lean_lane_words(int nb, int nj, int nq, int nv, int nc) {
+  return lean_lane_words(nb, nj, nq, nv, nc);
+}
 """
 
 
@@ -673,8 +680,9 @@ def host_kernel(tmp_path_factory):
     lib.host_launch.restype = ctypes.c_int
     lib.host_lane_words.argtypes = [ctypes.c_int] * 8
     lib.host_lane_words.restype = ctypes.c_int
-    lib.host_split_lane_words.argtypes = [ctypes.c_int] * 5
-    lib.host_split_lane_words.restype = ctypes.c_int
+    for fn in (lib.host_split_lane_words, lib.host_lean_lane_words):
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -974,11 +982,12 @@ def test_kernel_source_on_host_matches_plain(host_kernel, name):
         mi, mf = step._tables
         assert step.smem_bytes == fused.split_bytes(model.nb, model.nj, model.nq, model.nv, step._nc,
                                                     fused.BLOCK, tables=len(mi) + len(mf)) == 201_264
-    if name == "humanoid_amp":                   # over the split layout's budget too: local
-        assert (step.pair_mode, step.layout, step.smem_bytes) == (0, "local", 0)
-        assert step.layout_bytes == 466_080 and fused.split_bytes(
-            model.nb, model.nj, model.nq, model.nv, step._nc, fused.BLOCK,
-            tables=sum(map(len, step._tables))) == 253_088
+    if name == "humanoid_amp":                   # over the split layout's budget too: lean split
+        counts, tables = (model.nb, model.nj, model.nq, model.nv, step._nc), sum(map(len, step._tables))
+        assert (step.pair_mode, step.layout, step.smem_bytes) == (0, "split_lean", 228_768)
+        assert step.layout_bytes == 466_080
+        assert fused.split_bytes(*counts, fused.BLOCK, tables=tables) == 253_088 > fused.SMEM_BUDGET
+        assert step.smem_bytes == fused.lean_bytes(*counts, fused.BLOCK, tables=tables)
         stats = amp_contact_stats(model, q)
         assert stats["both_soles_env_share"] > 0.3 and stats["capsule_env_share"] > 0.1, stats
     if name == "ma_op3":                         # feet on table legs, grippers on the table top
@@ -1009,26 +1018,30 @@ def _bits(outs):
     return [o.contiguous().view(torch.int32) for o in outs]
 
 
+# the flat instance's split layouts by model, in the ragged-block check
+SPLIT_CASES = {"humanoid_mjcf": "split", "humanoid_amp": "split_lean"}
+
+
 @pytest.mark.parametrize("name", ["ant", "anymal_terrain", "ball_balance", "pair_capsule",
-                                  "humanoid_mjcf"])
+                                  *SPLIT_CASES])
 def test_host_kernel_ragged_block(host_kernel, monkeypatch, name):
     """A shared instance (without pairs, or with the round pairs and
-    attractors), or HumanoidMJCF's split instance, on the host over 37
-    distinct envs in blocks of fused.BLOCK (a full block and a ragged
-    edge): each env within test_fused's tolerances of the plain version
-    (HumanoidMJCF's net also within chip_smoke's flat 1e-2 N), and the lane
-    check of the host loop clean (``_host_call``). Permuting the envs
-    permutes the outputs bit for bit, and the local layout (the budget set
-    to 0, blocks of 32) gives the same bits."""
+    attractors), HumanoidMJCF's split instance or HumanoidAMP's lean split
+    one, on the host over 37 distinct envs in blocks of fused.BLOCK (a full
+    block and a ragged edge): each env within test_fused's tolerances of the
+    plain version (the humanoids' net also within chip_smoke's flat 1e-2 N),
+    and the lane check of the host loop clean (``_host_call``). Permuting
+    the envs permutes the outputs bit for bit, and the local layout (the
+    budget set to 0, blocks of 32) gives the same bits."""
     model, sp, task, ground = _model(name)
     step = _step(model, sp, task, ground, "cpu")
     assert step.block == fused.BLOCK == 32 and step.smem_bytes > 0
-    assert step.layout == ("split" if name == "humanoid_mjcf" else "shared")
+    assert step.layout == SPLIT_CASES.get(name, "shared")
     params, q, qd, ctrl, w = _first(RAGGED, model, *_inputs(name, model, task, "cpu", ground)[1:])
     got = _host_call(host_kernel, step, params, q, qd, ctrl, w)
     want = step.plain(params, q, qd, ctrl, w)
     _assert_close(got, want)
-    if name == "humanoid_mjcf":
+    if name in SPLIT_CASES:
         np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), atol=1e-2, rtol=5e-3)
     perm = torch.as_tensor(np.random.default_rng(5).permutation(RAGGED))
     got_p = _host_call(host_kernel, step, params, q[perm], qd[perm],
@@ -1066,9 +1079,13 @@ def test_shared_budget_rule(host_kernel):
     candidates) does not fit the shared layout on either ground: on flat
     ground it takes the split layout (its tables and each env's slice
     without rows and articulated inertias, the kernel's
-    ``split_lane_words``), over a heightfield the local one. A chain of 40
-    bodies exceeds even the split layout's budget and takes the local
-    layout. Both chains match the plain version."""
+    ``split_lane_words``), over a heightfield the local one. HumanoidAMP's
+    counts (29 bodies, 38 candidates) and a chain of 29 bodies (57
+    candidates) exceed the split layout's budget and take the lean split
+    layout (each slice without the candidates' kept state, the kernel's
+    ``lean_lane_words``). A chain of 40 bodies exceeds even the lean
+    layout's budget and takes the local layout. The chains match the plain
+    version."""
     for name in ("ant", "anymal_terrain", "ball_balance"):
         model, sp, task, ground = _model(name)
         step = _step(model, sp, task, ground, "cpu")
@@ -1084,8 +1101,17 @@ def test_shared_budget_rule(host_kernel):
         assert step.layout == "shared" and step.smem_bytes == 4 * (tables + 32 * words)
         assert 0 < step.smem_bytes <= fused.SMEM_BUDGET
         assert fused.pick_layout(*counts, 128, **kw) == ("local", 0)
+    model, sp, task, ground = _model("humanoid_amp")
+    step = _step(model, sp, task, ground, "cpu", need_torque=False)
+    counts, tables = (model.nb, model.nj, model.nq, model.nv, step._nc), sum(map(len, step._tables))
+    assert counts == (29, 28, 35, 34, 38) and tables == 1032 and step.rows["total"] == 1056
+    words = fused.lean_lane_words(*counts)
+    assert words % 2 == 1 and words == host_kernel.host_lean_lane_words(*counts) == 1755
+    assert fused.pick_layout(*counts, 32, rows=step.rows["total"], tables=tables) == \
+        ("split_lean", 4 * (tables + 32 * words)) == (step.layout, step.smem_bytes)
+    assert step.smem_bytes == 228_768 <= fused.SMEM_BUDGET
     rng = np.random.default_rng(4)
-    for n_bodies, layout in ((22, "split"), (40, "local")):
+    for n_bodies, layout in ((22, "split"), (29, "split_lean"), (40, "local")):
         model = chain_model(n_bodies)
         step = fused.build_fused_step_fn(model, SimParams(**TINY_SP))
         counts = (model.nb, model.nj, model.nq, model.nv, step._nc)
@@ -1099,8 +1125,14 @@ def test_shared_budget_rule(host_kernel):
         assert words % 2 == 1 and words == host_kernel.host_split_lane_words(*counts)
         split = fused.split_bytes(*counts, 32, tables=tables)
         assert split == 4 * (tables + 32 * words) and (split <= fused.SMEM_BUDGET) == (layout == "split")
+        lean_words = fused.lean_lane_words(*counts)
+        assert lean_words % 2 == 1 and lean_words == host_kernel.host_lean_lane_words(*counts)
+        lean = fused.lean_bytes(*counts, 32, tables=tables)
+        assert lean == 4 * (tables + 32 * lean_words) and (lean <= fused.SMEM_BUDGET) == (layout != "local")
+        if n_bodies == 29:
+            assert counts == (29, 28, 35, 34, 57) and lean == 229_832
         assert step.layout == layout and step.block == fused.BLOCK
-        assert step.smem_bytes == (split if layout == "split" else 0)
+        assert step.smem_bytes == {"split": split, "split_lean": lean}.get(layout, 0)
         n = 8
         q = np.zeros((n, model.nq))
         q[:, 2] = rng.uniform(0.8, 1.6, n)
@@ -1180,12 +1212,13 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
     assert step.launches == 5
 
 
-@pytest.mark.parametrize("name", ["anymal_terrain", "ball_balance", "humanoid_mjcf"])
+@pytest.mark.parametrize("name", ["anymal_terrain", "ball_balance", "humanoid_mjcf", "humanoid_amp"])
 def test_cuda_refused_shared_memory_raises(cuda_device, monkeypatch, name):
     """A block asking for more dynamic shared memory than the card gives
     (the budget lifted, in blocks of 64: AnymalTerrain about 450 KB,
-    BallBalance's pair instance about 310 KB; HumanoidMJCF's split layout,
-    the budget set under its shared layout's bytes, 399 KB) is refused by
+    BallBalance's pair instance about 310 KB; HumanoidMJCF's split layout
+    and HumanoidAMP's lean split one, the budget set to that layout's bytes
+    in blocks of 64, 399 KB and 453 KB) is refused by
     cudaFuncSetAttribute, and FusedStep.launch raises; nothing runs, and the
     next launch within the budget succeeds."""
     model, sp, task, ground = _model(name)
@@ -1195,7 +1228,9 @@ def test_cuda_refused_shared_memory_raises(cuda_device, monkeypatch, name):
     packed = step.pack(params, q, qd, ctrl, w)
     budget = fused.SMEM_BUDGET
     step.block = 64
-    monkeypatch.setattr(fused, "SMEM_BUDGET", 1 << 22 if layout == "shared" else step.layout_bytes - 4)
+    own = {"split": fused.split_bytes, "split_lean": fused.lean_bytes}
+    monkeypatch.setattr(fused, "SMEM_BUDGET", 1 << 22 if layout == "shared" else own[layout](
+        model.nb, model.nj, model.nq, model.nv, step._nc, 64, tables=sum(map(len, step._tables))))
     assert step.layout == layout and step.smem_bytes > budget
     with pytest.raises(RuntimeError, match="launch failed"):
         step.launch(packed)

@@ -88,7 +88,7 @@
 // (nq + nv + 3 nb + 3 ntq, B) has the same layout. One thread per env. The
 // per-env arrays are bounded by the compile-time caps below (bodies, roots);
 // the wrapper raises above them, and only the first nb entries of each array
-// are touched. Three layouts share the code (template parameter kLayout):
+// are touched. Four layouts share the code (template parameter kLayout):
 // - The local layout: the box instance, and a model without the box kinds
 //   whose sweep state (below) exceeds the block's shared memory: the sweep
 //   state in per-thread local memory, the per-env rows read from the input
@@ -138,16 +138,33 @@
 //   joint rotations local instead (232,320 bytes); the shared tables are
 //   worth 4 %, the warp-level ground skip 19 %. scripts/kernel_variant.py
 //   --place writes them (PERF.md).
+// - The lean split layout (the flat instance without pairs, for a model
+//   whose split slice exceeds the budget too): the split layout's
+//   placement, but without the ground candidates' kept state (5 words a
+//   candidate): the contact's second pass recomputes a candidate's point,
+//   radius and depth by the same operations in the same order as its first
+//   pass, for the candidates the warp vote lets through (lean_lane_words).
+//   HumanoidAMP (29 bodies, 28 joints, 38 ground candidates, 1,056 input
+//   rows) would take 466,080 bytes a block in the shared layout and
+//   253,088 in the split one, and takes 228,768 in the lean split one
+//   (1,755 words an env and 4,128 bytes of tables): 0.261-0.266 ms per
+//   launch at 4096 envs against 0.482-0.484 in the local layout (an H100
+//   at 700 W), bit for bit. The other placement that fits, the kept state
+//   in shared memory and the joint rotations Rl local beside IA (220,832
+//   bytes; 149 registers, an 8,176-byte frame), ran 0.302-0.304 ms; the
+//   split layout in blocks of 24 (190,848 bytes, 171 blocks on 132 SMs)
+//   0.533. scripts/kernel_variant.py --place lean_rl writes the first.
 // The shared instances use 166 registers (with pairs 239) and a 496-byte
-// stack, which the first launch finds already reserved; the split one 128
-// and 5,872 bytes (IA at the body cap: 1.31 GB reserved); the local ones
+// stack, which the first launch finds already reserved; the split and lean
+// split ones 128 and 5,872 bytes (IA at the body cap: 1.31 GB reserved,
+// once for both); the local ones
 // 167 (flat), 239 (heightfield) and 249 (pairs) and 20,864, 22,400 and
 // 24,320 bytes, for which the first launch reserves 5.4, 5.8 and 6.3 GB of
 // device memory.
 // The arithmetic is the same in every layout and the outputs equal the
 // previous one-layout kernel's bit for bit (measured over 4096 envs of Ant,
-// Anymal, AnymalTerrain, BallBalance, the pair-capsule scene and
-// HumanoidMJCF).
+// Anymal, AnymalTerrain, BallBalance, the pair-capsule scene, HumanoidMJCF
+// and HumanoidAMP).
 //
 // What bounds it. Per env and control step the kernel reads R rows and writes
 // out_rows rows once (Ant: 330 input + 56 output rows of 4 bytes), so at 4096
@@ -717,6 +734,13 @@ __host__ __device__ __forceinline__ int lane_words(int nb, int nj, int nq, int n
 __host__ __device__ __forceinline__ int split_lane_words(int nb, int nj, int nq, int nv, int nc) {
   return (lane_words(nb, nj, nq, nv, nc, false, 0, 0) - 21 * nb) | 1;
 }
+// The lean split layout's slice (the flat instance without pairs, for a
+// model whose split slice exceeds the budget): the split layout's without
+// the candidates' kept state (5 words a candidate), which the contact's
+// second pass recomputes (ops/fused.py lean_lane_words is the same function)
+__host__ __device__ __forceinline__ int lean_lane_words(int nb, int nj, int nq, int nv, int nc) {
+  return split_lane_words(nb, nj, nq, nv, 0);
+}
 // dst[r] = src[r B] for r < n, by asynchronous copies (cp.async) into
 // shared memory, waited for by the calling thread alone
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int n, int B) {
@@ -746,14 +770,15 @@ __device__ __forceinline__ auto as_array(T* p) -> T (&)[N] {
 // the layouts (template parameter kLayout; ops/fused.py LAYOUTS): the sweep
 // state in per-thread local memory; everything per env in the block's
 // dynamic shared memory; or, for the flat instance without pairs, the sweep
-// state alone in shared memory, the rest as in the local layout
-constexpr int kLocal = 0, kShared = 1, kSplit = 2;
+// state alone in shared memory, the rest as in the local layout, with the
+// candidates' kept state (split) or without it (lean split)
+constexpr int kLocal = 0, kShared = 1, kSplit = 2, kSplitLean = 3;
 
 // kHF: heightfield ground (the launcher picks it when it is given a table);
 // kPA: actor pairs and attractors, kBX: with the box kinds of the pair
 // narrowphase (the launcher picks both on the wrapper's flag); kLayout (kLocal
-// only with the box kinds, kSplit only without pairs on flat ground): where
-// the per-env state lives
+// only with the box kinds, kSplit and kSplitLean only without pairs on flat
+// ground): where the per-env state lives
 template <bool kHF, bool kPA, bool kBX, int kLayout>
 __global__ void __launch_bounds__(128)
 fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
@@ -764,7 +789,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   constexpr bool kSM = kLayout == kShared;
   constexpr bool kSW = kLayout != kLocal;
   static_assert(!(kBX && kSW), "the box instance has the local layout only");
-  static_assert(kLayout != kSplit || !(kHF || kPA), "the split layout is the flat instance's");
+  static_assert((kLayout != kSplit && kLayout != kSplitLean) || !(kHF || kPA),
+                "the split layouts are the flat instance's");
   // the box and shared-memory instances skip, warp by warp, the force of a
   // ground or pair candidate out of contact in every env of the warp
   // (__any_sync), and the shared instances without pairs fill their tables
@@ -849,12 +875,13 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   // kSM: the env's input rows, staged once, and the sweep state below are
   // this lane's slice of the shared buffer (carved in lane_words' order);
   // else the rows are read from the input slab in every substep, and the
-  // sweep state is the lane's slice (kSW: the split layout's, all of it but
+  // sweep state is the lane's slice (kSW: the split layouts', all of it but
   // the articulated inertias) or per-thread local arrays
   float* sp = kSW ? sweep_smem + n_mi + n_mf +
                         threadIdx.x * (kSM ? lane_words(nb, nj, nq, nv, nc, kHF, rw.total,
                                                         kPA ? n_pair_bodies : 0)
-                                           : split_lane_words(nb, nj, nq, nv, nc))
+                                       : kLayout == kSplit ? split_lane_words(nb, nj, nq, nv, nc)
+                                                           : lean_lane_words(nb, nj, nq, nv, nc))
                   : nullptr;
   float* const rows_s = kSM ? carve<1, float>(sp, rw.total) : nullptr;
   if (kSM) stage_rows(rows_s, in + b, rw.total, B);
@@ -886,8 +913,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   V3 (&pos_w)[MAXB] = kSW ? carve<MAXB, V3>(sp, nb) : pos_w_l;
   V3 (&net_f)[MAXB] = kSW ? carve<MAXB, V3>(sp, nb) : net_f_l;
   V3 (&net_t)[MAXB] = kSW ? carve<MAXB, V3>(sp, nb) : net_t_l;
-  // the split layout keeps the articulated inertias local, to make room for
-  // the tables and the candidates' kept state
+  // the split layouts keep the articulated inertias local, to make room for
+  // the tables (and the candidates' kept state)
   SymI (&IA)[MAXB] = kSM ? carve<MAXB, SymI>(sp, nb) : IA_l;
   float (&n_active)[MAXB] = kSW ? carve<MAXB, float>(sp, nb) : n_active_l;
   float (&Rl)[MAXB][9] = kSW ? carve<MAXB, float[9]>(sp, nj) : Rl_l;
@@ -903,8 +930,9 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   float (&gpl)[kHF ? 3 * kMaxCands : 1] =
       kSW ? carve<kHF ? 3 * kMaxCands : 1, float>(sp, kHF ? 3 * nc : 0) : gpl_l;
   // the shared and split layouts: what the ground contact's first pass
-  // computes for a candidate, kept for the second
-  constexpr bool kKept = kSW;
+  // computes for a candidate, kept for the second (the lean split layout
+  // recomputes it, by the same operations in the same order)
+  constexpr bool kKept = kSW && kLayout != kSplitLean;
   constexpr int kCandKept = kHF ? 8 : 5;  // per candidate: point, radius, depth (, normal)
   float* const cand_kept = kKept ? carve<kMaxCands * kCandKept, float>(sp, kCandKept * nc) : nullptr;
   // pair mode, per pair body: the pair wrench [torque, force] and added inertia
@@ -992,8 +1020,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
         V3 pc;
         float eff_r, depth;
         V3 n = {0.0f, 0.0f, 1.0f};  // ground normal
-        // shared and split instances: the first pass keeps the candidate's point,
-        // radius, depth (and normal) for the second
+        // shared and split instances (not the lean split): the first pass keeps
+        // the candidate's point, radius, depth (and normal) for the second
         float* const kept = kKept ? cand_kept + kCandKept * c : nullptr;
         if (kKept && phase == 1) {
           pc = {kept[0], kept[1], kept[2]};
@@ -1444,10 +1472,11 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 // table in heightfield mode, else null; `pairs` picks the instance: 0
 // without the actor-pair and attractor blocks, 1 with them (the round
 // kinds), 2 with the box kinds too. `threads` is the block size; `layout`
-// kLocal, kShared or kSplit (ops/fused.py LAYOUTS: kLocal with the box kinds,
-// kSplit only without pairs on flat ground); `smem` the dynamic shared bytes
-// of a block (ops/fused.py layout_bytes: in the shared layout without pairs
-// the tables, and threads x lane_words words), 0 in the local layout.
+// kLocal, kShared, kSplit or kSplitLean (ops/fused.py LAYOUTS: kLocal with
+// the box kinds, kSplit and kSplitLean only without pairs on flat ground);
+// `smem` the dynamic shared bytes of a block (ops/fused.py layout_bytes: in
+// the shared layout without pairs the tables, and threads x lane_words
+// words), 0 in the local layout.
 template <bool kHF, bool kPA, bool kBX, int kLayout>
 int launch(const int* mi, const float* mf, const float* hf, const float* in, float* out, int B,
            int blocks, int threads, int smem, cudaStream_t s) {
@@ -1470,7 +1499,7 @@ int launch(const int* mi, const float* mf, const float* hf, const float* in, flo
 
 // the instances of one ground: without pairs or with the round kinds, in the
 // shared or the local layout (on flat ground without pairs also the split
-// one), or with the box kinds (local only)
+// and lean split ones), or with the box kinds (local only)
 template <bool kHF>
 int launch_ground(const int* mi, const float* mf, const float* hf, const float* in, float* out,
                   int B, int pairs, int blocks, int threads, int layout, int smem, cudaStream_t s) {
@@ -1479,9 +1508,12 @@ int launch_ground(const int* mi, const float* mf, const float* hf, const float* 
     return layout == kShared
                ? launch<kHF, true, false, kShared>(mi, mf, hf, in, out, B, blocks, threads, smem, s)
                : launch<kHF, true, false, kLocal>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
-  if constexpr (!kHF)
+  if constexpr (!kHF) {
     if (layout == kSplit)
       return launch<false, false, false, kSplit>(mi, mf, hf, in, out, B, blocks, threads, smem, s);
+    if (layout == kSplitLean)
+      return launch<false, false, false, kSplitLean>(mi, mf, hf, in, out, B, blocks, threads, smem, s);
+  }
   return layout == kShared
              ? launch<kHF, false, false, kShared>(mi, mf, hf, in, out, B, blocks, threads, smem, s)
              : launch<kHF, false, false, kLocal>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
@@ -1491,9 +1523,9 @@ extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
                                  const void* in, void* out, int B, int pairs, int threads,
                                  int layout, int smem, void* stream) {
   if (B <= 0) return 0;
-  const bool bad_layout = layout < kLocal || layout > kSplit || (layout == kLocal) != (smem == 0) ||
+  const bool bad_layout = layout < kLocal || layout > kSplitLean || (layout == kLocal) != (smem == 0) ||
                           (pairs == 2 && layout != kLocal) ||
-                          (layout == kSplit && (pairs != 0 || hf != nullptr));
+                          ((layout == kSplit || layout == kSplitLean) && (pairs != 0 || hf != nullptr));
   if (threads <= 0 || pairs < 0 || pairs > 2 || bad_layout)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + threads - 1) / threads;

@@ -40,8 +40,10 @@ memory, in blocks of ``BLOCK`` envs, where the budget rule ``pick_layout``
 finds room (the shared layout). On flat ground without pairs, a model whose
 slice does not fit may still keep there all of it but its input rows, read
 from device memory, and its articulated inertias, kept in per-thread local
-memory (the split layout). Otherwise, and in the box instance, the sweep
-state is per-thread local memory (the local layout).
+memory (the split layout), or, where that does not fit either, all of that
+but the ground candidates' kept state, which the contact's second pass
+recomputes (the lean split layout). Otherwise, and in the box instance, the
+sweep state is per-thread local memory (the local layout).
 
 The kernel is built at first use with ``nvcc`` alone (no PyTorch headers)
 into ``thormang_isaacgym_tpu_torch/_build/`` and loaded with ``ctypes``. For
@@ -99,8 +101,8 @@ PAIR_BLOCK = 128
 # the dynamic shared memory a block may use on sm_90 (227 KB)
 SMEM_BUDGET = 232_448
 # the kernel's layouts, in the order of their codes in csrc/fused_step.cu
-# (kLocal, kShared, kSplit)
-LAYOUTS = ("local", "shared", "split")
+# (kLocal, kShared, kSplit, kSplitLean)
+LAYOUTS = ("local", "shared", "split", "split_lean")
 _HEADER = 48
 _KIND = {"sphere": 0, "capcap": 1, "capbox": 2, "boxbox": 3}
 
@@ -205,21 +207,41 @@ def split_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
     return 4 * (tables + block * split_lane_words(nb, nj, nq, nv, nc))
 
 
+def lean_lane_words(nb: int, nj: int, nq: int, nv: int, nc: int) -> int:
+    """Words of one env's slice of the lean split layout (csrc/fused_step.cu
+    ``lean_lane_words``): the split layout's without the candidates' kept
+    state (5 words a candidate), which the ground contact's second pass
+    recomputes; odd."""
+    return split_lane_words(nb, nj, nq, nv, 0)
+
+
+def lean_bytes(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
+               tables: int = 0) -> int:
+    """The dynamic shared bytes the lean split layout takes for a block: the
+    model's two tables (`tables` words, once per block) and each env's
+    slice (``lean_lane_words``)."""
+    return 4 * (tables + block * lean_lane_words(nb, nj, nq, nv, nc))
+
+
 def pick_layout(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
                 pairs: bool = False, heightfield: bool = False, **kw) -> tuple:
     """The budget rule of the instances without the box kinds, a pure
     function of the model's counts: (layout, dynamic shared bytes of a
     block). The shared layout where its ``layout_bytes`` fit SMEM_BUDGET;
     else, on flat ground without pairs (`pairs`: the round-pair instance),
-    the split layout where its ``split_bytes`` fit; else the local layout
-    (the same arithmetic, the sweep state in per-thread local memory, the
-    rows and tables read from device memory) and 0."""
+    the split layout where its ``split_bytes`` fit, then the lean split
+    layout where its ``lean_bytes`` fit; else the local layout (the same
+    arithmetic, the sweep state in per-thread local memory, the rows and
+    tables read from device memory) and 0."""
     n = layout_bytes(nb, nj, nq, nv, nc, block, heightfield=heightfield, **kw)
     if n <= SMEM_BUDGET:
         return "shared", n
-    split = split_bytes(nb, nj, nq, nv, nc, block, tables=kw.get("tables", 0))
-    if not (pairs or heightfield) and split <= SMEM_BUDGET:
-        return "split", split
+    if not (pairs or heightfield):
+        tables = kw.get("tables", 0)
+        for name, fn in (("split", split_bytes), ("split_lean", lean_bytes)):
+            n = fn(nb, nj, nq, nv, nc, block, tables=tables)
+            if n <= SMEM_BUDGET:
+                return name, n
     return "local", 0
 
 
@@ -489,7 +511,7 @@ class FusedStep:
     @property
     def layout_bytes(self) -> int:
         """The bytes a block of the shared layout would take (over
-        SMEM_BUDGET, the launch takes the split or local layout instead)."""
+        SMEM_BUDGET, the launch takes a split or the local layout instead)."""
         m = self.model
         return layout_bytes(m.nb, m.nj, m.nq, m.nv, self._nc, self.block, **self._layout_kw())
 
