@@ -41,7 +41,12 @@ Phases, one line each (any failure raises and exits non-zero):
     FrankaCubeStack's table, on the Factory nut on its table, on the Screw
     task's threaded nut with its tendon on and beside its bound; the box
     instance's first launch, on the box-box scene, measures its stack
-    reservation), Trifinger at 16384 envs (its three fingertips pressing on
+    reservation in the layout the scene's width takes, the first launch in
+    its other layout, FactoryPick's (128 envs, the wide layout), what that
+    adds; each box case runs in the geometry ``pick_box_geometry`` gives its
+    width and bodies, and in the wide
+    layout its first control step must equal the local layout's, forced, bit
+    for bit), Trifinger at 16384 envs (its three fingertips pressing on
     the cube's top face: ``trifinger_contact_q``, substep by substep),
     MA_OP3 at 4096 envs (two OP3s and a table, 75 pairs: the heels on the
     ground, a foot against a table leg in every third env, the grippers on
@@ -54,7 +59,8 @@ Phases, one line each (any failure raises and exits non-zero):
     with non-zero force and torque rows of the wrench on every body; max
     abs error of q, qd and net against
     TOL, beside the largest |value| of each and the share of non-zero net
-    rows, the layout (shared, split or local), the launch's dynamic shared
+    rows, the layout (shared, split, lean split, local or wide) and the
+    launch's geometry, its dynamic shared
     bytes and ptxas' registers and stack of the instance (AnymalTerrain also: the share of active contact candidates, the
     share of those on sloped cells, the largest |gx x| of a ground plane; the
     pair and box scenes: the share of active pair candidates, per kind in the
@@ -68,11 +74,12 @@ Phases, one line each (any failure raises and exits non-zero):
     FrankaCubeStack (8192), FactoryTaskNutBoltPick (128), Trifinger
     (16384), Ingenuity (4096), Quadcopter (8192) and MA_OP3 (4096) (CUDA
     events after warm-up, ms per control step) beside the kernel's bound,
-    with the launch's block size, the blocks it runs beside the card's SM
+    with the launch's layout, lanes an env (the box instance's wide
+    layout: G) and block size, the blocks it runs beside the card's SM
     count, its dynamic shared bytes and ptxas'
-    registers and stack of the instance; BallBalance, the hands and the Franka family also the
-    share of pair candidates in contact, per env and per warp of 32, the
-    hands also of the pairs that pass the box instance's cull
+    registers and stack of the instance; BallBalance, the hands, the Franka family and MA_OP3 also the
+    share of pair candidates in contact, per env and per warp (32 envs; in
+    the wide layout 32 / G), the box tasks also of the pairs that pass the box instance's cull
     (``cull_stats``); ShadowHand also the tendon block's own time (the
     tendon loop cut out) beside its bound; HumanoidMJCF and HumanoidAMP
     also the stack bytes each layout's first launch reserved (phase 2) and,
@@ -177,7 +184,12 @@ drones' and Ant's with SAC, data parallel, in the replay and the viewer,
 the parity rows' Cartpole and Ant and the scaling lane's Ant, the split layout HumanoidMJCF's with PPO and
 with SAC, the lean split layout HumanoidAMP's (the gait clip and the walk
 clip), the local layout HumanoidMJCF's (forced), the heightfield AnymalTerrain's with either policy, the box mode
-AllegroHand's, the Franka family's, Trifinger's, MA_OP3's and the lift's, the tendon block
+split by the layout each task trained in (``pick_box_geometry``'s choice
+at its width): the local layout (``boxes``: AllegroHand and Trifinger at
+16384 envs in blocks of 128, the Franka family and MA_OP3 at 4096-8192 in
+blocks of 32) and the wide layout (``box_wide``: FactoryPick and the lift
+at 128 envs), each entry with the layout, lanes an env and block of its
+timed task and ``geometry_by_task`` for every task in it, the tendon block
 ShadowHand's with either policy, with DR and in the DR events phase) and,
 last, the {"ok": true, "device": ...} line.
 """
@@ -343,6 +355,7 @@ ALSO_REPLACES = dict(pairs=["thormang_isaacgym_tpu/ops/fused.py:1323"],
                             "thormang_isaacgym_tpu/ops/fused.py:1235",
                             "thormang_isaacgym_tpu/ops/fused.py:1323"])
 REPLACES["flat_local"] = REPLACES["flat_split"] = REPLACES["flat_split_lean"] = REPLACES["flat"]
+REPLACES["box_wide"], ALSO_REPLACES["box_wide"] = REPLACES["boxes"], ALSO_REPLACES["boxes"]
 # the compare cases whose first launch measures a layout's stack reservation,
 # in this order and before any local instance has run (Cartpole and Ant take
 # the shared layout, which reserves nothing): the lean split layout's
@@ -357,8 +370,11 @@ CASE_LAYOUT = {FIRST_LEAN: "split_lean", FIRST_SPLIT: "split", FIRST_LOCAL: "loc
 # the cases run with the local layout forced, and the case whose inputs each
 # takes and whose first control step it must repeat bit for bit
 LOCAL_FORCED = {FIRST_LOCAL: FIRST_SPLIT, AMP_LOCAL: FIRST_LEAN}
-# the box instance's first launch (after the local layout's), whose stack
-# reservation the Franka family's lines carry
+# the box instance's first launch (after the flat local layout's), in the
+# layout its width and bodies take (``pick_box_geometry``); phase 2 measures the first
+# launch of each of the box instance's layouts, the wide one's stack
+# reservation the Franka family's time lines carry, the local one's
+# Trifinger's
 FIRST_BOX = "BoxBox"
 # later cases whose first launch is measured too: HumanoidAMP's with the
 # local layout forced (HumanoidMJCF:local reserved its stack) and MA_OP3's of
@@ -878,12 +894,14 @@ def first_launch_bytes(step, packed) -> int:
 def phase_compare(device):
     """Worst error of each kernel mode, {"flat": x, "flat_split_lean": l,
     "flat_split": s, "flat_local": u, "heightfield": y, "pairs": z,
-    "boxes": w, "tendons": v}, and the stack bytes of the first launch of
-    FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL and FIRST_BOX, {"flat_split_lean":
-    a, "flat_split": b, "flat_local": c, "boxes": d} (b what the split
-    layout's first launch adds to the lean split layout's reservation, which
-    a process keeps, c what the local layout's adds to both, d what the box
-    instance's adds to all three), and of STACK_CHECKS; a case whose model
+    "boxes": w, "box_wide": x, "tendons": v}, and the stack bytes of the
+    first launch of FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL and of each of the
+    box instance's layouts (from FIRST_BOX on), {"flat_split_lean": a,
+    "flat_split": b, "flat_local": c, "boxes": d, "box_wide": e} (b what the
+    split layout's first launch adds to the lean split layout's
+    reservation, which a process keeps, c what the local layout's adds to
+    both, d and e what the box instance's local and wide layouts add, in the
+    order they first run), and of STACK_CHECKS; a case whose model
     has tendons counts for its mode and for "tendons", a flat case over the
     shared budget (HumanoidAMP, HumanoidMJCF) for its layout's entry, with
     the flat mode's TOL. HumanoidAMP and HumanoidMJCF run twice on the same
@@ -916,7 +934,7 @@ def phase_compare(device):
     env-tendons below and above their bounds, and inside."""
     rng = np.random.default_rng(SEED)
     worst = dict(flat=0.0, flat_split_lean=0.0, flat_split=0.0, flat_local=0.0, heightfield=0.0,
-                 pairs=0.0, boxes=0.0, tendons=0.0)
+                 pairs=0.0, boxes=0.0, box_wide=0.0, tendons=0.0)
     box_active = {}
     stack_bytes = {}
     local_launched = False
@@ -948,10 +966,6 @@ def phase_compare(device):
                                          need_torque=True)
         mode = "heightfield" if step.hf is not None else \
             ("flat", "pairs", "boxes")[step.pair_mode]
-        layout = step.layout
-        entry = f"flat_{layout}" if mode == "flat" and layout != "shared" else mode
-        if case in CASE_LAYOUT and layout != CASE_LAYOUT[case]:
-            raise AssertionError(f"{case} took the {layout} layout")
         if mode == "boxes" and step.n_steps != 1:
             raise AssertionError("the box mode's tie analysis takes one substep per launch")
         if name == "PairCapsule":
@@ -973,8 +987,17 @@ def phase_compare(device):
         if case in LOCAL_FORCED.values():
             first_in[case] = params, q0, qd0, ctrl, wrench
         envs = q0.shape[0]
-        if case in (FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX):
-            if local_launched and case != FIRST_BOX:
+        geo = geometry(step, envs)
+        layout = geo["layout"]
+        entry = kernel_entry(mode, layout)
+        if case in CASE_LAYOUT and layout != CASE_LAYOUT[case]:
+            raise AssertionError(f"{case} took the {layout} layout")
+        # the first launch of each layout of the box instance (from FIRST_BOX on)
+        first_box = mode == "boxes" and entry not in stack_bytes
+        if case == FIRST_BOX and not first_box:
+            raise AssertionError(f"{case} is not the box instance's first launch")
+        if case in (FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL) or first_box:
+            if local_launched and not first_box:
                 raise AssertionError(f"{case}'s first launch comes after a local instance's")
             stack_bytes[entry] = first_launch_bytes(step, step.pack(params, q0, qd0, ctrl, wrench))
         if case in STACK_CHECKS:
@@ -997,6 +1020,9 @@ def phase_compare(device):
         if extra.get("edge_edge_active_envs", 0) > 0:
             box_active["edge_edge_envs"] = box_active.get("edge_edge_envs", 0) + \
                 extra["edge_edge_active_envs"]
+        # a box case in the wide layout: its first control step bit for bit the
+        # local layout's on the same inputs
+        wide = mode == "boxes" and layout == "wide"
         for n_ctrl in (1, 5):
             qa, qda, qb, qdb = q0, qd0, q0, qd0
             stepwise = None
@@ -1008,6 +1034,10 @@ def phase_compare(device):
                 qa, qda, na = step(params, qa, qda, ctrl, wrench)
                 if case in LOCAL_FORCED.values() and n_ctrl == 1:
                     first_out[case] = (qa, qda, na)
+                if wide and n_ctrl == 1:
+                    step.force_geometry = ("local", 1, 128)
+                    first_out[case] = step(params, q0, qd0, ctrl, wrench)
+                    step.force_geometry = None
                 q_in, qd_in = qb, qdb
                 qb, qdb, nb_ = step.plain(params, qb, qdb, ctrl, wrench)
                 if name in STEPWISE:
@@ -1044,14 +1074,15 @@ def phase_compare(device):
                     env_share_within_tol=free["env_share_within_tol"]))
             if mode == "boxes":
                 extra_n.update(outside_tol_env_steps=outside, of_them_at_a_tie=at_tie)
-            if case in LOCAL_FORCED and n_ctrl == 1:
-                ref = CASE_LAYOUT[LOCAL_FORCED[case]]
+            if (case in LOCAL_FORCED or wide) and n_ctrl == 1:
+                ref, other = ("local", first_out[case]) if wide else \
+                    (CASE_LAYOUT[LOCAL_FORCED[case]], first_out[LOCAL_FORCED[case]])
                 same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                           for a, b in zip((qa, qda, na), first_out[LOCAL_FORCED[case]]))
+                           for a, b in zip((qa, qda, na), other))
                 extra_n[f"bitwise_equal_to_{ref}_layout"] = same
                 if not same:
-                    raise AssertionError(f"{name}: the local and {ref} layouts disagree")
-            if case in (FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX):
+                    raise AssertionError(f"{name}: the {layout} and {ref} layouts disagree")
+            if case in (FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL) or first_box:
                 # a process keeps its largest reservation: the split layout's
                 # first launch adds what its frame needs beyond the lean
                 # split's, the local layout's beyond those, the box
@@ -1060,9 +1091,9 @@ def phase_compare(device):
                                stack_reserved_bytes=sum(stack_bytes.values()))
             if case in STACK_CHECKS:
                 extra_n.update(first_launch_stack_bytes=stack_bytes[case])
-            log("compare", model=name, mode=mode, layout=layout, smem_bytes=step.smem_bytes,
+            log("compare", model=name, mode=mode, entry=entry, **geo,
                 shared_layout_bytes=step.layout_bytes if step.pair_mode != 2 else None,
-                ptxas=instance_ptxas(fused.build_library().log, step),
+                ptxas=instance_ptxas(fused.build_library().log, step, layout),
                 envs=envs, substeps=step.n_steps,
                 control_steps=n_ctrl, max_abs_err=gate["max_abs_err"], max_abs=free["max_abs"],
                 net_nonzero_row_share=nonzero,
@@ -1071,8 +1102,8 @@ def phase_compare(device):
             if not ok:
                 raise AssertionError(f"fused kernel disagrees with the plain version: {name} "
                                      f"{gate['max_abs_err']}, {outside - at_tie} envs off a tie")
-        expected = (12 if name in STEPWISE else 6) + \
-            (case in (FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL, FIRST_BOX, *STACK_CHECKS))
+        expected = (12 if name in STEPWISE else 6) + wide + \
+            (case in (FIRST_LEAN, FIRST_SPLIT, FIRST_LOCAL, *STACK_CHECKS) or first_box)
         if step.launches != expected:
             raise AssertionError(f"compare launched the kernel {step.launches} times, "
                                  f"expected {expected}")
@@ -1237,12 +1268,13 @@ def tendon_bound(model, n_steps: int, envs: int) -> dict:
                 bytes=nbytes, flops=flops)
 
 
-def instance_ptxas(log: str, step) -> list:
+def instance_ptxas(log: str, step, layout: str) -> list:
     """ptxas' register and stack lines for the kernel instance `step`
-    launches (template flags kHF, kPA, kBX and its layout's code)."""
+    launches in `layout` (template flags kHF, kPA, kBX and the layout's
+    code)."""
     flags = (step.hf is not None, step.pair_mode > 0, step.pair_mode == 2)
     name = "kernelI" + "".join(f"Lb{int(f)}E" for f in flags) + \
-        f"Li{fused.LAYOUTS.index(step.layout)}E" + "EEv"
+        f"Li{fused.LAYOUTS.index(layout)}E" + "EEv"
     lines = log.splitlines()
     at = [i for i, ln in enumerate(lines) if "Compiling entry" in ln and name in ln]
     if not at:
@@ -1250,12 +1282,23 @@ def instance_ptxas(log: str, step) -> list:
     return [ln.strip() for ln in lines[at[0]:at[0] + 4] if "stack" in ln or "registers" in ln]
 
 
-def launch_blocks(step, envs: int) -> dict:
-    """The blocks one launch of `step` runs at `envs` envs, beside the
-    card's SM count (the box instance's blocks of PAIR_BLOCK leave SMs idle
-    at small widths: Factory's 128 envs are one block)."""
-    return dict(blocks=-(-envs // step.block),
-                sms=torch.cuda.get_device_properties(0).multi_processor_count)
+def geometry(step, envs: int) -> dict:
+    """The geometry of a launch of `step` at `envs` envs: its layout, lanes
+    an env (the box instance's wide layout: G), threads a block, the blocks
+    it runs beside the card's SM count, and its dynamic shared bytes of a
+    block."""
+    layout, lanes, block, smem = step.launch_geometry(envs)
+    return dict(layout=layout, lanes=lanes, block=block, blocks=-(-envs * lanes // block),
+                sms=fused.sm_count(0), smem_bytes=smem)
+
+
+def kernel_entry(mode: str, layout: str) -> str:
+    """The kernels line's entry of a launch in `mode` and `layout`: the
+    flat instance's layouts apart (but the shared one, "flat"), and the box
+    instance's wide layout apart from its local one ("boxes")."""
+    if mode == "flat" and layout != "shared":
+        return f"flat_{layout}"
+    return "box_wide" if mode == "boxes" and layout == "wide" else mode
 
 
 def _time_cuda(fn, iters: int, warmup: int) -> float:
@@ -1300,26 +1343,27 @@ def ground_skip_stats(model, q) -> dict:
     return dict(ground_candidate_contact_share=env, ground_candidate_contact_share_warp=warp)
 
 
-def cull_stats(step, q, qd) -> dict:
+def cull_stats(step, q, qd, w: int = 32) -> dict:
     """What the pair instances' skips see at (q, qd): the share of pair
-    candidates in contact per env and per warp of 32 (any of its envs: the
-    force block runs for the warp); in the box instance also the share of
+    candidates in contact per env and per warp of `w` envs (any of its
+    envs: the force block runs for the warp; the box instance's wide layout
+    holds 32 / G envs a warp); in the box instance also the share of
     env-pairs whose bounding spheres come within the cull's margin
-    (``fused.pairs_apart``) and of warp-pairs (the narrowphase runs for the
-    warp). The bound counts every candidate, as the TPU kernel computes
-    them."""
+    (``fused.pairs_apart``) and of warp-pairs (the local layout's
+    narrowphase runs for the warp; the wide layout's apply). The bound
+    counts every candidate, as the TPU kernel computes them."""
     m = step.model
     f = forward_kinematics(m, q, qd)
     active = torch.stack([c[5] for c in collide.candidates(m, f)], -1) > 0
     out = dict(zip(("active_candidate_share", "active_candidate_share_warp"),
-                   contact_shares(active)))
+                   contact_shares(active, w)), warp_envs=w)
     if step.pair_mode == 2:
         near = ~fused.pairs_apart(m, f)
-        out.update(zip(("pair_pass_share", "pair_pass_share_warp"), contact_shares(near)))
+        out.update(zip(("pair_pass_share", "pair_pass_share_warp"), contact_shares(near, w)))
     return out
 
 
-def phase_time(name: str, device, stack_bytes=None) -> dict:
+def phase_time(name: str, device, stack_bytes=None, stack_by_entry=None) -> dict:
     """The kernel on `name`'s training inputs (torque rows of the task's
     sensor bodies, as VecEnv builds it), ms per control step; in the pair
     modes also what their skips see (``cull_stats``), on flat ground
@@ -1327,7 +1371,9 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
     the local layout, which does not skip); with tendons also the tendon
     block's own time (the kernel with the tendon loop cut out, header int 42
     set to 0, subtracted) beside its bound (``tendon_bound``);
-    `stack_bytes`, the first launch's stack reservation, goes in the line."""
+    `stack_bytes`, the first launch's stack reservation, goes in the line;
+    for the box instance `stack_by_entry` gives it by the kernels line's
+    entry, and the line carries the one of the layout the launch took."""
     task = _task(name, device)
     m = task.model
     hf = task.ground_height_fn() if hasattr(task, "ground_height_fn") else None
@@ -1370,16 +1416,20 @@ def phase_time(name: str, device, stack_bytes=None) -> dict:
         tb = tendon_bound(m, step.n_steps, envs)
         out.update(tendon_block_ms=kernel_ms - no_tendons_ms, no_tendons_ms=no_tendons_ms,
                    tendon_bound_ms=tb["bound_ms"], tendon_bound_by=tb["bound_by"])
-    cull = cull_stats(step, q, qd) if step.pair_mode else \
+    geo = geometry(step, envs)
+    cull = cull_stats(step, q, qd, 32 // geo["lanes"]) if step.pair_mode else \
         ground_skip_stats(m, q) if hf is None and step.layout != "local" else {}
     if name == AMP_TASK:
         cull.update(amp_contact_stats(m, q))
+    if stack_by_entry is not None:
+        stack_bytes = stack_by_entry[kernel_entry("boxes", geo["layout"])]
     if stack_bytes is not None:
         out["first_launch_stack_bytes"] = stack_bytes
-    log("time", model=name, envs=envs, substeps=step.n_steps, block=step.block,
-        **launch_blocks(step, envs), layout=step.layout, smem_bytes=step.smem_bytes,
+    out.update(geo)
+    log("time", model=name, envs=envs, substeps=step.n_steps,
         shared_layout_bytes=step.layout_bytes if step.pair_mode != 2 else None,
-        smem_budget=fused.SMEM_BUDGET, ptxas=instance_ptxas(fused.build_library().log, step), **out, **cull)
+        smem_budget=fused.SMEM_BUDGET, ptxas=instance_ptxas(fused.build_library().log, step,
+                                                            geo["layout"]), **out, **cull)
     return out
 
 
@@ -1452,7 +1502,11 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
         raise AssertionError("privileged states are not finite of shape (B, num_states)")
     steady = times[1:]       # the first iteration excluded
     step = env.physics_step
-    out = dict(launches=launches, expected_launches=expected, layout=env.physics_step.layout,
+    geo = geometry(step, envs)
+    if step.pair_mode == 2 and step.last_geometry["layout"] != geo["layout"]:
+        raise AssertionError(f"trained in the {step.last_geometry['layout']} layout, not the "
+                             f"rule's {geo['layout']}")
+    out = dict(launches=launches, expected_launches=expected, **geo,
                s_per_iter=times,
                env_steps_per_s=envs * cfg.horizon_length / (sum(steady) / len(steady)),
                card=card, metrics=metrics, **dr_stats)
@@ -1463,7 +1517,7 @@ def phase_train(name: str, device, card: str, train_yaml: str | None = None,
                    motion_frames=int(env.task.motion_lib.num_frames.sum()),
                    replay_count=ts.replay_count)
     log("train", task=label or name, train=train_yaml, envs=envs, agents=agents,
-        **launch_blocks(step, envs), num_states=ppo.num_states,
+        num_states=ppo.num_states,
         network="lstm" if ppo.is_rnn else "mlp", asymmetric=ppo.asymmetric,
         dt=env.task.sim_params.dt,
         substeps=env.task.sim_params.substeps, horizon=cfg.horizon_length,
@@ -1920,20 +1974,27 @@ def phase_lift(root: str) -> dict:
     """The CLI trains LIFT_TASK 2 iterations at 128 envs into `root`; then
     scripts/eval_factory_lift_torch.py plays its last.ckpt through the
     scripted close and lift. Raises unless the play launched the kernel
-    exactly once a control step (LIFT_STEPS) and its numbers are finite;
-    the success rate is not gated."""
+    exactly once a control step (LIFT_STEPS), in the geometry the rule
+    picks at 128 envs, and its numbers are finite; the success rate is not
+    gated."""
     train = _run([sys.executable, "-m", "thormang_isaacgym_tpu_torch.runtime.train",
                   f"task={LIFT_TASK}", f"train={LIFT_TASK}PPO", "num_envs=128", "max_iterations=2",
                   f"output_root={root}", "experiment=lift"], "lift training")
     import eval_factory_lift_torch
     res = eval_factory_lift_torch.main([os.path.join(root, "lift", "nn", "last.ckpt")])
+    # the launch geometry the play's 128 envs take
+    task = _task(LIFT_TASK, torch.device("cuda"))
+    geo = geometry(fused.build_fused_step_fn(task.model, task.sim_params), task.num_envs)
     out = dict(res, launches=res["kernel_launches"], expected_launches=LIFT_STEPS,
-               train_seconds=train["seconds"])
+               train_seconds=train["seconds"], **geo)
     log("lift", task=LIFT_TASK, **out)
     finite = all(np.isfinite(res[k]) for k in ("reach_keypoint_dist", "success_rate",
                                                  "nut_height_above_table_mean"))
     if res["kernel_launches"] != LIFT_STEPS or res["num_envs"] != 128 or not finite:
         raise AssertionError(f"the lift play: {res}")
+    ran = res["kernel_geometry"]
+    if (ran["layout"], ran["lanes"], ran["block"]) != (geo["layout"], geo["lanes"], geo["block"]):
+        raise AssertionError(f"the lift played in {ran}, not the rule's {geo}")
     return out
 
 
@@ -1972,9 +2033,10 @@ def main() -> None:
         with local_layout(mode == "flat_local"):
             timing[mode] = phase_time(name, device, stack_bytes.get(mode))
     for name in FRANKA_TASKS:
-        timing[name] = phase_time(name, device, stack_bytes["boxes"])
+        timing[name] = phase_time(name, device, stack_by_entry=stack_bytes)
     for name in NEW_TASKS:
-        timing[name] = phase_time(name, device, stack_bytes["boxes"] if name == "Trifinger" else None)
+        timing[name] = phase_time(name, device,
+                                  stack_by_entry=stack_bytes if name == "Trifinger" else None)
     timing[MA_TASK] = phase_time(MA_TASK, device, stack_bytes[MA_TASK])
     timing[AMP_TASK] = phase_time(AMP_TASK, device, stack_bytes["flat_split_lean"])
     for mode, name in modes:
@@ -2030,6 +2092,7 @@ def main() -> None:
         boxes=(("AllegroHand", "boxes"), *((n, n) for n in FRANKA_TASKS),
                ("Trifinger", "Trifinger"), (MA_TASK, MA_TASK),
                ("Lift:FactoryPick", "Lift:FactoryPick")),
+        box_wide=(),
         tendons=(("ShadowHand", "tendons"), ("ShadowHand:AsymmLSTM", "ShadowHand:AsymmLSTM"),
                  (DR_LABEL, DR_LABEL), (DR_EVENTS, DR_EVENTS)))
     # phase 3's times of the tasks in each instance's launches; ShadowHand
@@ -2057,11 +2120,22 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lift_") as tmp:
         train["Lift:FactoryPick"] = phase_lift(tmp)
         train["Scaling:Ant"] = phase_scaling(tmp)
+    # the box instance's launches by layout: each task in the entry of the
+    # layout it trained in (the lift's, at 128 envs, the rule's there)
+    box_tasks = by_task["boxes"]
+    by_task["boxes"] = tuple((n, k) for n, k in box_tasks if train[k]["layout"] == "local")
+    by_task["box_wide"] = tuple((n, k) for n, k in box_tasks if train[k]["layout"] == "wide")
+    if not by_task["box_wide"]:
+        raise AssertionError("no task trained in the box instance's wide layout")
+    # the wide layout's entry carries the times of its first timed task
+    timing["box_wide"] = next(timed[n] for n, _ in by_task["box_wide"] if n in timed)
     # the lean split layout's first launch ran first, the split one's adds
-    # to it, the local one's to both, the box instance's to all three
+    # to it, the local one's to both, then the box instance's two layouts
+    # in the order they first ran (phase 2)
     timing["flat_split_lean"] = timing[AMP_TASK]
     reserved, held = {}, 0
-    for mode in ("flat_split_lean", "flat_split", "flat_local", "boxes"):
+    for mode in ("flat_split_lean", "flat_split", "flat_local",
+                 *(k for k in stack_bytes if k in ("boxes", "box_wide"))):
         held += stack_bytes[mode]
         reserved[mode] = held
     kernels = [dict(
@@ -2072,16 +2146,20 @@ def main() -> None:
         else train[mode]["launches"],
         max_abs_err=max_err[mode], ms=timing[mode]["ms"], plain_ms=timing[mode]["plain_ms"],
         bound_ms=timing[mode]["bound_ms"], bound_by=timing[mode]["bound_by"], library_ms=None,
+        **{k: timing[mode][k] for k in ("layout", "lanes", "block")},
         **({"also_replaces": ALSO_REPLACES[mode]} if mode in ALSO_REPLACES else {}),
         **({k: timing[mode][k] for k in ("tendon_block_ms", "tendon_bound_ms")}
            if mode == "tendons" else {}),
         **({"first_launch_stack_bytes": stack_bytes[mode], "stack_reserved_bytes": reserved[mode]}
            if mode in reserved else {}),
+        **({"geometry_by_task": {n: {g: train[k][g] for g in ("layout", "lanes", "block")}
+                                  for n, k in by_task[mode]}}
+           if mode in ("boxes", "box_wide") else {}),
         **({"launches_by_task": {n: train[k]["launches"] for n, k in by_task[mode]},
             **{f"{key}_by_task": {n: timed[n][key] for n, _ in by_task[mode] if n in timed}
                for key in ("ms", "bound_ms")}}
            if mode in by_task else {}))
-        for mode, _ in (*modes, ("flat_split_lean", AMP_TASK))]
+        for mode in (*(m for m, _ in modes), "flat_split_lean", "box_wide")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_info["kind"],
                                              "count": dev_info["count"]}}), flush=True)

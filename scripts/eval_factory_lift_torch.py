@@ -25,7 +25,8 @@ before the close.
 
 Prints one JSON line with the JAX script's keys (checkpoint, num_envs,
 reach_keypoint_dist, phases, nut_height_above_table_mean, lift_threshold_m,
-success_rate) and the device, the kernel launches and the seconds.
+success_rate) and the device, the kernel launches, the last launch's
+geometry (``FusedStep.last_geometry``; null on the CPU) and the seconds.
 
 Run: python scripts/eval_factory_lift_torch.py runs/factory_pick_r5/nn/best.ckpt [--device cpu]
 """
@@ -141,6 +142,7 @@ def main(argv=None, *, num_envs: int = 128, reach: int = 96, align: int = ALIGN_
         "success_rate": round(float(lifted(nut_z).float().mean()), 4),
         "align": align, "device": str(env.device),
         "kernel_launches": env.physics_step.launches - launches0,
+        "kernel_geometry": env.physics_step.last_geometry,
         "seconds": round(time.perf_counter() - t0, 2),
     }
     print(json.dumps(out), flush=True)

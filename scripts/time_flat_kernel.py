@@ -7,13 +7,19 @@ layout's budget too; the local layout in a tree without it),
 AnymalTerrain (its heightfield instance), BallBalance (its pair instance,
 the round kinds and attractors), the pair-capsule scene of chip_smoke.py
 (the pair instance's sphere-capsule and capsule-capsule kinds, 4096 envs),
-AllegroHand (its box instance) or ShadowHand (the box instance with the
-tendon block) at the task YAML's width (4096 envs; the hands 16384), from
-the port package found in a given source tree, so two trees (a change and
-its parent) can be compared on one card in one call.
+AllegroHand (its box instance), ShadowHand (the box instance with the
+tendon block), FrankaCabinet, FrankaCubeStack, FactoryTaskNutBoltPick,
+FactoryTaskNutBoltScrew, MA_OP3 or Trifinger (the box instance at
+chip_smoke.py's widths: 4096, 8192, 128, 128, 4096 and 16384 envs, in the
+contact states chip_smoke.py places them in, ``chip_smoke.random_inputs``)
+at the task YAML's width (4096 envs; the hands 16384), from the port package
+found in a
+given source tree, so two trees (a change and its parent) can be compared on
+one card in one call.
 
-    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|Anymal|AnymalTerrain|BallBalance|PairCapsule|AllegroHand|ShadowHand|HumanoidMJCF|HumanoidAMP]
-        [--iters 300] [--envs N] [--block N [N ...]] [--local] [--split] [--stack] [--dump PATH]
+    python3 scripts/time_flat_kernel.py [--tree DIR] [--task Ant|Anymal|AnymalTerrain|BallBalance|PairCapsule|AllegroHand|ShadowHand|HumanoidMJCF|HumanoidAMP|FrankaCabinet|FrankaCubeStack|FactoryTaskNutBoltPick|FactoryTaskNutBoltScrew|MA_OP3|Trifinger]
+        [--iters 300] [--envs N] [--block N [N ...]] [--local] [--lanes G [G ...]]
+        [--split] [--stack] [--dump PATH]
     python3 scripts/time_flat_kernel.py --compare A.npy B.npy
 
 DIR is a checkout holding ``thormang_isaacgym_tpu_torch/`` (default: this
@@ -49,6 +55,13 @@ Options:
   --local    also time each block size with the budget set to 0, the
              local-memory route of a model over the budget (in turns with
              the layout the budget rule picks).
+  --lanes G [G ...]   the box instance: each (G, block) of --lanes x
+             --block is timed in turns as the forced geometry (G = 1 the
+             local layout, else the wide layout with G lanes an env; block
+             in threads), in the order given and then in reverse, and its
+             outputs held bit for bit against the first's; without it the
+             box instance's launches take ``pick_box_geometry``'s. --dump
+             takes the first.
   --split    also time the same inputs with the pair table cut out (header
              int 39 set to 0), with the ground candidates cut out (header
              int 7), and with both: copies of the model tables, the kernel's
@@ -69,7 +82,7 @@ Options:
              equal bit for bit. Needs no card.
   --sass P   save ``cuobjdump -sass`` of the tree's kernel library to P.
   --compare-sass A B   per instance (its template flags, the layout last:
-             0 local, 1 shared, 2 split, 3 lean split; a tree with a bool kSM flag gives 0
+             0 local, 1 shared, 2 split, 3 lean split, 4 wide; a tree with a bool kSM flag gives 0
              or 1, one without it 0), whether two such files hold the same
              instructions, the function names aside. Needs no card.
 """
@@ -88,11 +101,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # each task's instance (kHF, kPA, kBX)
 INSTANCE = {"Ant": (0, 0, 0), "Anymal": (0, 0, 0), "AnymalTerrain": (1, 0, 0),
             "BallBalance": (0, 1, 0), "PairCapsule": (0, 1, 0), "AllegroHand": (0, 1, 1),
-            "ShadowHand": (0, 1, 1), "HumanoidMJCF": (0, 0, 0), "HumanoidAMP": (0, 0, 0)}
+            "ShadowHand": (0, 1, 1), "HumanoidMJCF": (0, 0, 0), "HumanoidAMP": (0, 0, 0),
+            "FrankaCabinet": (0, 1, 1), "FrankaCubeStack": (0, 1, 1),
+            "FactoryTaskNutBoltPick": (0, 1, 1), "FactoryTaskNutBoltScrew": (0, 1, 1),
+            "MA_OP3": (0, 1, 1), "Trifinger": (0, 1, 1)}
+# the box instance's tasks at widths where its envs leave SMs idle, placed
+# and driven as chip_smoke.py's phases place them
+WIDE_TASKS = ("FrankaCabinet", "FrankaCubeStack", "FactoryTaskNutBoltPick",
+              "FactoryTaskNutBoltScrew", "MA_OP3", "Trifinger")
 _HEADER = 48
 # the kernel's layouts by their codes (kLocal, kShared, kSplit, kSplitLean in
 # csrc/fused_step.cu)
-LAYOUT_CODES = {"local": 0, "shared": 1, "split": 2, "split_lean": 3}
+LAYOUT_CODES = {"local": 0, "shared": 1, "split": 2, "split_lean": 3, "wide": 4}
 # the tasks whose cfg/task YAML carries another name (the port's tasks.CFG_NAMES;
 # a parent tree may not have it)
 CFG_NAMES = {"HumanoidMJCF": "Humanoid"}
@@ -253,6 +273,7 @@ def main() -> None:
     ap.add_argument("--envs", type=int, default=0)
     ap.add_argument("--block", type=int, nargs="+", default=[])
     ap.add_argument("--local", action="store_true")
+    ap.add_argument("--lanes", type=int, nargs="+", default=[])
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--stack", action="store_true")
     ap.add_argument("--dump", default="")
@@ -291,6 +312,18 @@ def main() -> None:
         m = task.model
         step = fused.build_fused_step_fn(m, task.sim_params)
         packed = step.pack(*chip_smoke.pair_capsule_inputs(m, np.random.default_rng(1), dev))
+    elif args.task in WIDE_TASKS:
+        # chip_smoke.py's task at its width and sim block, its contact state
+        # and controls, the torque rows of the task's sensor bodies
+        sys.path.insert(0, ROOT)
+        import chip_smoke
+        if args.envs:
+            chip_smoke.ENVS[args.task] = args.envs
+        task = chip_smoke._task(args.task, dev)
+        B, m = task.num_envs, task.model
+        step = fused.build_fused_step_fn(m, task.sim_params,
+                                         need_torque=getattr(task, "net_torque_bodies", None) or False)
+        packed = step.pack(*chip_smoke.random_inputs(task, np.random.default_rng(1), dev))
     else:
         import yaml
         with open(os.path.join(ROOT, "cfg", "task",
@@ -321,7 +354,13 @@ def main() -> None:
             subprocess.run([os.path.join(os.path.dirname(fused._nvcc()), "cuobjdump"), "-sass",
                             lib._name], stdout=f, check=True)
     layouts = {}
-    if args.block or args.local:
+    if args.lanes:
+        # the box instance's geometries, forced in turns
+        for blk in args.block or [128]:
+            for g in args.lanes:
+                layouts[f"{g}x{blk}"] = ("local" if g == 1 else "wide", g, blk)
+        step.force_geometry = next(iter(layouts.values()))
+    elif args.block or args.local:
         if not hasattr(step, "block"):
             raise RuntimeError(f"the wrapper in {tree} has no block size to set")
         budget = fused.SMEM_BUDGET
@@ -355,13 +394,35 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.iters
 
-    turns = {}
+    def geometry() -> dict:
+        """The launch's geometry: layout, lanes, block, shared bytes, blocks
+        (a tree before the wide layout: its block and layout)."""
+        if hasattr(step, "launch_geometry"):
+            layout, lanes, block, smem = step.launch_geometry(B)
+            return dict(layout=layout, lanes=lanes, block=block, smem_bytes=smem,
+                        blocks=-(-B * lanes // block))
+        block = getattr(step, "block", 128)
+        smem = getattr(step, "smem_bytes", 0)
+        return dict(layout=getattr(step, "layout", "shared" if smem else "local"), lanes=1,
+                    block=block, smem_bytes=smem, blocks=-(-B // block))
+
+    def set_layout(key):
+        if args.lanes:
+            step.force_geometry = layouts[key]
+        else:
+            step.block, fused.SMEM_BUDGET = layouts[key]
+
+    turns, first = {}, None
     for key in [*layouts, *reversed(layouts)]:
-        step.block, fused.SMEM_BUDGET = layouts[key]
-        turns.setdefault(key, dict(layout=getattr(step, "layout", None), smem_bytes=step.smem_bytes,
-                                   ms=[]))["ms"].append(time_ms())
+        set_layout(key)
+        if key not in turns:
+            # its outputs on the seeded inputs against the first geometry's
+            got = step.launch(packed).view(torch.int32).clone()
+            first = got if first is None else first
+            turns[key] = dict(geometry(), bitwise_equal_to_first=bool(torch.equal(got, first)), ms=[])
+        turns[key]["ms"].append(time_ms())
     if layouts:
-        step.block, fused.SMEM_BUDGET = layouts[next(iter(layouts))]
+        set_layout(next(iter(layouts)))
     ms = {"as_is": next(iter(turns.values()))["ms"][0] if turns else time_ms()}
     tendon = {}
     if args.split:
@@ -385,17 +446,21 @@ def main() -> None:
             from chip_smoke import tendon_bound
             ms["tendon_block"] = ms["as_is"] - ms["no_tendons"]
             tendon = dict(tendon_bound=tendon_bound(m, step.n_steps, B))
-    smem = getattr(step, "smem_bytes", 0)
-    layout = getattr(step, "layout", "shared" if smem else "local")
+    geo = geometry()
     log = fused.build_library().log.splitlines()
-    names = mangled(INSTANCE[args.task], layout)
-    at = [i for i, ln in enumerate(log) if "Compiling entry" in ln
-          and any(n in ln for n in names)]
-    inst = [ln.strip() for ln in log[at[0]:at[0] + 4] if "stack" in ln or "registers" in ln] \
-        if at else []
+
+    def ptxas(layout: str) -> list:
+        names = mangled(INSTANCE[args.task], layout)
+        at = [i for i, ln in enumerate(log) if "Compiling entry" in ln
+              and any(n in ln for n in names)]
+        return [ln.strip() for ln in log[at[0]:at[0] + 4] if "stack" in ln or "registers" in ln] \
+            if at else []
+
+    inst = ptxas(geo["layout"])
+    for turn in turns.values():
+        turn["ptxas"] = ptxas(turn["layout"])
     print(json.dumps({"tree": os.path.relpath(tree, ROOT), "card": card, "task": args.task,
-                      "envs": B, "iters": args.iters, "ms": ms["as_is"],
-                      "block": getattr(step, "block", 128), "layout": layout, "smem_bytes": smem,
+                      "envs": B, "iters": args.iters, "ms": ms["as_is"], **geo,
                       **({"layouts": turns} if turns else {}),
                       **({"split_ms": ms} if args.split else {}), **tendon, **stack,
                       "ptxas": inst}), flush=True)

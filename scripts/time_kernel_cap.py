@@ -47,7 +47,7 @@ def build_cap16() -> ctypes.CDLL:
         ln.strip() for ln in (res.stdout + res.stderr).splitlines()
         if "registers" in ln or "stack frame" in ln]}), flush=True)
     lib = ctypes.CDLL(so)
-    lib.fused_step_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fused_step_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.fused_step_launch.restype = ctypes.c_int
     return lib
 
@@ -69,7 +69,7 @@ def main() -> None:
         out = torch.empty(step.out_rows, cs.B, device=dev)
         err = libs[cap].fused_step_launch(mi.data_ptr(), mf.data_ptr(), None, packed.data_ptr(),
                                           out.data_ptr(), cs.B, 0, step.block,
-                                          fused.LAYOUTS.index(step.layout), step.smem_bytes,
+                                          fused.LAYOUTS.index(step.layout), step.smem_bytes, 1,
                                           torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed: CUDA error {err}")

@@ -100,7 +100,13 @@ def test_scene_matches_jax(envs, name):
     assert [k for _, _, k in collide.pairs(tm)] == ["boxbox"] * PAIRS.get(name, 20)
     assert collide.pair_candidate_count(tm) == 17 * PAIRS.get(name, 20)
     fused.check_caps(tm)
-    assert env.physics_step.pair_mode == 2 and env.physics_step.block == fused.PAIR_BLOCK
+    # the box instance; at the YAML's 128 envs on an H100's 132 SMs the wide
+    # layout in blocks of one warp, 32 lanes an env on 12 bodies, 16 on the
+    # Screw task's 13
+    assert env.physics_step.pair_mode == 2
+    lanes = 16 if tm.nb == 13 else 32
+    assert tm.nb in (12, 13) and (tm.nb == 13) == (name == "FactoryTaskNutBoltScrew")
+    assert env.physics_step.launch_geometry(128, sms=132) == ("wide", lanes, 32, 0)
     assert tt.ground_height_fn() == jt.ground_height_fn() == factory.TABLE_Z
     assert tt.cfg_ctrl == jt.cfg_ctrl
     np.testing.assert_array_equal(tt.fr_ids, jt.fr_ids)

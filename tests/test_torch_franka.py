@@ -144,7 +144,11 @@ def _scene_checks(jenv, env, kinds):
     got = [k for _, _, k in collide.pairs(tm)]
     assert {k: got.count(k) for k in set(got)} == kinds
     fused.check_caps(tm)
-    assert env.physics_step.pair_mode == 2 and env.physics_step.block == fused.PAIR_BLOCK
+    # the box instance; at the YAML's width (4096, 8192) on an H100's 132 SMs
+    # one thread an env in blocks of 32
+    width = _yaml("task", f"{type(env.task).__name__}.yaml")["env"]["numEnvs"]
+    assert env.physics_step.pair_mode == 2
+    assert env.physics_step.launch_geometry(width, sms=132) == ("local", 1, 32, 0)
     np.testing.assert_array_equal(env.task.fr_ids, jenv.task.fr_ids)
     assert (env.task.num_obs, env.task.num_actions) == (jenv.task.num_obs, jenv.task.num_actions)
 
@@ -310,7 +314,7 @@ def test_op_path_matches_jax_op_path(name):
 
 
 @pytest.mark.slow
-def test_arm_kernel_source_matches_jax_kernel_body(tmp_path_factory):
+def test_arm_kernel_source_matches_jax_kernel_body():
     """The host-compiled kernel (tests/test_torch_fused.py) on the Franka arm
     alone against the JAX kernel body in interpret mode, as
     tests/test_fused.py's fixed-base check runs it: B = 2, q 0.3 x normal,
@@ -319,8 +323,8 @@ def test_arm_kernel_source_matches_jax_kernel_body(tmp_path_factory):
     from thormang_isaacgym_tpu.ops.fused import build_fused_step_fn as jax_fused
     from thormang_isaacgym_tpu.ops.sim import SimParams as JSimParams, zero_controls as jzero
     from thormang_isaacgym_tpu_torch.ops.sim import SimParams, zero_controls
-    from test_torch_fused import _host_call, host_kernel
-    lib = host_kernel.__wrapped__(tmp_path_factory)
+    from test_torch_fused import _host_call, build_host_kernel
+    lib = build_host_kernel()
     jm, m = jfranka.load_franka(), franka.load_franka()
     jstep = jax.jit(jax_fused(jm, JSimParams(dt=1 / 60, substeps=2), interpret=True))
     step = fused.build_fused_step_fn(m, SimParams(dt=1 / 60, substeps=2))

@@ -17,7 +17,14 @@ heightfield, and on a body held by two attractors. The box
 instance (block B6: sphere vs box, capsule vs box, box vs box) is held on the
 two-actor scenes of tests/test_fused.py's box-kind checks and a ball on a
 cube, and on AllegroHand (the cube on the palm and among the fingers, or
-pressed into the palm's edge), step by step (``STEPWISE``). The tendon block
+pressed into the palm's edge), step by step (``STEPWISE``); its wide layout
+(G lanes an env, the host build's threads) bit for bit against its local
+layout at G = 2, 4 and 32 on the box scenes, FrankaCabinet, the Screw task
+and MA_OP3 (one env a warp), on the card at G = 2-16 on MA_OP3 (several envs
+a warp, a pair apart in one env of a warp and near in another:
+``test_cuda_wide_layout_matches_local``), and its launch geometry
+(``pick_box_geometry``) at the widths and body counts its sweeps measured.
+The tendon block
 (B4b) is held on the two-link tendon scene of tests/test_fused.py (the
 coupled length on both sides of each bound and inside) and on ShadowHand
 (four tendons, the cube on its palm), step by step. HumanoidMJCF (22 bodies,
@@ -33,8 +40,12 @@ rtol 5e-3. This file imports no JAX, so it also runs on a GPU machine
 without it: ``python -m pytest tests/test_torch_fused.py --noconftest``."""
 import ctypes
 import dataclasses
+import fcntl
+import hashlib
+import os
 import shutil
 import subprocess
+import tempfile
 
 import numpy as np
 import pytest
@@ -572,10 +583,13 @@ def _rot(qw, v):
 
 
 _HOST_PRELUDE = """#include <algorithm>
+#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <math.h>
+#include <thread>
+#include <vector>
 using std::max;
 using std::min;
 #define __global__
@@ -583,65 +597,108 @@ using std::min;
 #define __host__
 #define __shared__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __syncthreads()
-struct HostDim { int x; };
-static HostDim blockIdx, threadIdx, blockDim;
-// one env per call: a warp vote sees the calling thread alone
+struct HostDim { int x, y; };
+static thread_local HostDim blockIdx, threadIdx, blockDim;
+// one env per call: a warp vote sees the calling thread's env alone (in the
+// wide layout its G lanes, which hold the same state and vote alike)
 inline bool __any_sync(unsigned, bool p) { return p; }
+// the wide layout's G lanes of one env run as G host threads, which exchange
+// through an array between two barriers: __ballot_sync sets each lane's bit
+// at its place in the warp (lane threadIdx.y G + threadIdx.x, modulo 32),
+// __shfl_sync reads the value of the group's lane src modulo G
+static std::barrier<>* host_group = nullptr;
+static unsigned host_votes[32];
+static float host_values[32];
+inline unsigned __ballot_sync(unsigned, bool p) {
+  host_votes[threadIdx.x] = p ? 1u << ((threadIdx.y * blockDim.x + threadIdx.x) & 31) : 0u;
+  host_group->arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < blockDim.x; ++i) r |= host_votes[i];
+  host_group->arrive_and_wait();
+  return r;
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  host_values[threadIdx.x] = v;
+  host_group->arrive_and_wait();
+  const float r = host_values[src & (blockDim.x - 1)];
+  host_group->arrive_and_wait();
+  return r;
+}
 """
-# One CUDA thread per call, blockDim.x = the launch's block size. The shared
-# and split instances' buffer is a static array: before each thread every word is set
-# to a NaN canary, and after it every word outside the thread's lane
-# (threadIdx.x x lane words, the lane words) must still hold it, so a lane
-# that strays out of its slice is counted (the return value), and one that
-# reads a word it never wrote turns its outputs to NaN.
+# One CUDA thread per call, blockDim.x = the launch's block size; in the
+# wide layout one env per call, its G lanes as G threads (blockDim (G,
+# envs a block)). The shared and split instances' buffer is a static
+# array: before each env every word is set to a NaN canary, and after it
+# every word outside the env's slice (its lane's) must still hold it, so a
+# lane that strays out of its slice is counted (the return value), and one
+# that reads a word it never wrote turns its outputs to NaN.
 _HOST_LOOP = """
 float sweep_smem[232448 / 4];
 static const uint32_t kCanary = 0x7fc0dead;
 
 extern "C" int host_launch(const int* mi, const float* mf, const float* hf, const float* in,
-                           float* out, int B, int pairs, int threads, int layout, int smem) {
-  blockDim.x = threads;
+                           float* out, int B, int pairs, int threads, int layout, int smem,
+                           int lanes) {
   // the model tables first (header ints 44-45: their lengths; the shared and
-  // split layouts without pairs only), then the lanes
+  // split layouts without pairs only), then the envs' slices
   const int tables = layout != kLocal && !pairs ? mi[44] + mi[45] : 0, words = smem / 4;
-  const int lane = (words - tables) / threads;
+  const int envs = threads / lanes, slice = (words - tables) / envs;
   int strays = 0;
   for (int b = 0; b < B; ++b) {
-    blockIdx.x = b / threads;
-    threadIdx.x = b % threads;
     for (int w = 0; w < words; ++w) std::memcpy(&sweep_smem[w], &kCanary, 4);
-    if (hf && pairs == 2)
-      fused_step_kernel<true, true, true, kLocal>(mi, mf, hf, in, out, B);
-    else if (hf && pairs == 1 && layout == kShared)
-      fused_step_kernel<true, true, false, kShared>(mi, mf, hf, in, out, B);
-    else if (hf && pairs == 1)
-      fused_step_kernel<true, true, false, kLocal>(mi, mf, hf, in, out, B);
-    else if (hf && layout == kShared)
-      fused_step_kernel<true, false, false, kShared>(mi, mf, hf, in, out, B);
-    else if (hf)
-      fused_step_kernel<true, false, false, kLocal>(mi, mf, hf, in, out, B);
-    else if (pairs == 2)
-      fused_step_kernel<false, true, true, kLocal>(mi, mf, hf, in, out, B);
-    else if (pairs == 1 && layout == kShared)
-      fused_step_kernel<false, true, false, kShared>(mi, mf, hf, in, out, B);
-    else if (pairs == 1)
-      fused_step_kernel<false, true, false, kLocal>(mi, mf, hf, in, out, B);
-    else if (layout == kShared)
-      fused_step_kernel<false, false, false, kShared>(mi, mf, hf, in, out, B);
-    else if (layout == kSplit)
-      fused_step_kernel<false, false, false, kSplit>(mi, mf, hf, in, out, B);
-    else if (layout == kSplitLean)
-      fused_step_kernel<false, false, false, kSplitLean>(mi, mf, hf, in, out, B);
-    else
-      fused_step_kernel<false, false, false, kLocal>(mi, mf, hf, in, out, B);
+    if (layout == kWide) {
+      std::barrier<> group(lanes);
+      host_group = &group;
+      std::vector<std::thread> lane;
+      for (int j = 0; j < lanes; ++j)
+        lane.emplace_back([=] {
+          blockDim = {lanes, envs};
+          blockIdx.x = b / envs;
+          threadIdx = {j, b % envs};
+          if (hf)
+            fused_step_kernel<true, true, true, kWide>(mi, mf, hf, in, out, B);
+          else
+            fused_step_kernel<false, true, true, kWide>(mi, mf, hf, in, out, B);
+        });
+      for (auto& t : lane) t.join();
+      host_group = nullptr;
+    } else {
+      blockDim.x = threads;
+      blockIdx.x = b / threads;
+      threadIdx.x = b % threads;
+      if (hf && pairs == 2)
+        fused_step_kernel<true, true, true, kLocal>(mi, mf, hf, in, out, B);
+      else if (hf && pairs == 1 && layout == kShared)
+        fused_step_kernel<true, true, false, kShared>(mi, mf, hf, in, out, B);
+      else if (hf && pairs == 1)
+        fused_step_kernel<true, true, false, kLocal>(mi, mf, hf, in, out, B);
+      else if (hf && layout == kShared)
+        fused_step_kernel<true, false, false, kShared>(mi, mf, hf, in, out, B);
+      else if (hf)
+        fused_step_kernel<true, false, false, kLocal>(mi, mf, hf, in, out, B);
+      else if (pairs == 2)
+        fused_step_kernel<false, true, true, kLocal>(mi, mf, hf, in, out, B);
+      else if (pairs == 1 && layout == kShared)
+        fused_step_kernel<false, true, false, kShared>(mi, mf, hf, in, out, B);
+      else if (pairs == 1)
+        fused_step_kernel<false, true, false, kLocal>(mi, mf, hf, in, out, B);
+      else if (layout == kShared)
+        fused_step_kernel<false, false, false, kShared>(mi, mf, hf, in, out, B);
+      else if (layout == kSplit)
+        fused_step_kernel<false, false, false, kSplit>(mi, mf, hf, in, out, B);
+      else if (layout == kSplitLean)
+        fused_step_kernel<false, false, false, kSplitLean>(mi, mf, hf, in, out, B);
+      else
+        fused_step_kernel<false, false, false, kLocal>(mi, mf, hf, in, out, B);
+    }
     for (int w = 0; w < words; ++w) {
       uint32_t x;
       std::memcpy(&x, &sweep_smem[w], 4);
-      const bool own = w < tables || (w >= tables + threadIdx.x * lane &&
-                                      w < tables + (threadIdx.x + 1) * lane);
+      const int e = b % envs;
+      const bool own = w < tables || (w >= tables + e * slice && w < tables + (e + 1) * slice);
       strays += !own && x != kCanary;
     }
   }
@@ -660,30 +717,50 @@ extern "C" int host_split_lane_words(int nb, int nj, int nq, int nv, int nc) {
 extern "C" int host_lean_lane_words(int nb, int nj, int nq, int nv, int nc) {
   return lean_lane_words(nb, nj, nq, nv, nc);
 }
+
+extern "C" int host_wide_lane_words() { return wide_lane_words(); }
 """
 
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+def build_host_kernel() -> ctypes.CDLL:
+    """The kernel source built as host C++ (with g++) and loaded. The
+    library goes to the temp directory under a name keyed by the hash of
+    the source and the compiler's command, so the test files and pytest's
+    worker processes that need it share one build; a lock file holds the
+    others while the first builds."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source for the CPU")
     src = open(fused.SOURCE).read().replace("#include <cuda_runtime.h>", "")
-    src = src[:src.index("// Plain C entry point")]
-    d = tmp_path_factory.mktemp("host_kernel")
-    cpp, so = d / "fused_step_host.cpp", d / "libfused_step_host.so"
-    cpp.write_text(_HOST_PRELUDE + src + _HOST_LOOP)
-    subprocess.run([cxx, "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
-                    "-o", str(so), str(cpp)], check=True)
-    lib = ctypes.CDLL(str(so))
-    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    src = _HOST_PRELUDE + src[:src.index("// Plain C entry point")] + _HOST_LOOP
+    cmd = [cxx, "-O1", "-ffp-contract=off", "-std=c++20", "-pthread", "-shared", "-fPIC"]
+    tag = hashlib.sha256((src + " ".join(cmd)).encode()).hexdigest()[:16]
+    d = os.path.join(tempfile.gettempdir(), "thormang_host_kernel")
+    os.makedirs(d, exist_ok=True)
+    so = os.path.join(d, f"libfused_step_host_{tag}.so")
+    with open(so + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            cpp = so[:-3] + ".cpp"
+            with open(cpp, "w") as f:
+                f.write(src)
+            subprocess.run([*cmd, "-o", so + ".tmp", cpp], check=True)
+            os.replace(so + ".tmp", so)
+    lib = ctypes.CDLL(so)
+    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     lib.host_launch.restype = ctypes.c_int
     lib.host_lane_words.argtypes = [ctypes.c_int] * 8
     lib.host_lane_words.restype = ctypes.c_int
     for fn in (lib.host_split_lane_words, lib.host_lean_lane_words):
         fn.argtypes = [ctypes.c_int] * 5
         fn.restype = ctypes.c_int
+    lib.host_wide_lane_words.restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="session")
+def host_kernel():
+    return build_host_kernel()
 
 
 def _model(name):
@@ -886,15 +963,22 @@ def _inputs(name, model, task, device, ground=None):
     return model.default_params(device).batch(B), t(q), t(qd), ctrl, t(wrench)
 
 
+# the box instance's geometry on the host unless a test forces another: the
+# local layout in blocks of 128, as at 16384 envs
+HOST_BOX_GEOMETRY = ("local", 1, 128)
+
+
 def _host_call(lib, step, params, q, qd, ctrl, wrench):
     packed = step.pack(params, q, qd, ctrl, wrench)
     mi, mf = (torch.as_tensor(x) for x in step._tables)
     hf = step.hf.table.data_ptr() if step.hf is not None else None
     out = torch.full((step.out_rows, q.shape[0]), float("nan"))
+    layout, lanes, block, smem = (*HOST_BOX_GEOMETRY, 0) \
+        if step.pair_mode == 2 and step.force_geometry is None else step.launch_geometry(q.shape[0])
     strays = lib.host_launch(mi.data_ptr(), mf.data_ptr(), hf, packed.data_ptr(), out.data_ptr(),
-                             q.shape[0], int(step.pair_mode), step.block,
-                             fused.LAYOUTS.index(step.layout), step.smem_bytes)
-    assert strays == 0, f"{strays} shared words written outside their lane"
+                             q.shape[0], int(step.pair_mode), block, fused.LAYOUTS.index(layout),
+                             smem, lanes)
+    assert strays == 0, f"{strays} shared words written outside their env's slice"
     return step.unpack(out, q.shape[0])
 
 
@@ -1055,6 +1139,77 @@ def test_host_kernel_ragged_block(host_kernel, monkeypatch, name):
         assert torch.equal(a, b)
 
 
+# the wide layout's cases (two-actor box scenes, the Franka family's
+# contact states, MA_OP3's) and its lanes an env, each with a block size
+WIDE_CASES = ["boxbox", "capbox", "spherebox", "franka_cabinet", "factory_screw", "ma_op3"]
+WIDE_BLOCK = {2: 128, 4: 64, 32: 128}
+WIDE_ENVS = 5          # 2 blocks of 4 envs at G = 32: a ragged edge
+
+
+@pytest.mark.parametrize("lanes", sorted(WIDE_BLOCK))
+@pytest.mark.parametrize("name", WIDE_CASES)
+def test_host_wide_layout_matches_local(host_kernel, name, lanes):
+    """The box instance's wide layout on the host, its G lanes an env as G
+    threads exchanging the pair narrowphase's candidates by (emulated) warp
+    shuffles, over 5 envs: two launches, each from the last one's outputs,
+    bit for bit the local layout's; neither layout takes shared memory. A
+    pair candidate is in contact in some env."""
+    model, sp, task, ground = _model(name)
+    step = _step(model, sp, task, ground, "cpu")
+    assert step.pair_mode == 2
+    params, q, qd, ctrl, w = _first(WIDE_ENVS, model, *_inputs(name, model, task, "cpu", ground)[1:])
+    fr = forward_kinematics(model, q, qd)
+    assert bool((torch.stack([c[5] for c in collide.candidates(model, fr)], -1) > 0).any())
+    outs = {}
+    for geometry in (HOST_BOX_GEOMETRY, ("wide", lanes, WIDE_BLOCK[lanes])):
+        step.force_geometry = geometry
+        assert step.launch_geometry(WIDE_ENVS) == (*geometry, 0)
+        qa, qda = q, qd
+        for _ in range(2):
+            qa, qda, na = _host_call(host_kernel, step, params, qa, qda, ctrl, w)
+            outs.setdefault(geometry[0], []).extend(_bits((qa, qda, na)))
+    for a, b in zip(outs["wide"], outs["local"]):
+        assert torch.equal(a, b)
+
+
+def test_box_geometry_rule(host_kernel):
+    """ops/fused.py pick_box_geometry, a pure function of the width, the
+    body count and the SM count, on an H100's 132 SMs, at the widths its
+    sweeps measured (PERF.md): the hands at 16384 envs keep the local layout
+    in blocks of 128; FrankaCubeStack's 8192 envs, FrankaCabinet's and
+    MA_OP3's 4096 take it in blocks of 32 (256 and 128 warps); below that
+    the wide layout in blocks of 32, G halving as the width doubles on
+    FactoryPick's 12 bodies (G = 32 at its 128 envs: 128 blocks on 128
+    SMs), smaller on more bodies (MA_OP3's 47: G = 32 at its CLI's 8 envs,
+    8 at 128, 2 at 512), and one thread an env in blocks of 32 where G would
+    be 1 (MA_OP3 at 1024, FrankaCabinet's 15 bodies at 2048). A wide lane's
+    slot is the kernel's ``wide_lane_words``. The wrapper's geometry is the
+    rule's for its model at the card's SM count, or the forced one."""
+    assert fused.wide_lane_words() == host_kernel.host_wide_lane_words() == 7 * 17
+    want = {(16384, 18): ("local", 1, 128), (16384, 26): ("local", 1, 128),
+            (8192, 12): ("local", 1, 32), (4096, 15): ("local", 1, 32),
+            (4096, 47): ("local", 1, 32), (4096, 12): ("local", 1, 32),
+            (128, 12): ("wide", 32, 32), (256, 12): ("wide", 16, 32),
+            (512, 12): ("wide", 8, 32), (1024, 12): ("wide", 4, 32),
+            (2048, 12): ("wide", 2, 32), (128, 13): ("wide", 16, 32),
+            (8, 47): ("wide", 32, 32), (128, 47): ("wide", 8, 32), (512, 47): ("wide", 2, 32),
+            (1024, 47): ("local", 1, 32), (2048, 47): ("local", 1, 32),
+            (128, 15): ("wide", 16, 32), (512, 15): ("wide", 4, 32),
+            (2048, 15): ("local", 1, 32), (1024, 11): ("wide", 4, 32)}
+    for (envs, bodies), geometry in want.items():
+        assert fused.pick_box_geometry(envs, bodies, 132) == geometry
+    layout, lanes, block = want[128, 12]
+    assert min(132, -(-128 * lanes // block)) >= 100
+    model, sp, task, ground = _model("ma_op3")
+    assert model.nb == 47
+    step = _step(model, sp, task, ground, "cpu")
+    for (envs, bodies), geometry in want.items():
+        if bodies == 47:
+            assert step.launch_geometry(envs, sms=132) == (*geometry, 0)
+    step.force_geometry = ("wide", 4, 64)
+    assert step.launch_geometry(4096, sms=132) == ("wide", 4, 64, 0)
+
+
 def chain_model(n_bodies: int):
     """A floating sphere and a chain of n_bodies - 1 capsule links on
     revolute joints: 2 n_bodies - 1 ground candidates."""
@@ -1212,34 +1367,75 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
     assert step.launches == 5
 
 
-@pytest.mark.parametrize("name", ["anymal_terrain", "ball_balance", "humanoid_mjcf", "humanoid_amp"])
+@pytest.mark.parametrize("name", ["anymal_terrain", "ball_balance", "humanoid_mjcf", "humanoid_amp",
+                                  "boxbox"])
 def test_cuda_refused_shared_memory_raises(cuda_device, monkeypatch, name):
     """A block asking for more dynamic shared memory than the card gives
     (the budget lifted, in blocks of 64: AnymalTerrain about 450 KB,
     BallBalance's pair instance about 310 KB; HumanoidMJCF's split layout
     and HumanoidAMP's lean split one, the budget set to that layout's bytes
     in blocks of 64, 399 KB and 453 KB) is refused by
-    cudaFuncSetAttribute, and FusedStep.launch raises; nothing runs, and the
-    next launch within the budget succeeds."""
+    cudaFuncSetAttribute, and the box instance's wide layout in blocks of
+    256 threads (G = 32: 8 envs a block), over the kernel's launch bound of
+    128, is refused at launch; FusedStep.launch raises, nothing runs, and
+    the next launch within the bounds succeeds."""
     model, sp, task, ground = _model(name)
     step = _step(model, sp, task, ground, cuda_device)
-    layout = step.layout
     params, q, qd, ctrl, w = _inputs(name, model, task, cuda_device, ground)
     packed = step.pack(params, q, qd, ctrl, w)
     budget = fused.SMEM_BUDGET
-    step.block = 64
-    own = {"split": fused.split_bytes, "split_lean": fused.lean_bytes}
-    monkeypatch.setattr(fused, "SMEM_BUDGET", 1 << 22 if layout == "shared" else own[layout](
-        model.nb, model.nj, model.nq, model.nv, step._nc, 64, tables=sum(map(len, step._tables))))
-    assert step.layout == layout and step.smem_bytes > budget
+    if step.pair_mode == 2:
+        step.force_geometry = ("wide", 32, 256)
+    else:
+        layout = step.layout
+        step.block = 64
+        own = {"split": fused.split_bytes, "split_lean": fused.lean_bytes}
+        monkeypatch.setattr(fused, "SMEM_BUDGET", 1 << 22 if layout == "shared" else own[layout](
+            model.nb, model.nj, model.nq, model.nv, step._nc, 64, tables=sum(map(len, step._tables))))
+        assert step.layout == layout and step.smem_bytes > budget
     with pytest.raises(RuntimeError, match="launch failed"):
         step.launch(packed)
     assert step.launches == 0
     monkeypatch.setattr(fused, "SMEM_BUDGET", budget)
-    step.block = fused.BLOCK
+    step.block = None if step.pair_mode == 2 else fused.BLOCK
+    step.force_geometry = None
     step.launch(packed)
     torch.cuda.synchronize()
     assert step.launches == 1
+
+
+# the wide layout with several envs a warp, each with a block size: 16, 8,
+# 4 and 2 envs a warp
+WIDE_CARD = [("wide", 2, 32), ("wide", 4, 64), ("wide", 8, 32), ("wide", 16, 128)]
+
+
+@pytest.mark.parametrize("geometry", WIDE_CARD, ids=lambda g: f"G{g[1]}x{g[2]}")
+def test_cuda_wide_layout_matches_local(cuda_device, geometry):
+    """The box instance's wide layout on the card where a warp holds several
+    envs, on MA_OP3's contact states (64 envs): in some warp a pair is apart
+    in one env and near in another, so the kernel runs that pair and
+    feeds the apart env's candidates in at depth -1 (the host build runs one
+    env a warp and skips such a pair). Two launches, each from the last
+    one's outputs, bit for bit the local layout in blocks of 128."""
+    _, lanes, _ = geometry
+    model, sp, task, ground = _model("ma_op3")
+    step = _step(model, sp, task, ground, cuda_device)
+    params, q, qd, ctrl, w = _inputs("ma_op3", model, task, cuda_device, ground)
+    apart = fused.pairs_apart(model, forward_kinematics(model, q, qd)).cpu()
+    warps = apart.reshape(-1, 32 // lanes, apart.shape[-1])
+    assert bool((warps.any(1) & ~warps.all(1)).any())
+    outs = {}
+    for geo in (("local", 1, 128), geometry):
+        step.force_geometry = geo
+        qa, qda = q, qd
+        for _ in range(2):
+            qa, qda, na = step(params, qa, qda, ctrl, w)
+            outs.setdefault(geo[0], []).extend(_bits((qa, qda, na)))
+        assert step.last_geometry["layout"] == geo[0] and step.last_geometry["lanes"] == geo[1]
+    torch.cuda.synchronize()
+    assert step.launches == 4
+    for a, b in zip(outs["wide"], outs["local"]):
+        assert torch.equal(a, b)
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -20,7 +20,9 @@ The same file goes to both packages as ``asset_path=``.
 - Reset (JAX's draws, from its own key splits, fed through ``reset_from``),
   ``pre_physics`` (JAX's steering noise and push draws fed across),
   ``post_physics`` (JAX's frame noise and command draws fed across; the
-  JAX function run op by op) and ``observation_noise`` (both settings of
+  JAX functions jitted: op by op, the combined rider's IK alone compiles
+  ~400 primitives one by one, ~25 s, and jitted it agrees with that within
+  1e-6) and ``observation_noise`` (both settings of
   ``reproduce_ref_obs_bug``) agree at atol 1e-5 (the combined rider's IK
   deltas 1e-4: a 6 x 6 solve) for all three tasks.
 - The host-C++ build of the kernel agrees with the plain step on the
@@ -360,7 +362,8 @@ def test_pre_physics_matches_jax(tasks, name, monkeypatch):
         k1, k2 = jax.random.split(jax.random.fold_in(js.key, 303))
         draws = dict(x=jg._uniform(k1, (B,), -30.0, 30.0), z=-jax.random.uniform(k2, (B,)) * 30.0)
         monkeypatch.setattr(tt, "push_draws", lambda state: {k: _t(v) for k, v in draws.items()})
-    jctrl, jw, jtask = jt.pre_physics(js, jnp.asarray(a))
+    jctrl, jw, jtask = jax.jit(lambda d, a: jt.pre_physics(SimpleNamespace(**d), a))(
+        vars(js), jnp.asarray(a))
     ctrl, w, task = tt.pre_physics(ts, _t(a))
     tol = dict(atol=1e-4, rtol=1e-4) if name == "GogoroCombined" else TOL
     for k in range(3):
@@ -396,7 +399,8 @@ def test_post_physics_matches_jax(tasks, name, monkeypatch):
                jg.Q.wrap_to_pi(jg._uniform(k2, (B,), -jnp.pi, jnp.pi)))
         monkeypatch.setattr(tt, "frame_noise", lambda state: {k: _t(v) for k, v in frame.items()})
         monkeypatch.setattr(tt, "resample", lambda state, lo, hi: tuple(_t(x) for x in res))
-    jobs, jrew, jdone, jtask, jm = jt.post_physics(js, js.task)
+    jobs, jrew, jdone, jtask, jm = jax.jit(lambda d: jt.post_physics(SimpleNamespace(**d), d["task"]))(
+        vars(js))
     obs, rew, done, task, m = tt.post_physics(ts, ts.task)
     _close(obs, jobs, msg="obs")
     _close(rew, jrew, msg="reward")
@@ -439,11 +443,11 @@ def test_observation_noise_matches_jax(tasks, bug, monkeypatch):
 def test_combined_ik_and_hand_error_match_jax(tasks):
     jt, tt = tasks["GogoroCombined"]
     js, ts = _state("GogoroCombined", jt, tt, seed=4)
-    ju = jax.vmap(jt._ik_deltas)(js.q, js.qd)
+    ju = jax.jit(jax.vmap(jt._ik_deltas))(js.q, js.qd)
     u = tt._ik_deltas(ts.q, ts.qd)
     for a, b in zip(u, ju):
         _close(a, b, dict(atol=1e-4, rtol=1e-4))
-    _close(tt._hand_err(ts.q, ts.qd), jt._hand_err(js.q, js.qd))
+    _close(tt._hand_err(ts.q, ts.qd), jax.jit(jt._hand_err)(js.q, js.qd))
     # a DLS step from the pose shrinks both hands' error
     err0 = tt._hand_err(ts.q, ts.qd)
     q1 = ts.q.clone()

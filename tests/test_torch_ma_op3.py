@@ -127,7 +127,11 @@ def test_scene_counts_and_caps(envs):
     assert (m.nb, m.nj, m.nq, m.nv, m.n_floating) == (47, 44, 65, 62, 3)
     fused.check_caps(m)
     step = env.physics_step
-    assert (step.pair_mode, step.layout, step.block) == (2, "local", fused.PAIR_BLOCK)
+    # the box instance: on an H100's 132 SMs one thread an env in blocks of
+    # 32 at 4096 envs, the wide layout at the YAML's 8
+    assert step.pair_mode == 2
+    assert step.launch_geometry(4096, sms=132) == ("local", 1, 32, 0)
+    assert step.launch_geometry(8, sms=132) == ("wide", 32, 32, 0)
 
 
 def test_make_with_its_yaml(envs):

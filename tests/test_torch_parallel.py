@@ -162,15 +162,21 @@ def _free_port():
     return port
 
 
-def _run_workers(work, cases, timeout=240):
+def _start_workers(work, cases):
+    """The WORLD worker processes of `cases`, started (``_finish_workers``
+    waits for them)."""
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
     env.pop("RANK", None)
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(work), coord, str(r), *cases],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True)
-             for r in range(WORLD)]
+    return [subprocess.Popen([sys.executable, "-c", _WORKER, str(work), coord, str(r), *cases],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True)
+            for r in range(WORLD)]
+
+
+def _finish_workers(procs, work, cases, timeout=240):
+    """Each rank's outputs of `cases`, once both workers exit cleanly."""
     outs = []
     try:
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
@@ -360,8 +366,17 @@ def dp_runs(tmp_path_factory):
     the reset and the multi-task iteration (one launch of two processes)."""
     work = tmp_path_factory.mktemp("dp")
     refs = {name: make(work) for name, make in CASES.items()}
-    outs = _run_workers(work, [*CASES, "reset", "multitask"])
-    return {name: (ref(), rms, tp) for name, (ref, rms, tp) in refs.items()}, outs
+    cases = [*CASES, "reset", "multitask"]
+    procs = _start_workers(work, cases)
+    try:
+        # the JAX references compile while the workers run
+        want = {name: (ref(), rms, tp) for name, (ref, rms, tp) in refs.items()}
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    return want, _finish_workers(procs, work, cases)
 
 
 def _close(got, want, tol=TOL, msg=""):

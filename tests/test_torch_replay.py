@@ -17,26 +17,46 @@ against the JAX package's.
   viewer's for the same q; a POST of ``escape`` makes the next ``render``
   raise ``ViewerClosed``; subscribed keys arrive through ``query_events``.
 """
+import functools
 import json
 import urllib.request
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
-import thormang_isaacgym_tpu as tgx
 from thormang_isaacgym_tpu.core import quat as JQ
+from thormang_isaacgym_tpu.ops import kinematics as jkin
 from thormang_isaacgym_tpu.runtime import replay as jreplay
 from thormang_isaacgym_tpu.runtime import viewer as jviewer
 import thormang_isaacgym_tpu_torch as tgt
 from thormang_isaacgym_tpu_torch.models.robot import GEOM_CAPSULE, GEOM_CYLINDER, GEOM_SPHERE
 from thormang_isaacgym_tpu_torch.runtime import replay as treplay
 from thormang_isaacgym_tpu_torch.runtime import viewer as tviewer
+from test_torch_twins import _jax_model
 
 TASKS = ("Ant", "ShadowHand", "HumanoidMJCF")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jitted_jax_kinematics():
+    """JAX's replay and viewer (``_geom_frames``) with the JAX package's
+    forward kinematics jitted once a model: op by op, each of its
+    primitives compiles alone on its first call (ShadowHand's ~5 s)."""
+    jitted = {}
+
+    def fk(model, q, qd):
+        if id(model) not in jitted:
+            jitted[id(model)] = (model, jax.jit(functools.partial(jkin.forward_kinematics, model)))
+        return jitted[id(model)][1](q, qd)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jreplay, "forward_kinematics", fk)
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +66,7 @@ def models():
     rng = np.random.default_rng(0)
     for name in TASKS:
         env = tgt.make(name, num_envs=3, seed=0, device="cpu")
-        jmodel = tgx.make(name, num_envs=2, seed=0).task.model
+        jmodel = _jax_model(name)
         m = env.task.model
         q = env.reset(0).q.numpy().copy()
         nf = 7 * m.n_floating

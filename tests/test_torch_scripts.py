@@ -233,6 +233,7 @@ def test_lift_run_prints_jax_keys(lift, capsys):
             "nut_height_above_table_mean", "lift_threshold_m", "success_rate"} <= set(out)
     assert out["phases"] == {"reach": 1, "close": 0, "lift": 1} and out["num_envs"] == 4
     assert out["kernel_launches"] == 0              # the CPU: the plain version
+    assert out["kernel_geometry"] is None
     assert 0.0 <= out["success_rate"] <= 1.0 and math.isfinite(out["reach_keypoint_dist"])
 
 

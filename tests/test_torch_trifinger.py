@@ -105,7 +105,8 @@ def test_make_with_its_yaml(envs):
     np.testing.assert_array_equal(task.dof_ids, np.asarray(jtask.dof_ids))
     assert task.net_torque_bodies == tuple(jtask.net_torque_bodies)
     step = env.physics_step
-    assert step.pair_mode == 2 and step.layout == "local" and step.tq_bodies == task.net_torque_bodies
+    assert step.pair_mode == 2 and step.tq_bodies == task.net_torque_bodies
+    assert step.launch_geometry(16384, sms=132) == ("local", 1, 128, 0)   # 128 blocks
 
 
 def _jax_resets(jt, seed):

@@ -26,6 +26,7 @@ against its JAX twin, and the audit that none is missing any more.
   and a drift raises.
 """
 import ast
+import functools
 import importlib
 import inspect
 import os
@@ -40,10 +41,13 @@ import thormang_isaacgym_tpu as tgx
 from thormang_isaacgym_tpu.engine import env as jenv
 from thormang_isaacgym_tpu.engine import terrain as jterrain
 from thormang_isaacgym_tpu.learn import poselib as jposelib
+from thormang_isaacgym_tpu.models import load_urdf
+from thormang_isaacgym_tpu.models.mjcf import load_mjcf
 from thormang_isaacgym_tpu.ops import dynamics as jdyn
 from thormang_isaacgym_tpu.ops import fused as jfused
 from thormang_isaacgym_tpu.ops import kinematics as jkin
 from thormang_isaacgym_tpu.parity import harness as jharness
+from thormang_isaacgym_tpu.tasks import ant as jant
 from thormang_isaacgym_tpu.tasks import ball_balance as jbb
 import thormang_isaacgym_tpu_torch as tgt
 from thormang_isaacgym_tpu_torch.engine import env as tenv
@@ -187,15 +191,32 @@ def _states(name, n, seed):
     return env, m, q, qd
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_model(name):
+    """The JAX task's model, built once a module: Ant's and HumanoidMJCF's
+    from the loaders their constructors call (which then set drive defaults
+    and solve the spawn height, op by op, ~5 s a task; the geoms, the
+    kinematic tree and the inertias are the loader's)."""
+    if name == "Ant":
+        return load_urdf(jant.make_ant_urdf(), name="ant")
+    if name == "HumanoidMJCF":
+        return load_mjcf(os.path.join(ROOT, "assets", "mjcf", "nv_humanoid.xml"))
+    return tgx.make(name, num_envs=2, seed=0).task.model
+
+
+# The JAX references below are jitted: op by op, each of their primitives
+# compiles alone on its first call (ShadowHand's forward kinematics ~9 s)
+
+
 @pytest.mark.parametrize("name", ["Ant", "ShadowHand"])
 def test_geom_world_poses_match_jax(name):
     env, m, q, qd = _states(name, 3, 1)
-    jm = tgx.make(name, num_envs=2, seed=0).task.model
+    jm = _jax_model(name)
     got = tkin.geom_world_poses(m, tkin.forward_kinematics(m, torch.as_tensor(q),
                                                            torch.as_tensor(qd)))
+    poses = jax.jit(lambda q, qd: jkin.geom_world_poses(jm, jkin.forward_kinematics(jm, q, qd)))
     for b in range(3):
-        want = jkin.geom_world_poses(jm, jkin.forward_kinematics(jm, jnp.asarray(q[b]),
-                                                                 jnp.asarray(qd[b])))
+        want = poses(jnp.asarray(q[b]), jnp.asarray(qd[b]))
         for k, (g, w) in enumerate(zip(got, want)):
             g, w = g[b].numpy(), np.asarray(w)
             if k == 1:
@@ -206,7 +227,7 @@ def test_geom_world_poses_match_jax(name):
 @pytest.mark.parametrize("name", ["HumanoidMJCF", "ShadowHand"])
 def test_joint_inertias_match_jax(name):
     env, m, q, _ = _states(name, 2, 2)
-    jm = tgx.make(name, num_envs=2, seed=0).task.model
+    jm = _jax_model(name)
     rng = np.random.default_rng(3)
     p = {k: np.asarray(v) for k, v in jm.default_params().__dict__.items()}
     p["body_mass"] = p["body_mass"] * rng.uniform(0.8, 1.2, p["body_mass"].shape).astype(np.float32)
@@ -219,10 +240,11 @@ def test_joint_inertias_match_jax(name):
     jq = q[:, 7 * m.n_floating:]
     got_r = tdyn.joint_reflected_inertia(m, tparams)
     got_a = tdyn.articulated_joint_inertia(m, tparams, torch.as_tensor(jq))
-    want_r = jdyn.joint_reflected_inertia(jm, jparams)
+    want_r = jax.jit(lambda p: jdyn.joint_reflected_inertia(jm, p))(jparams)
+    articulated = jax.jit(lambda p, q: jdyn.articulated_joint_inertia(jm, p, q))
     for b in range(2):
         np.testing.assert_allclose(got_r[b].numpy(), np.asarray(want_r), rtol=1e-5, atol=1e-9)
-        want_a = jdyn.articulated_joint_inertia(jm, jparams, jnp.asarray(jq[b]))
+        want_a = articulated(jparams, jnp.asarray(jq[b]))
         np.testing.assert_allclose(got_a[b].numpy(), np.asarray(want_a), rtol=1e-5, atol=1e-9)
     # a locked child passes its subtree on: the apparent inertia exceeds the child's
     assert bool((got_a >= got_r - 1e-6).all()) and bool((got_a > got_r * 1.5).any())
@@ -249,7 +271,7 @@ def test_mask_select_with_and_small_twins():
     assert tbb.LEG_INNER == jbb.LEG_INNER
     for name, ground in (("Ant", 0.0), ("Ant", None), ("Ant", lambda p: p[..., 0] * 0)):
         tm = tgt.make(name, num_envs=2, seed=0, device="cpu").task.model
-        jm = tgx.make(name, num_envs=2, seed=0).task.model
+        jm = _jax_model(name)
         assert tfused.fused_eligible(tm, ground, None) == jfused.fused_eligible(jm, ground, None)
 
 

@@ -85,14 +85,15 @@
 // thread reads at the same address. Inputs are structure-of-arrays (R, B)
 // rows exactly as `_make_rows` lays them out, so thread b reads row r at
 // in[r * B + b] and neighbouring threads load neighbouring words; the output
-// (nq + nv + 3 nb + 3 ntq, B) has the same layout. One thread per env. The
-// per-env arrays are bounded by the compile-time caps below (bodies, roots);
-// the wrapper raises above them, and only the first nb entries of each array
-// are touched. Four layouts share the code (template parameter kLayout):
+// (nq + nv + 3 nb + 3 ntq, B) has the same layout. One thread per env (G in
+// the wide layout). The per-env arrays are bounded by the compile-time caps
+// below (bodies, roots); the wrapper raises above them, and only the first
+// nb entries of each array are touched. Five layouts share the code (template parameter kLayout):
 // - The local layout: the box instance, and a model without the box kinds
 //   whose sweep state (below) exceeds the block's shared memory: the sweep
 //   state in per-thread local memory, the per-env rows read from the input
-//   slab in every substep, in blocks of 128 threads (the box instance) or 32.
+//   slab in every substep, in blocks of 32 threads, or of 128 (the box
+//   instance where those fill the card).
 // - The shared layout (flat and heightfield ground, without pairs or with
 //   the round pairs and attractors: Ant, Anymal, AnymalTerrain, Cartpole,
 //   BallBalance): blocks of 32 threads, so 4096 envs are 128 blocks, one
@@ -154,6 +155,12 @@
 //   bytes; 149 registers, an 8,176-byte frame), ran 0.302-0.304 ms; the
 //   split layout in blocks of 24 (190,848 bytes, 171 blocks on 132 SMs)
 //   0.533. scripts/kernel_variant.py --place lean_rl writes the first.
+// - The wide layout (the box instance, at widths where one thread an env
+//   leaves SMs idle): G lanes an env (G a power of two up to 32; blocks of
+//   one warp, (G, 32 / G) threads), each lane running the local layout's
+//   whole sweep on its own copy of the state, so the warp issues for its 32
+//   / G envs what it issues for 32 in the local layout, and only the pair
+//   narrowphase is shared: see the box instance below.
 // The shared instances use 166 registers (with pairs 239) and a 496-byte
 // stack, which the first launch finds already reserved; the split and lean
 // split ones 128 and 5,872 bytes (IA at the body cap: 1.31 GB reserved,
@@ -238,6 +245,34 @@
 // 0.18 ms and the ground 0.02. What is left is the tree sweeps (0.87 and
 // 0.60 ms: forward kinematics, drives, tendons, the ABA passes, Euler),
 // still one thread per env.
+//
+// The box instance at smaller widths (FrankaCabinet and MA_OP3 at 4096
+// envs, FrankaCubeStack at 8192, the Factory tasks at 128): ops/fused.py
+// pick_box_geometry picks the launch from the width, the body count and the
+// SM count. One thread an env in blocks of 32 where those fill the card:
+// 4096 envs are 128 warps on 128 SMs, 0.89-0.94x the time of blocks of 128
+// (32 SMs). Below that the wide layout, with G capped by the lanes' envs
+// times the bodies. Its lanes take the pairs in rounds of G, lane j
+// computing pair round G + j into a slot of its own (per-thread memory,
+// wide_lane_words), and every lane of the env then applies the round's
+// candidates in the local layout's order, each candidate read from the
+// computing lane's slot by warp shuffles; the sums are the local layout's,
+// bit for bit. The cull is per env there: a warp vote at the lanes' own
+// pair index would sit at an index that differs across the warp. A pair
+// apart in this env adds exact zeros, so its candidates are applied at depth
+// -1, and the candidate vote skips them unless another env of the warp is
+// in contact. Every lane replicating the sweep multiplies its local-memory
+// traffic by G, which costs more than the shared narrowphase saves once one
+// thread an env fills the card: MA_OP3's sweep is 71 % of its kernel
+// (`--split`), and G = 2 takes it from 2.22 to 2.54 ms. Below that too the
+// traffic grows with the lanes that run the sweep and with the bodies: on
+// MA_OP3's 47 bodies one thread an env wins from 512 envs, G = 8 at 128.
+// At 128 envs (the
+// Factory tasks: 20 box-box pairs, a pair phase of 0.24 of 0.44 ms in blocks
+// of 32) G = 32 puts one env on each of 128 warps and one round holds all
+// its pairs: 0.31-0.32 ms a launch against the one block of 128's 0.53, the
+// pair phase 0.11 (measurements in PERF.md, an H100 at 700 W). Its launch
+// bounds ask for one block an SM (see the kernel).
 //
 // Numerics: float32 throughout, built without --use_fast_math and with
 // -fmad=false so every product and sum rounds as the plain PyTorch version's
@@ -712,6 +747,77 @@ __device__ void box_box(V3 pa, Q4 qa, const float* ha, V3 pb, Q4 qb, const float
   emit(n_e, active ? best_e : -1.0f, cp_e);
 }
 
+// One actor pair's narrowphase (its row of ints pi and of floats pf, the two
+// geoms' world poses): each candidate goes to `emit(n, depth, cp)`, in order.
+// kBX: with the box kinds.
+template <bool kBX, class Emit>
+__device__ __forceinline__ void pair_narrowphase(const int* pi, const float* pf, V3 pa, Q4 qa,
+                                                 V3 pb, Q4 qb, Emit& emit) {
+  if (kBX && pi[4] == 2) {                      // capsule vs box: 4 candidates
+    capsule_box(pa, qa, pf[0], pf[1], pb, qb, {pf[3], pf[4], pf[5]}, emit);
+    return;
+  }
+  if (kBX && pi[4] == 3) {                      // box vs box: 17 candidates
+    box_box(pa, qa, pf, pb, qb, pf + 3, emit);
+    return;
+  }
+  V3 n, cp;
+  float depth;
+  if (kBX && pi[4] == 0 && pi[5] == 2) {
+    sphere_box(pa, pf[0], pb, qb, {pf[3], pf[4], pf[5]}, n, depth, cp);
+  } else if (pi[4] == 0 && pi[5] == 3) {
+    // sphere (a) vs cylinder (b), a flat disk: closest point in its frame;
+    // inside, the nearer of face and wall; both sides computed, then selected
+    const float ra = pf[0], R = pf[3], hw = pf[4];
+    const V3 l = qrotinv(qb, sub(pa, pb));
+    const float r_xy = sqrtf(l.x * l.x + l.y * l.y) + 1e-9f;
+    const float sc = fminf(R / r_xy, 1.0f);
+    const V3 cl = {l.x * sc, l.y * sc, clampf(l.z, -hw, hw)};
+    const V3 d_out = sub(l, cl);
+    const float dist_out = sqrtf(dot(d_out, d_out)) + 1e-9f;
+    const bool inside = (r_xy < R) && (fabsf(l.z) < hw);
+    const float face_gap = hw - fabsf(l.z), wall_gap = R - r_xy;
+    const V3 n_face = {0.0f, 0.0f, sgnf(l.z)};
+    const V3 n_wall = {l.x / r_xy, l.y / r_xy, 0.0f};
+    const V3 n_in = face_gap < wall_gap ? n_face : n_wall;
+    const V3 n_out = {d_out.x / dist_out, d_out.y / dist_out, d_out.z / dist_out};
+    const V3 o = qrot(qb, inside ? n_in : n_out);
+    depth = inside ? ra + fminf(face_gap, wall_gap) : ra - dist_out;
+    n = {-o.x, -o.y, -o.z};
+    cp = add(pa, scl(n, ra));
+  } else {
+    // sphere vs sphere / capsule, capsule vs capsule: closest points
+    V3 c1 = pa, c2 = pb;
+    if (pi[4] == 0 && pi[5] == 1) {
+      const float hl = pf[4];
+      const V3 axis = qrot(qb, {0.0f, 0.0f, 1.0f});
+      const float t = clampf(dot(sub(pa, pb), axis), -hl, hl);
+      c2 = add(pb, scl(axis, t));
+    } else if (pi[4] == 1) {
+      const float h1 = pf[1], h2c = pf[4];
+      const V3 a1 = qrot(qa, {0.0f, 0.0f, 1.0f}), a2 = qrot(qb, {0.0f, 0.0f, 1.0f});
+      const V3 P1 = sub(pa, scl(a1, h1)), Q1 = add(pa, scl(a1, h1));
+      const V3 P2 = sub(pb, scl(a2, h2c)), Q2 = add(pb, scl(a2, h2c));
+      const V3 d1 = sub(Q1, P1), d2 = sub(Q2, P2), r0 = sub(P1, P2);
+      const float a_ = dot(d1, d1) + 1e-9f, e_ = dot(d2, d2) + 1e-9f;
+      const float b_ = dot(d1, d2), c_ = dot(d1, r0), f_ = dot(d2, r0);
+      const float denom = a_ * e_ - b_ * b_;
+      const bool nz = fabsf(denom) > 1e-9f;
+      float s = nz ? clampf((b_ * f_ - c_ * e_) / denom, 0.0f, 1.0f) : 0.0f;
+      const float t = clampf((b_ * s + f_) / e_, 0.0f, 1.0f);
+      s = clampf((b_ * t - c_) / a_, 0.0f, 1.0f);
+      c1 = add(P1, scl(d1, s));
+      c2 = add(P2, scl(d2, t));
+    }
+    const V3 d = sub(c2, c1);
+    const float dist = sqrtf(dot(d, d)) + 1e-9f;
+    n = {d.x / dist, d.y / dist, d.z / dist};
+    depth = pf[6] - dist;
+    cp = add(c1, scl(n, pf[0] - depth * 0.5f));
+  }
+  emit(n, depth, cp);
+}
+
 // The shared instances' buffer: the model's two tables, then one slice per
 // env (lane) of lane_words words, in the order the kernel carves them: the
 // env's input rows; q, qd; per body v, cb, pA, quat_w, pos_w, net_f, net_t,
@@ -741,6 +847,12 @@ __host__ __device__ __forceinline__ int split_lane_words(int nb, int nj, int nq,
 __host__ __device__ __forceinline__ int lean_lane_words(int nb, int nj, int nq, int nv, int nc) {
   return split_lane_words(nb, nj, nq, nv, 0);
 }
+// The wide layout's slot of one lane (the box instance, G lanes an env), in
+// per-thread memory: the candidates of the pair the lane computes in a round,
+// 7 words each (normal, depth, point), for box vs box's 17, the most of any
+// kind (ops/fused.py wide_lane_words is the same function)
+constexpr int kMaxPairCands = 17;
+__host__ __device__ __forceinline__ int wide_lane_words() { return 7 * kMaxPairCands; }
 // dst[r] = src[r B] for r < n, by asynchronous copies (cp.async) into
 // shared memory, waited for by the calling thread alone
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int n, int B) {
@@ -771,24 +883,35 @@ __device__ __forceinline__ auto as_array(T* p) -> T (&)[N] {
 // state in per-thread local memory; everything per env in the block's
 // dynamic shared memory; or, for the flat instance without pairs, the sweep
 // state alone in shared memory, the rest as in the local layout, with the
-// candidates' kept state (split) or without it (lean split)
-constexpr int kLocal = 0, kShared = 1, kSplit = 2, kSplitLean = 3;
+// candidates' kept state (split) or without it (lean split); or, for the
+// box instance, the local layout's state in each of G lanes an env, which
+// share the pair narrowphase through warp shuffles (wide)
+constexpr int kLocal = 0, kShared = 1, kSplit = 2, kSplitLean = 3, kWide = 4;
 
 // kHF: heightfield ground (the launcher picks it when it is given a table);
 // kPA: actor pairs and attractors, kBX: with the box kinds of the pair
 // narrowphase (the launcher picks both on the wrapper's flag); kLayout (kLocal
-// only with the box kinds, kSplit and kSplitLean only without pairs on flat
-// ground): where the per-env state lives
+// and kWide only with the box kinds, kSplit and kSplitLean only without pairs
+// on flat ground): where the per-env state lives. The wide layout's block is
+// (G, envs a block): lanes threadIdx.x of env threadIdx.y, so the G lanes of
+// an env are consecutive lanes of one warp. Its launch bounds ask for one
+// block an SM: without them ptxas held it to 168 registers with spills (the
+// narrowphase inlined into its lanes' divergent code), with them it takes
+// 245 and spills nothing; 0 is no minimum, and leaves the other instances'
+// code as it was
 template <bool kHF, bool kPA, bool kBX, int kLayout>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, kLayout == kWide ? 1 : 0)
 fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
                   const float* __restrict__ hf, const float* __restrict__ in,
                   float* __restrict__ out, int B) {
   // kSM: the rows, the candidates' kept state (and without pairs the tables)
-  // in shared memory too; kSW: the sweep state in shared memory
+  // in shared memory too; kSW: the sweep state in shared memory; kWd: G
+  // lanes an env, each with the whole sweep state in local memory
   constexpr bool kSM = kLayout == kShared;
-  constexpr bool kSW = kLayout != kLocal;
-  static_assert(!(kBX && kSW), "the box instance has the local layout only");
+  constexpr bool kWd = kLayout == kWide;
+  constexpr bool kSW = kLayout != kLocal && !kWd;
+  static_assert(!(kBX && kSW), "the box instance has the local and wide layouts only");
+  static_assert(!kWd || kBX, "the wide layout is the box instance's");
   static_assert((kLayout != kSplit && kLayout != kSplitLean) || !(kHF || kPA),
                 "the split layouts are the flat instance's");
   // the box and shared-memory instances skip, warp by warp, the force of a
@@ -798,7 +921,8 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
   // early: a thread past the ragged edge runs the last env again and writes
   // nothing
   constexpr bool kVote = kBX || kSW;
-  const int b_thread = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b_thread = kWd ? blockIdx.x * blockDim.y + threadIdx.y
+                           : blockIdx.x * blockDim.x + threadIdx.x;
   if (!kVote && b_thread >= B) return;
   const int b = kVote ? min(b_thread, B - 1) : b_thread;
   constexpr int kPF = kBX ? kBoxPairFloats : kPairFloats;
@@ -1169,85 +1293,83 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
           symI_rank1_add(D, u, M_n - M_t);
         }
       };
-      for (int k = 0; k < n_pairs; ++k) {
-        const int* pi = pair_i + kPairInts * k;
-        const float* pf = pair_f + kPF * k;
-        ga = pi[0], gb = pi[1], ba = pi[2], bb = pi[3];
-        const Q4 qa = qmul(quat_w[ba], {pf[10], pf[11], pf[12], pf[13]});
-        const V3 pa = add(pos_w[ba], qrot(quat_w[ba], {pf[7], pf[8], pf[9]}));
-        const Q4 qb = qmul(quat_w[bb], {pf[17], pf[18], pf[19], pf[20]});
-        const V3 pb = add(pos_w[bb], qrot(quat_w[bb], {pf[14], pf[15], pf[16]}));
-        if (kBX) {
-          // the bounding spheres apart in every env of the warp: no candidate
-          // of the pair can be in contact, so its narrowphase is skipped
-          const V3 dc = sub(pb, pa);
-          const float dist = sqrtf(dot(dc, dc));
-          const bool near = !(dist > pf[21] + (kCullMargin + kCullRel * dist));
-          if (!__any_sync(kFullWarp, near)) continue;
-        }
-        if (kBX && pi[4] == 2) {                      // capsule vs box: 4 candidates
-          capsule_box(pa, qa, pf[0], pf[1], pb, qb, {pf[3], pf[4], pf[5]}, contact);
-          continue;
-        }
-        if (kBX && pi[4] == 3) {                      // box vs box: 17 candidates
-          box_box(pa, qa, pf, pb, qb, pf + 3, contact);
-          continue;
-        }
-        V3 n, cp;
-        float depth;
-        if (kBX && pi[4] == 0 && pi[5] == 2) {
-          sphere_box(pa, pf[0], pb, qb, {pf[3], pf[4], pf[5]}, n, depth, cp);
-        } else if (pi[4] == 0 && pi[5] == 3) {
-          // sphere (a) vs cylinder (b), a flat disk: closest point in its frame;
-          // inside, the nearer of face and wall; both sides computed, then selected
-          const float ra = pf[0], R = pf[3], hw = pf[4];
-          const V3 l = qrotinv(qb, sub(pa, pb));
-          const float r_xy = sqrtf(l.x * l.x + l.y * l.y) + 1e-9f;
-          const float sc = fminf(R / r_xy, 1.0f);
-          const V3 cl = {l.x * sc, l.y * sc, clampf(l.z, -hw, hw)};
-          const V3 d_out = sub(l, cl);
-          const float dist_out = sqrtf(dot(d_out, d_out)) + 1e-9f;
-          const bool inside = (r_xy < R) && (fabsf(l.z) < hw);
-          const float face_gap = hw - fabsf(l.z), wall_gap = R - r_xy;
-          const V3 n_face = {0.0f, 0.0f, sgnf(l.z)};
-          const V3 n_wall = {l.x / r_xy, l.y / r_xy, 0.0f};
-          const V3 n_in = face_gap < wall_gap ? n_face : n_wall;
-          const V3 n_out = {d_out.x / dist_out, d_out.y / dist_out, d_out.z / dist_out};
-          const V3 o = qrot(qb, inside ? n_in : n_out);
-          depth = inside ? ra + fminf(face_gap, wall_gap) : ra - dist_out;
-          n = {-o.x, -o.y, -o.z};
-          cp = add(pa, scl(n, ra));
-        } else {
-          // sphere vs sphere / capsule, capsule vs capsule: closest points
-          V3 c1 = pa, c2 = pb;
-          if (pi[4] == 0 && pi[5] == 1) {
-            const float hl = pf[4];
-            const V3 axis = qrot(qb, {0.0f, 0.0f, 1.0f});
-            const float t = clampf(dot(sub(pa, pb), axis), -hl, hl);
-            c2 = add(pb, scl(axis, t));
-          } else if (pi[4] == 1) {
-            const float h1 = pf[1], h2c = pf[4];
-            const V3 a1 = qrot(qa, {0.0f, 0.0f, 1.0f}), a2 = qrot(qb, {0.0f, 0.0f, 1.0f});
-            const V3 P1 = sub(pa, scl(a1, h1)), Q1 = add(pa, scl(a1, h1));
-            const V3 P2 = sub(pb, scl(a2, h2c)), Q2 = add(pb, scl(a2, h2c));
-            const V3 d1 = sub(Q1, P1), d2 = sub(Q2, P2), r0 = sub(P1, P2);
-            const float a_ = dot(d1, d1) + 1e-9f, e_ = dot(d2, d2) + 1e-9f;
-            const float b_ = dot(d1, d2), c_ = dot(d1, r0), f_ = dot(d2, r0);
-            const float denom = a_ * e_ - b_ * b_;
-            const bool nz = fabsf(denom) > 1e-9f;
-            float s = nz ? clampf((b_ * f_ - c_ * e_) / denom, 0.0f, 1.0f) : 0.0f;
-            const float t = clampf((b_ * s + f_) / e_, 0.0f, 1.0f);
-            s = clampf((b_ * t - c_) / a_, 0.0f, 1.0f);
-            c1 = add(P1, scl(d1, s));
-            c2 = add(P2, scl(d2, t));
+      if constexpr (!kWd) {
+        for (int k = 0; k < n_pairs; ++k) {
+          const int* pi = pair_i + kPairInts * k;
+          const float* pf = pair_f + kPF * k;
+          ga = pi[0], gb = pi[1], ba = pi[2], bb = pi[3];
+          const Q4 qa = qmul(quat_w[ba], {pf[10], pf[11], pf[12], pf[13]});
+          const V3 pa = add(pos_w[ba], qrot(quat_w[ba], {pf[7], pf[8], pf[9]}));
+          const Q4 qb = qmul(quat_w[bb], {pf[17], pf[18], pf[19], pf[20]});
+          const V3 pb = add(pos_w[bb], qrot(quat_w[bb], {pf[14], pf[15], pf[16]}));
+          if (kBX) {
+            // the bounding spheres apart in every env of the warp: no candidate
+            // of the pair can be in contact, so its narrowphase is skipped
+            const V3 dc = sub(pb, pa);
+            const float dist = sqrtf(dot(dc, dc));
+            const bool near = !(dist > pf[21] + (kCullMargin + kCullRel * dist));
+            if (!__any_sync(kFullWarp, near)) continue;
           }
-          const V3 d = sub(c2, c1);
-          const float dist = sqrtf(dot(d, d)) + 1e-9f;
-          n = {d.x / dist, d.y / dist, d.z / dist};
-          depth = pf[6] - dist;
-          cp = add(c1, scl(n, pf[0] - depth * 0.5f));
+          pair_narrowphase<kBX>(pi, pf, pa, qa, pb, qb, contact);
         }
-        contact(n, depth, cp);
+      } else {
+        // the wide layout: the pairs in rounds of G, lane j computing pair
+        // round G + j into its slot (per-thread memory), then every lane of
+        // the env applying the round's candidates in the local layout's
+        // order, each read from the slot of the lane that computed it by
+        // warp shuffles (no shared memory, so no __syncwarp, whose barrier
+        // held ptxas to 168 registers with spills). A pair whose bounding
+        // spheres lie apart in this env (the cull, per env: a vote here
+        // would sit at a pair index that differs across the warp) has no
+        // candidate in contact, so it adds exact zeros: its candidates are
+        // applied as out of contact, at depth -1, and skipped by the
+        // candidate vote unless another env of the warp is in contact. A NaN
+        // distance runs, as in the local layout
+        const int G = blockDim.x, lane = threadIdx.x;
+        const int group = (threadIdx.y * G) & 31;            // the env's first lane in its warp
+        const unsigned lanes_of_env = G == 32 ? kFullWarp : (1u << G) - 1u;
+        float slot[7 * kMaxPairCands];
+        for (int r0 = 0; r0 < n_pairs; r0 += G) {
+          bool near = false;
+          if (r0 + lane < n_pairs) {
+            const int* pi = pair_i + kPairInts * (r0 + lane);
+            const float* pf = pair_f + kPF * (r0 + lane);
+            const int pba = pi[2], pbb = pi[3];
+            const Q4 qa = qmul(quat_w[pba], {pf[10], pf[11], pf[12], pf[13]});
+            const V3 pa = add(pos_w[pba], qrot(quat_w[pba], {pf[7], pf[8], pf[9]}));
+            const Q4 qb = qmul(quat_w[pbb], {pf[17], pf[18], pf[19], pf[20]});
+            const V3 pb = add(pos_w[pbb], qrot(quat_w[pbb], {pf[14], pf[15], pf[16]}));
+            const V3 dc = sub(pb, pa);
+            const float dist = sqrtf(dot(dc, dc));
+            near = !(dist > pf[21] + (kCullMargin + kCullRel * dist));
+            if (near) {
+              float* w = slot;
+              auto stage = [&](V3 n, float depth, V3 cp) {
+                w[0] = n.x; w[1] = n.y; w[2] = n.z; w[3] = depth;
+                w[4] = cp.x; w[5] = cp.y; w[6] = cp.z;
+                w += 7;
+              };
+              pair_narrowphase<kBX>(pi, pf, pa, qa, pb, qb, stage);
+            }
+          }
+          const unsigned near_env = (__ballot_sync(kFullWarp, near) >> group) & lanes_of_env;
+          const int n_round = min(G, n_pairs - r0);
+          for (int i = 0; i < n_round; ++i) {
+            const bool near_i = (near_env >> i) & 1u;
+            // apart in every env of the warp: skipped, as in the local layout
+            if (!__any_sync(kFullWarp, near_i)) continue;
+            const int* pi = pair_i + kPairInts * (r0 + i);
+            ga = pi[0], gb = pi[1], ba = pi[2], bb = pi[3];
+            const int n_cand = pi[4] == 3 ? kMaxPairCands : pi[4] == 2 ? 4 : 1;
+            for (int c = 0; c < n_cand; ++c) {
+              float v[7];
+              for (int k = 0; k < 7; ++k) v[k] = __shfl_sync(kFullWarp, slot[7 * c + k], group + i);
+              const V3 n = near_i ? V3{v[0], v[1], v[2]} : V3{0.0f, 0.0f, 0.0f};
+              const V3 cp = near_i ? V3{v[4], v[5], v[6]} : pos_w[ba];
+              contact(n, near_i ? v[3] : -1.0f, cp);
+            }
+          }
+        }
       }
       for (int bi = 0; bi < nb; ++bi) {
         const int s = pair_slot[bi];
@@ -1445,6 +1567,7 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 
   // ---- outputs: q, qd, net force rows (3 nb), torque rows (3 ntq) ----
   if (kVote && b_thread >= B) return;
+  if (kWd && threadIdx.x != 0) return;   // the wide layout: the env's first lane writes
   float* o = out + b;
   const size_t Bs = (size_t)B;
   for (int i = 0; i < nq; ++i) o[(size_t)i * Bs] = q[i];
@@ -1472,15 +1595,18 @@ fused_step_kernel(const int* __restrict__ mi, const float* __restrict__ mf,
 // table in heightfield mode, else null; `pairs` picks the instance: 0
 // without the actor-pair and attractor blocks, 1 with them (the round
 // kinds), 2 with the box kinds too. `threads` is the block size; `layout`
-// kLocal, kShared, kSplit or kSplitLean (ops/fused.py LAYOUTS: kLocal with
-// the box kinds, kSplit and kSplitLean only without pairs on flat ground);
-// `smem` the dynamic shared bytes of a block (ops/fused.py layout_bytes: in
-// the shared layout without pairs the tables, and threads x lane_words
-// words), 0 in the local layout.
+// kLocal, kShared, kSplit, kSplitLean or kWide (ops/fused.py LAYOUTS:
+// kLocal or kWide with the box kinds, kWide only with them, kSplit and
+// kSplitLean only without pairs on flat ground); `smem` the dynamic shared
+// bytes of a block (ops/fused.py layout_bytes: in the shared layout without
+// pairs the tables, and threads x lane_words words), 0 in the local and wide
+// layouts; `lanes` the wide layout's G lanes an env (a power of two from 2
+// to 32, in blocks of whole warps: threads / G envs a block), 1 in every
+// other layout.
 template <bool kHF, bool kPA, bool kBX, int kLayout>
 int launch(const int* mi, const float* mf, const float* hf, const float* in, float* out, int B,
-           int blocks, int threads, int smem, cudaStream_t s) {
-  if constexpr (kLayout != kLocal) {
+           int blocks, dim3 threads, int smem, cudaStream_t s) {
+  if constexpr (kLayout != kLocal && kLayout != kWide) {
     // the attribute is raised once per instance, to the most a block may use
     static int max_smem = 0;
     if (smem > max_smem) {
@@ -1499,11 +1625,16 @@ int launch(const int* mi, const float* mf, const float* hf, const float* in, flo
 
 // the instances of one ground: without pairs or with the round kinds, in the
 // shared or the local layout (on flat ground without pairs also the split
-// and lean split ones), or with the box kinds (local only)
+// and lean split ones), or with the box kinds (local or wide)
 template <bool kHF>
 int launch_ground(const int* mi, const float* mf, const float* hf, const float* in, float* out,
-                  int B, int pairs, int blocks, int threads, int layout, int smem, cudaStream_t s) {
-  if (pairs == 2) return launch<kHF, true, true, kLocal>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
+                  int B, int pairs, int blocks, int threads, int layout, int smem, int lanes,
+                  cudaStream_t s) {
+  if (pairs == 2)
+    return layout == kWide
+               ? launch<kHF, true, true, kWide>(mi, mf, hf, in, out, B, blocks,
+                                                dim3(lanes, threads / lanes), 0, s)
+               : launch<kHF, true, true, kLocal>(mi, mf, hf, in, out, B, blocks, threads, 0, s);
   if (pairs == 1)
     return layout == kShared
                ? launch<kHF, true, false, kShared>(mi, mf, hf, in, out, B, blocks, threads, smem, s)
@@ -1521,17 +1652,24 @@ int launch_ground(const int* mi, const float* mf, const float* hf, const float* 
 
 extern "C" int fused_step_launch(const void* mi, const void* mf, const void* hf,
                                  const void* in, void* out, int B, int pairs, int threads,
-                                 int layout, int smem, void* stream) {
+                                 int layout, int smem, int lanes, void* stream) {
   if (B <= 0) return 0;
-  const bool bad_layout = layout < kLocal || layout > kSplitLean || (layout == kLocal) != (smem == 0) ||
-                          (pairs == 2 && layout != kLocal) ||
+  const bool bad_layout = layout < kLocal || layout > kWide ||
+                          (layout == kLocal || layout == kWide) != (smem == 0) ||
+                          (pairs == 2 && layout != kLocal && layout != kWide) ||
+                          (layout == kWide && pairs != 2) ||
                           ((layout == kSplit || layout == kSplitLean) && (pairs != 0 || hf != nullptr));
-  if (threads <= 0 || pairs < 0 || pairs > 2 || bad_layout)
+  // the wide layout: G a power of two from 2 to 32, in whole warps
+  const bool bad_lanes = layout == kWide ? lanes < 2 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+                                               threads % 32 != 0
+                                         : lanes != 1;
+  if (threads <= 0 || pairs < 0 || pairs > 2 || bad_layout || bad_lanes)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (B + threads - 1) / threads;
+  const int envs = threads / lanes;                       // envs a block
+  const int blocks = (B + envs - 1) / envs;
   const auto launch_on = hf ? launch_ground<true> : launch_ground<false>;
   return launch_on(static_cast<const int*>(mi), static_cast<const float*>(mf),
                    static_cast<const float*>(hf), static_cast<const float*>(in),
-                   static_cast<float*>(out), B, pairs, blocks, threads, layout, smem,
+                   static_cast<float*>(out), B, pairs, blocks, threads, layout, smem, lanes,
                    static_cast<cudaStream_t>(stream));
 }

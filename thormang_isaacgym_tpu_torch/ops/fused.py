@@ -42,8 +42,15 @@ slice does not fit may still keep there all of it but its input rows, read
 from device memory, and its articulated inertias, kept in per-thread local
 memory (the split layout), or, where that does not fit either, all of that
 but the ground candidates' kept state, which the contact's second pass
-recomputes (the lean split layout). Otherwise, and in the box instance, the
-sweep state is per-thread local memory (the local layout).
+recomputes (the lean split layout). Otherwise the sweep state is per-thread
+local memory (the local layout). The box instance takes the local layout
+where its envs fill the card, and else the wide layout: G lanes an env, each
+running the whole sweep on its own copy of the state, share the pair
+narrowphase (lane j computes every G-th pair, then every lane applies the
+candidates in the local layout's order, reading each by warp shuffles from
+the lane that computed it), so the same envs run on G times as many warps;
+``pick_box_geometry`` picks the layout, G and the block from the width, the
+model's body count and the card's SM count at launch.
 
 The kernel is built at first use with ``nvcc`` alone (no PyTorch headers)
 into ``thormang_isaacgym_tpu_torch/_build/`` and loaded with ``ctypes``. For
@@ -93,16 +100,22 @@ MAX_ATTRACTORS = 64
 # the box instance's pair cull (csrc/fused_step.cu kCullMargin, kCullRel)
 CULL_MARGIN = 1e-3
 CULL_REL = 1e-5
-# launch geometry, one thread per env: the instances without the box kinds
+# launch geometry: the instances without the box kinds one thread per env
 # in blocks of BLOCK threads (4096 envs: 128 blocks, one on each of 128 of
-# the H100's 132 SMs), the box instance in blocks of PAIR_BLOCK
+# the H100's 132 SMs); the box instance's from pick_box_geometry
 BLOCK = 32
-PAIR_BLOCK = 128
 # the dynamic shared memory a block may use on sm_90 (227 KB)
 SMEM_BUDGET = 232_448
 # the kernel's layouts, in the order of their codes in csrc/fused_step.cu
-# (kLocal, kShared, kSplit, kSplitLean)
-LAYOUTS = ("local", "shared", "split", "split_lean")
+# (kLocal, kShared, kSplit, kSplitLean, kWide)
+LAYOUTS = ("local", "shared", "split", "split_lean", "wide")
+# the wide layout's lanes an env (G), and the most candidates of a pair
+# (box vs box; kMaxPairCands in csrc/fused_step.cu)
+WIDE_LANES = (2, 4, 8, 16, 32)
+# the wide layout's lanes' envs times the model's bodies an SM
+# (pick_box_geometry): one warp, one thread an env, of a 12-body model
+WIDE_BODY_LANES = 32 * 12
+MAX_PAIR_CANDS = 17
 _HEADER = 48
 _KIND = {"sphere": 0, "capcap": 1, "capbox": 2, "boxbox": 3}
 
@@ -161,9 +174,15 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     lib = ctypes.CDLL(build_library().path)
     fn = lib.fused_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (an index or a torch.device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def sweep_lane_words(nb: int, nj: int, nq: int, nv: int, nc: int, *,
@@ -243,6 +262,41 @@ def pick_layout(nb: int, nj: int, nq: int, nv: int, nc: int, block: int, *,
             if n <= SMEM_BUDGET:
                 return name, n
     return "local", 0
+
+
+def wide_lane_words() -> int:
+    """Words of one lane's slot in the wide layout (csrc/fused_step.cu
+    ``wide_lane_words``, per-thread memory): the candidates of the pair the
+    lane computes in a round, 7 words each (normal, depth, point), for box vs
+    box's 17."""
+    return 7 * MAX_PAIR_CANDS
+
+
+def pick_box_geometry(B: int, bodies: int, sms: int) -> tuple:
+    """The box instance's launch geometry, a pure function of the width `B`,
+    the model's body count and the card's SM count: (layout, G lanes an
+    env, threads a block). A launch "fills" the card when its blocks reach
+    3/4 of its SMs. One thread an env in blocks of 128 where those fill it
+    (the hands' 16384 envs: 128 blocks on 132 SMs); else in blocks of 32
+    where those fill it (4096 and 8192 envs); else the wide layout in
+    blocks of one warp with the most lanes G, up to 32, that keep the lanes'
+    envs times the bodies within WIDE_BODY_LANES an SM, or one thread an env
+    in blocks of 32 where G = 1 (Factory's 128 envs on 12 bodies: G = 32,
+    128 warps; MA_OP3's 47 bodies: G = 8 at 128 envs, 1 from 1024). Fitted
+    on an H100 (PERF.md): each lane replicates the sweep, whose
+    local-memory traffic grows with the lanes times the bodies, while the
+    shared pair narrowphase shrinks as 1/G."""
+    def fills(threads: int, block: int) -> bool:
+        return 4 * -(-threads // block) >= 3 * sms
+
+    if fills(B, 128):
+        return "local", 1, 128
+    if fills(B, 32):
+        return "local", 1, 32
+    g = WIDE_LANES[-1]
+    while g > 1 and B * g * bodies > WIDE_BODY_LANES * sms:
+        g //= 2
+    return ("wide", g, 32) if g > 1 else ("local", 1, 32)
 
 
 def make_rows(model: RobotModel, ground_rows: int = 0) -> dict:
@@ -471,10 +525,13 @@ class FusedStep:
     target, kp, kd) tuples. ``launches`` counts kernel launches (CPU calls
     run the plain version and do not count). ``pair_mode`` picks the
     kernel instance: 0 without pairs and attractors, 1 with them, 2 with a
-    pair of a box kind. ``block`` is the launch's block size; ``layout``
-    the layout the launch takes (``pick_layout``; "local" in the box mode)
-    and ``smem_bytes`` its dynamic shared memory of a block (0 in the local
-    layout)."""
+    pair of a box kind. Without the box kinds ``block`` is the launch's
+    block size, ``layout`` the layout it takes (``pick_layout``) and
+    ``smem_bytes`` its dynamic shared memory of a block (0 in the local
+    layout). The box instance's geometry depends on the width:
+    ``launch_geometry(B)`` (``pick_box_geometry`` at the card's SM count,
+    or ``force_geometry``, a (layout, lanes, block) tuple, where it is set);
+    ``last_geometry`` holds the last launch's."""
 
     def __init__(self, model: RobotModel, sim_params: SimParams, *,
                  ground=0.0, attractors=None, need_torque=True):
@@ -488,7 +545,9 @@ class FusedStep:
         self.pair_mode = 2 if collide.has_box_pairs(model) else \
             int(collide.has_pairs(model) or bool(self.attractors))
         self.hf = ground if isinstance(ground, Heightfield) else None
-        self.block = PAIR_BLOCK if self.pair_mode == 2 else BLOCK
+        self.block = None if self.pair_mode == 2 else BLOCK
+        self.force_geometry = None
+        self.last_geometry = None
         self._nc = len(contact.candidates(model)["geom"])
         self._npb = len(pair_bodies(model)) if self.pair_mode == 1 else 0
         self.tq_bodies = norm_torque_bodies(need_torque, model.nb)
@@ -518,7 +577,8 @@ class FusedStep:
     def _layout(self) -> tuple:
         """(layout, dynamic shared bytes of a block) under the budget rule."""
         if self.pair_mode == 2:
-            return "local", 0
+            raise ValueError("the box instance's layout depends on the width: "
+                             "launch_geometry(B)")
         m = self.model
         return pick_layout(m.nb, m.nj, m.nq, m.nv, self._nc, self.block,
                            pairs=bool(self.pair_mode), **self._layout_kw())
@@ -530,6 +590,20 @@ class FusedStep:
     @property
     def smem_bytes(self) -> int:
         return self._layout()[1]
+
+    def launch_geometry(self, B: int, sms: int | None = None) -> tuple:
+        """(layout, lanes an env, threads a block, dynamic shared bytes of a
+        block) of a launch at `B` envs on a card of `sms` SMs (default: the
+        current CUDA device's)."""
+        if self.pair_mode != 2:
+            layout, smem = self._layout()
+            return layout, 1, self.block, smem
+        if self.force_geometry is not None:
+            layout, lanes, block = self.force_geometry
+        else:
+            layout, lanes, block = pick_box_geometry(
+                B, self.model.nb, sm_count(torch.cuda.current_device()) if sms is None else sms)
+        return layout, lanes, block, 0
 
     def _on(self, dev):
         """(int table, float table, torque-body index) on `dev`, built once:
@@ -617,14 +691,17 @@ class FusedStep:
         B = packed.shape[1]
         out = torch.empty(self.out_rows, B, device=dev, dtype=torch.float32)
         fn = load_library().fused_step_launch
-        layout, smem = self._layout()
         with torch.cuda.device(dev):
+            layout, lanes, block, smem = self.launch_geometry(B, sm_count(dev))
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(mi_t.data_ptr(), mf_t.data_ptr(), hf_ptr, packed.data_ptr(), out.data_ptr(),
-                     B, self.pair_mode, self.block, LAYOUTS.index(layout), smem, stream)
+                     B, self.pair_mode, block, LAYOUTS.index(layout), smem, lanes, stream)
         if err != 0:
             raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err} "
-                               f"(block {self.block}, {layout} layout, {smem} shared bytes)")
+                               f"(block {block}, {layout} layout, {lanes} lanes an env, "
+                               f"{smem} shared bytes)")
+        self.last_geometry = dict(layout=layout, lanes=lanes, block=block, smem_bytes=smem,
+                                  blocks=-(-B * lanes // block))
         self.launches += 1
         return out
 
