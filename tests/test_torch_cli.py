@@ -94,6 +94,11 @@ def test_main_writes_the_run_layout(cli_run):
               "v_loss", "entropy", "lr", "time", "env_steps", "fps"):
         assert all(math.isfinite(r[k]) for r in rows), k
     assert rows[-1]["env_steps"] == 3 * 16 * 64 and ts.epoch == 3
+    # each row's host ms an iteration of each phase span, over the iterations since the last
+    for r in rows:
+        assert {f"time/{k}_ms" for k in train.PHASES} <= set(r)
+        assert r["time/ppo.rollout_ms"] > r["time/env.step_ms"] >= r["time/fused.step_ms"] > 0
+        assert r["time/ppo.reduce_ms"] == 0.0
 
 
 def test_play_of_last_checkpoint(cli_run, capsys):
@@ -441,13 +446,23 @@ def test_jax_mappo_checkpoint_loads_into_the_port(tmp_path):
 
 def test_profile_epoch_writes_a_chrome_trace(tmp_path):
     """profile_epoch=0 traces epochs 0-2 with torch.profiler into
-    <run>/profile/trace.json (a small network keeps it short)."""
+    <run>/profile/trace.json, the program's spans among its events, and
+    writes the spans' table beside it, profile/spans.json (a small network
+    keeps it short); the tracer's level is put back."""
+    from thormang_isaacgym_tpu_torch.utils import trace as tracer
+
+    level = tracer.TRACER.level
     train.main(["task=Cartpole", "num_envs=8", "max_iterations=3", "device=cpu", "profile_epoch=0",
                 "train.params.network.mlp.units=[16]", "train.params.config.mini_epochs=1",
                 f"output_root={tmp_path}"])
+    assert tracer.TRACER.level == level
     trace = tmp_path / "Cartpole" / "profile" / "trace.json"
     assert trace.is_file()
-    assert "traceEvents" in json.loads(trace.read_text())
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert sum(e.get("name") == "learn.iteration" for e in events) == 3
+    table = json.loads((tmp_path / "Cartpole" / "profile" / "spans.json").read_text())
+    assert {"learn.iteration", "ppo.rollout", "env.step", "fused.step"} <= set(table["spans"])
+    assert table["kernels"] == 0 and table["window_ms"] > 0      # the CPU launches no kernel
 
 
 # ---------------------------------------------------------------------------

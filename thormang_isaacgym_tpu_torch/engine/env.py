@@ -10,7 +10,10 @@ step -> domain randomisation of the envs that are due -> action noise ->
 clip(actions) -> pre_physics -> physics x control_freq_inv -> non-finite
 quarantine -> post_physics (obs / reward / done) -> timeout bookkeeping ->
 observation noise -> clip(obs). Nothing in ``step_fn`` waits for the
-device.
+device. The step is the span ``env.step``, its sections the spans
+``env.reset``, ``env.dr``, ``env.noise`` (actions, then observations),
+``env.pre_physics``, ``env.physics`` (with the quarantine) and
+``env.post_physics`` (with the privileged states) (``utils/trace.py``).
 
 Randomness is counter-based: every draw is a hash of (seed, salt, env id,
 episode, draw index) (:class:`EnvRandom`), so an env's reset state depends
@@ -37,6 +40,7 @@ import torch
 from thormang_isaacgym_tpu_torch.engine import dr
 from thormang_isaacgym_tpu_torch.models.robot import ModelParams, RobotModel
 from thormang_isaacgym_tpu_torch.ops.sim import SimParams, build_step_fn
+from thormang_isaacgym_tpu_torch.utils.trace import span
 
 _M32 = 0xFFFFFFFF
 SALT = dict(init=0, stagger=3, reset=17, dr_setup=23, dr=29, corr_obs=101, corr_act=102,
@@ -299,99 +303,111 @@ class VecEnv:
                                    states=states, task=task_state, metrics=metrics)
 
     def step_fn(self, state: EnvState, actions: torch.Tensor) -> EnvState:
-        task = self.task
+        with span("env.step"):
+            task = self.task
 
-        # ---- 1. masked auto-reset of envs done on the previous step ----
-        do_reset = state.done > 0
-        episode = state.episode + do_reset.to(torch.int64)
-        q_r, qd_r, params_r, task_r = task.reset_fn(
-            EnvRandom(state.seed, episode, SALT["reset"], state.env_id0), state.params,
-            state.task)
-        q = mask_select(do_reset, q_r, state.q)
-        qd = mask_select(do_reset, qd_r, state.qd)
-        params = mask_select(do_reset, params_r, state.params)
-        task_state = mask_select(do_reset, task_r, state.task)
-        # a non-finite carried state takes the fresh reset state, so the
-        # quarantine below always has a finite anchor
-        bad_pre = ~(torch.isfinite(q).all(-1) & torch.isfinite(qd).all(-1))
-        q = torch.where(bad_pre[:, None], q_r, q)
-        qd = torch.where(bad_pre[:, None], qd_r, qd)
-        progress = torch.where(do_reset | bad_pre, torch.zeros_like(state.progress),
-                               state.progress)
-        episode_return = torch.where(do_reset, torch.zeros_like(state.episode_return),
-                                     state.episode_return)
+            # ---- 1. masked auto-reset of envs done on the previous step ----
+            with span("env.reset"):
+                do_reset = state.done > 0
+                episode = state.episode + do_reset.to(torch.int64)
+                q_r, qd_r, params_r, task_r = task.reset_fn(
+                    EnvRandom(state.seed, episode, SALT["reset"], state.env_id0), state.params,
+                    state.task)
+                q = mask_select(do_reset, q_r, state.q)
+                qd = mask_select(do_reset, qd_r, state.qd)
+                params = mask_select(do_reset, params_r, state.params)
+                task_state = mask_select(do_reset, task_r, state.task)
+                # a non-finite carried state takes the fresh reset state, so the
+                # quarantine below always has a finite anchor
+                bad_pre = ~(torch.isfinite(q).all(-1) & torch.isfinite(qd).all(-1))
+                q = torch.where(bad_pre[:, None], q_r, q)
+                qd = torch.where(bad_pre[:, None], qd_r, qd)
+                progress = torch.where(do_reset | bad_pre, torch.zeros_like(state.progress),
+                                       state.progress)
+                episode_return = torch.where(do_reset, torch.zeros_like(state.episode_return),
+                                             state.episode_return)
 
-        # frequency-gated domain randomisation at the reset (vec_task.py:547-566);
-        # `due` and the schedule read global_step before the increment
-        last_rand, dr_corr = state.last_rand, state.dr_corr
-        if self._dr_any:
+            # frequency-gated domain randomisation at the reset (vec_task.py:547-566);
+            # `due` and the schedule read global_step before the increment
+            last_rand, dr_corr = state.last_rand, state.dr_corr
+            if self._dr_any:
+                with span("env.dr"):
+                    gs = state.global_step
+                    due = do_reset & (gs - state.last_rand >= self._dr_freq)
+                    if self._dr_active:
+                        base = self.base_params(q.device, q.shape[0])
+                        rng = EnvRandom(state.seed, episode, SALT["dr"], state.env_id0)
+                        params_dr = self._dr_fn.apply(self.dr_draws(rng, base, setup=False),
+                                                      params, base, gs, setup=False)
+                        params = mask_select(due, params_dr, params)
+                    if dr_corr:
+                        dr_corr = mask_select(due, self.corr_draws(state.seed, episode),
+                                              dr_corr)
+                    last_rand = torch.where(due, gs, state.last_rand)
+
+            state = dataclasses.replace(
+                state, q=q, qd=qd, params=params, task=task_state, progress=progress,
+                episode=episode, episode_return=episode_return, last_rand=last_rand,
+                dr_corr=dr_corr, global_step=state.global_step + 1)
+
+            # ---- 2. action noise + clip (vec_task.py:324-327) ----
             gs = state.global_step
-            due = do_reset & (gs - state.last_rand >= self._dr_freq)
-            if self._dr_active:
-                base = self.base_params(q.device, q.shape[0])
-                rng = EnvRandom(state.seed, episode, SALT["dr"], state.env_id0)
-                params_dr = self._dr_fn.apply(self.dr_draws(rng, base, setup=False), params,
-                                              base, gs, setup=False)
-                params = mask_select(due, params_dr, params)
-            if dr_corr:
-                dr_corr = mask_select(due, self.corr_draws(state.seed, episode), dr_corr)
-            last_rand = torch.where(due, gs, state.last_rand)
+            with span("env.noise"):
+                if type(task).action_noise is not Task.action_noise:
+                    actions = task.action_noise(self.step_random(state, "act_hook"), actions)
+                if self._act_noise_fn is not None:
+                    std = self.noise_draw("act", self.step_random(state, "act_noise"), actions)
+                    actions = self._act_noise_fn.apply(std, actions, dr_corr.get("act"), gs)
+                actions = torch.clamp(actions, -task.clip_actions, task.clip_actions)
 
-        state = dataclasses.replace(
-            state, q=q, qd=qd, params=params, task=task_state, progress=progress,
-            episode=episode, episode_return=episode_return, last_rand=last_rand,
-            dr_corr=dr_corr, global_step=state.global_step + 1)
+            # ---- 3. pre-physics + physics ----
+            with span("env.pre_physics"):
+                ctrl, wrench, task_state = task.pre_physics(state, actions)
+                state = dataclasses.replace(state, task=task_state)
+            with span("env.physics"):
+                q_pre, qd_pre = state.q, state.qd
+                q, qd = q_pre, qd_pre
+                for _ in range(task.control_freq_inv):
+                    q, qd, net = self.physics_step(state.params, q, qd, ctrl, wrench)
+                # quarantine: a non-finite env rolls back to its pre-step state, is
+                # force-reset, and its reward is zeroed below
+                blown = ~(torch.isfinite(q).all(-1) & torch.isfinite(qd).all(-1))
+                q = torch.where(blown[:, None], q_pre, q)
+                qd = torch.where(blown[:, None], torch.zeros_like(qd), qd)
+                net = torch.where(blown[:, None, None], torch.zeros_like(net), net)
+                progress = state.progress + 1
+                state = dataclasses.replace(state, q=q, qd=qd, progress=progress,
+                                            net_contact=net[..., 0:3], net_torque=net[..., 3:6])
 
-        # ---- 2. action noise + clip (vec_task.py:324-327) ----
-        gs = state.global_step
-        if type(task).action_noise is not Task.action_noise:
-            actions = task.action_noise(self.step_random(state, "act_hook"), actions)
-        if self._act_noise_fn is not None:
-            std = self.noise_draw("act", self.step_random(state, "act_noise"), actions)
-            actions = self._act_noise_fn.apply(std, actions, dr_corr.get("act"), gs)
-        actions = torch.clamp(actions, -task.clip_actions, task.clip_actions)
+            # ---- 4. post-physics: obs / reward / done, privileged states ----
+            with span("env.post_physics"):
+                obs, reward, done_task, task_state, metrics = task.post_physics(state, task_state)
+                zero = torch.zeros_like(reward)
+                reward = torch.where(blown if reward.dim() == 1 else blown[:, None], zero, reward)
+                done_task = torch.where(blown, torch.ones_like(done_task),
+                                        done_task.to(torch.float32))
+                timeout = progress >= task.max_episode_length - 1
+                done = torch.where(timeout, torch.ones_like(done_task), done_task)
+                states = task.compute_states(dataclasses.replace(state, task=task_state),
+                                             task_state) if task.num_states else state.states
 
-        # ---- 3. pre-physics + physics ----
-        ctrl, wrench, task_state = task.pre_physics(state, actions)
-        state = dataclasses.replace(state, task=task_state)
-        q_pre, qd_pre = state.q, state.qd
-        q, qd = q_pre, qd_pre
-        for _ in range(task.control_freq_inv):
-            q, qd, net = self.physics_step(state.params, q, qd, ctrl, wrench)
-        # quarantine: a non-finite env rolls back to its pre-step state, is
-        # force-reset, and its reward is zeroed below
-        blown = ~(torch.isfinite(q).all(-1) & torch.isfinite(qd).all(-1))
-        q = torch.where(blown[:, None], q_pre, q)
-        qd = torch.where(blown[:, None], torch.zeros_like(qd), qd)
-        net = torch.where(blown[:, None, None], torch.zeros_like(net), net)
-        progress = state.progress + 1
-        state = dataclasses.replace(state, q=q, qd=qd, progress=progress,
-                                    net_contact=net[..., 0:3], net_torque=net[..., 3:6])
-
-        # ---- 4. post-physics: obs / reward / done ----
-        obs, reward, done_task, task_state, metrics = task.post_physics(state, task_state)
-        zero = torch.zeros_like(reward)
-        reward = torch.where(blown if reward.dim() == 1 else blown[:, None], zero, reward)
-        done_task = torch.where(blown, torch.ones_like(done_task), done_task.to(torch.float32))
-        timeout = progress >= task.max_episode_length - 1
-        done = torch.where(timeout, torch.ones_like(done_task), done_task)
-
-        # ---- 5. observation noise + clip (vec_task.py:353-357) ----
-        if type(task).observation_noise is not Task.observation_noise:
-            obs = task.observation_noise(self.step_random(state, "obs_hook"), obs, task_state)
-        if self._obs_noise_fn is not None:
-            std = self.noise_draw("obs", self.step_random(state, "obs_noise"), obs)
-            obs = self._obs_noise_fn.apply(std, obs, dr_corr.get("obs"), gs)
-        obs = torch.clamp(obs, -task.clip_obs, task.clip_obs)
-        states = task.compute_states(dataclasses.replace(state, task=task_state), task_state) \
-            if task.num_states else state.states
-        episode_return = state.episode_return + (reward.mean(-1) if reward.dim() == 2 else reward)
-        last_episode_return = torch.where(done > 0, episode_return, state.last_episode_return)
-        return dataclasses.replace(
-            state, obs=obs, states=states, reward=reward, done=done,
-            timeout=(timeout & (done_task < 0.5)).to(torch.float32),
-            episode_return=episode_return, last_episode_return=last_episode_return,
-            task=task_state, metrics=metrics)
+            # ---- 5. observation noise + clip (vec_task.py:353-357) ----
+            with span("env.noise"):
+                if type(task).observation_noise is not Task.observation_noise:
+                    obs = task.observation_noise(self.step_random(state, "obs_hook"), obs,
+                                                 task_state)
+                if self._obs_noise_fn is not None:
+                    std = self.noise_draw("obs", self.step_random(state, "obs_noise"), obs)
+                    obs = self._obs_noise_fn.apply(std, obs, dr_corr.get("obs"), gs)
+                obs = torch.clamp(obs, -task.clip_obs, task.clip_obs)
+            episode_return = state.episode_return + (reward.mean(-1) if reward.dim() == 2
+                                                     else reward)
+            last_episode_return = torch.where(done > 0, episode_return, state.last_episode_return)
+            return dataclasses.replace(
+                state, obs=obs, states=states, reward=reward, done=done,
+                timeout=(timeout & (done_task < 0.5)).to(torch.float32),
+                episode_return=episode_return, last_episode_return=last_episode_return,
+                task=task_state, metrics=metrics)
 
     def base_params(self, device, B: int) -> ModelParams:
         """The model's default parameters batched over B, which every DR

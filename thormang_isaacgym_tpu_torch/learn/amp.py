@@ -43,6 +43,7 @@ from thormang_isaacgym_tpu_torch.engine.env import EnvState, VecEnv
 from thormang_isaacgym_tpu_torch.learn.networks import AMPDiscriminator
 from thormang_isaacgym_tpu_torch.learn.normalize import RMSState, rms_normalize, rms_update
 from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig, TrainState
+from thormang_isaacgym_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,84 +172,92 @@ class AMPPPO(PPO):
         """One epoch: rollout, style reward, GAE, normalisers, mini_epochs of
         minibatch updates (the adaptive lr after each), the ring's insert.
         Returns (ts, env_state, metrics of () tensors)."""
-        cfg = self.cfg
-        dev = self.device
-        env_state, traj = self.rollout(ts, env_state)
-        with torch.no_grad():
-            _, _, last_value = self._policy(ts, env_state.obs)
-            T, B = traj["reward"].shape
-            amp_flat = traj["amp_obs"].reshape(T * B, self.num_amp_obs)
-            disc_r = self._disc_reward(ts, amp_flat).reshape(T, B)
-            task_r = traj["reward"]
-            traj["reward"] = cfg.task_reward_w * task_r + cfg.disc_reward_w * disc_r
-            advantages, returns = self.compute_gae(traj, last_value)
-        batch = self.make_batch(traj, advantages, returns)
-        if cfg.normalize_advantage:
-            adv = batch["adv"]
-            batch["adv"] = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
-        N = batch["obs"].shape[0]
-        mb = min(cfg.minibatch_size, N)
-        nmb = N // mb
-        amp_mb = self.amp_mb
+        with span("learn.iteration"):
+            cfg = self.cfg
+            dev = self.device
+            with span("ppo.rollout"):
+                env_state, traj = self.rollout(ts, env_state)
+            with torch.no_grad(), span("ppo.policy"):
+                _, _, last_value = self._policy(ts, env_state.obs)
+            with torch.no_grad(), span("ppo.gae"):
+                T, B = traj["reward"].shape
+                amp_flat = traj["amp_obs"].reshape(T * B, self.num_amp_obs)
+                disc_r = self._disc_reward(ts, amp_flat).reshape(T, B)
+                task_r = traj["reward"]
+                traj["reward"] = cfg.task_reward_w * task_r + cfg.disc_reward_w * disc_r
+                advantages, returns = self.compute_gae(traj, last_value)
+            with span("ppo.batch"):
+                batch = self.make_batch(traj, advantages, returns)
+                if cfg.normalize_advantage:
+                    adv = batch["adv"]
+                    batch["adv"] = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+                N = batch["obs"].shape[0]
+                mb = min(cfg.minibatch_size, N)
+                nmb = N // mb
+                amp_mb = self.amp_mb
 
-        # demo windows for this iteration, fresh from the motion library
-        demo_all = self.env.task.fetch_amp_obs_demo(ts.gen, nmb * amp_mb)
-        if cfg.normalize_input:
-            ts.obs_rms = rms_update(ts.obs_rms, batch["obs"])
-        if cfg.normalize_value:
-            ts.value_rms = rms_update(ts.value_rms, batch["ret"])
-        if cfg.normalize_amp_input:
-            ts.amp_rms = rms_update(rms_update(ts.amp_rms, amp_flat), demo_all)
+                # demo windows for this iteration, fresh from the motion library
+                demo_all = self.env.task.fetch_amp_obs_demo(ts.gen, nmb * amp_mb)
+                if cfg.normalize_input:
+                    ts.obs_rms = rms_update(ts.obs_rms, batch["obs"])
+                if cfg.normalize_value:
+                    ts.value_rms = rms_update(ts.value_rms, batch["ret"])
+                if cfg.normalize_amp_input:
+                    ts.amp_rms = rms_update(rms_update(ts.amp_rms, amp_flat), demo_all)
 
-        # replay rows for every (mini-epoch, minibatch); the rollout's while
-        # the ring is empty
-        n_rep = cfg.mini_epochs * nmb * amp_mb
-        if ts.replay_count > 0:
-            rep_rows = ts.replay[torch.randint(0, ts.replay_count, (n_rep,), generator=ts.gen,
-                                               device=dev)]
-        else:
-            rep_rows = amp_flat[torch.randint(0, N, (n_rep,), generator=ts.gen, device=dev)]
-        rep_rows = rep_rows.reshape(cfg.mini_epochs, nmb, amp_mb, self.num_amp_obs)
-        demo_rows = demo_all.reshape(nmb, amp_mb, self.num_amp_obs)
+                # replay rows for every (mini-epoch, minibatch); the rollout's while
+                # the ring is empty
+                n_rep = cfg.mini_epochs * nmb * amp_mb
+                if ts.replay_count > 0:
+                    rep_rows = ts.replay[torch.randint(0, ts.replay_count, (n_rep,),
+                                                       generator=ts.gen, device=dev)]
+                else:
+                    rep_rows = amp_flat[torch.randint(0, N, (n_rep,), generator=ts.gen, device=dev)]
+                rep_rows = rep_rows.reshape(cfg.mini_epochs, nmb, amp_mb, self.num_amp_obs)
+                demo_rows = demo_all.reshape(nmb, amp_mb, self.num_amp_obs)
 
-        params = ts.parameters()
-        keys = ("a_loss", "v_loss", "entropy", "kl", "disc_loss", "disc_agent_acc",
-                "disc_demo_acc")
-        auxs = {k: [] for k in keys}
-        for ep in range(cfg.mini_epochs):
-            perm = torch.randperm(N, generator=ts.gen, device=dev)
-            for i in range(nmb):
-                idx = perm[i * mb:(i + 1) * mb]
-                mb_batch = {k: v[idx] for k, v in batch.items()}
-                mb_batch.update(amp_cur=amp_flat[idx[:amp_mb]], amp_replay=rep_rows[ep, i],
-                                amp_demo=demo_rows[i])
-                loss, aux = self._loss(ts, mb_batch)
-                grads, aux = self.reduce(self.grads(loss, params), aux)
-                self._apply_grads(ts, grads)
-                ts.lr = self._adaptive_lr(ts.lr, aux["kl"].detach())
-                for k in keys:
-                    auxs[k].append(aux[k].detach())
+            params = ts.parameters()
+            keys = ("a_loss", "v_loss", "entropy", "kl", "disc_loss", "disc_agent_acc",
+                    "disc_demo_acc")
+            auxs = {k: [] for k in keys}
+            for ep in range(cfg.mini_epochs):
+                perm = torch.randperm(N, generator=ts.gen, device=dev)
+                for i in range(nmb):
+                    with span("ppo.loss"):
+                        idx = perm[i * mb:(i + 1) * mb]
+                        mb_batch = {k: v[idx] for k, v in batch.items()}
+                        mb_batch.update(amp_cur=amp_flat[idx[:amp_mb]], amp_replay=rep_rows[ep, i],
+                                        amp_demo=demo_rows[i])
+                        loss, aux = self._loss(ts, mb_batch)
+                    with span("ppo.backward"):
+                        grads = self.grads(loss, params)
+                    grads, aux = self.reduce(grads, aux)
+                    with span("ppo.adam"):
+                        self._apply_grads(ts, grads)
+                    ts.lr = self._adaptive_lr(ts.lr, aux["kl"].detach())
+                    for k in keys:
+                        auxs[k].append(aux[k].detach())
 
-        # a keep-prob subsample of this rollout into the ring
-        n_ins = self.replay_insert
-        ins = torch.randperm(N, generator=ts.gen, device=dev)[:n_ins]
-        pos = (ts.replay_ptr + torch.arange(n_ins, device=dev)) % self.replay_size
-        ts.replay[pos] = amp_flat[ins]
-        ts.replay_count = min(ts.replay_count + n_ins, self.replay_size)
-        ts.replay_ptr = (ts.replay_ptr + n_ins) % self.replay_size
-        ts.epoch += 1
+            # a keep-prob subsample of this rollout into the ring
+            n_ins = self.replay_insert
+            ins = torch.randperm(N, generator=ts.gen, device=dev)[:n_ins]
+            pos = (ts.replay_ptr + torch.arange(n_ins, device=dev)) % self.replay_size
+            ts.replay[pos] = amp_flat[ins]
+            ts.replay_count = min(ts.replay_count + n_ins, self.replay_size)
+            ts.replay_ptr = (ts.replay_ptr + n_ins) % self.replay_size
+            ts.epoch += 1
 
-        def mean(k):
-            return torch.stack(auxs[k]).mean()
+            def mean(k):
+                return torch.stack(auxs[k]).mean()
 
-        metrics = dict(
-            reward_mean=traj["reward"].mean(),
-            task_reward_mean=task_r.mean(),
-            disc_reward_mean=disc_r.mean(),
-            episode_return_mean=env_state.last_episode_return.mean(),
-            episode_done_frac=traj["done"].mean(),
-            kl=torch.stack(auxs["kl"][-nmb:]).mean(),
-            a_loss=mean("a_loss"), v_loss=mean("v_loss"), disc_loss=mean("disc_loss"),
-            disc_agent_acc=mean("disc_agent_acc"), disc_demo_acc=mean("disc_demo_acc"),
-            entropy=mean("entropy"), lr=ts.lr)
-        return ts, env_state, metrics
+            metrics = dict(
+                reward_mean=traj["reward"].mean(),
+                task_reward_mean=task_r.mean(),
+                disc_reward_mean=disc_r.mean(),
+                episode_return_mean=env_state.last_episode_return.mean(),
+                episode_done_frac=traj["done"].mean(),
+                kl=torch.stack(auxs["kl"][-nmb:]).mean(),
+                a_loss=mean("a_loss"), v_loss=mean("v_loss"), disc_loss=mean("disc_loss"),
+                disc_agent_acc=mean("disc_agent_acc"), disc_demo_acc=mean("disc_demo_acc"),
+                entropy=mean("entropy"), lr=ts.lr)
+            return ts, env_state, metrics

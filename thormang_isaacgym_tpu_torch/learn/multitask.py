@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from thormang_isaacgym_tpu_torch.learn.ppo import PPO
+from thormang_isaacgym_tpu_torch.utils.trace import span
 
 
 def task_seeds(seed: int, index: int) -> tuple:
@@ -62,9 +63,10 @@ class MultiTaskPPO:
     def train_iteration(self, tss: dict, env_states: dict):
         """One epoch over every task: (tss, env_states, {name: metrics})."""
         out_ts, out_es, mets = {}, {}, {}
-        for name in self.names:
-            out_ts[name], out_es[name], mets[name] = self.algos[name].train_iteration(
-                tss[name], env_states[name])
+        with span("learn.iteration"):
+            for name in self.names:
+                out_ts[name], out_es[name], mets[name] = self.algos[name].train_iteration(
+                    tss[name], env_states[name])
         return out_ts, out_es, mets
 
     def train(self, num_epochs: int, seed: int = 42, log_every: int = 10, callback=None):

@@ -44,6 +44,7 @@ from thormang_isaacgym_tpu_torch.learn.networks import ActorCritic, ActorCriticR
 from thormang_isaacgym_tpu_torch.learn.normalize import (
     RMSState, rms_denormalize, rms_normalize, rms_update,
 )
+from thormang_isaacgym_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,8 +301,9 @@ class PPO:
         traj = {}
         for _ in range(self.cfg.horizon_length):
             obs, states = env_state.obs, env_state.states
-            mu, log_std, value = self._policy(ts, obs, states)
-            action, logp = self._sample(ts, mu, log_std)
+            with span("ppo.policy"):
+                mu, log_std, value = self._policy(ts, obs, states)
+                action, logp = self._sample(ts, mu, log_std)
             env_state = self.env.step_fn(env_state, action)
             extra = dict(states=states) if self.asymmetric else {}
             self._record(traj, env_state, obs=obs, action=action, logp=logp, value=value,
@@ -318,11 +320,12 @@ class PPO:
         carry = ts.model.zero_carry(B, self.device)
         traj = {}
         for _ in range(self.cfg.horizon_length):
-            carry = carry * (1.0 - env_state.done)[:, None]
             obs, states = env_state.obs, env_state.states
-            stored = carry
-            mu, log_std, value, carry = self._policy_rnn(ts, obs, carry, states)
-            action, logp = self._sample(ts, mu, log_std)
+            with span("ppo.policy"):
+                carry = carry * (1.0 - env_state.done)[:, None]
+                stored = carry
+                mu, log_std, value, carry = self._policy_rnn(ts, obs, carry, states)
+                action, logp = self._sample(ts, mu, log_std)
             env_state = self.env.step_fn(env_state, action)
             extra = dict(states=states) if self.asymmetric else {}
             self._record(traj, env_state, obs=obs, action=action, logp=logp, value=value,
@@ -445,7 +448,8 @@ class PPO:
             return grads, aux
         from thormang_isaacgym_tpu_torch.parallel.mesh import all_reduce_mean
         keys = sorted(aux)
-        out = all_reduce_mean(list(grads) + [aux[k].detach() for k in keys], self.group)
+        with span("ppo.reduce"):
+            out = all_reduce_mean(list(grads) + [aux[k].detach() for k in keys], self.group)
         return out[:len(grads)], dict(zip(keys, out[len(grads):]))
 
     @staticmethod
@@ -483,66 +487,75 @@ class PPO:
     def train_iteration(self, ts: TrainState, env_state: EnvState):
         """One epoch: rollout + mini_epochs of minibatch updates. Returns
         (ts, env_state, metrics of () tensors); nothing waits for the device."""
-        cfg = self.cfg
-        if self.is_rnn:
-            env_state, traj, last = self.rollout_rnn(ts, env_state)
-            with torch.no_grad():
-                last = last * (1.0 - env_state.done)[:, None]
-                _, _, last_value, _ = self._policy_rnn(ts, env_state.obs, last, env_state.states)
-        else:
-            env_state, traj = self.rollout(ts, env_state)
-            with torch.no_grad():
-                _, _, last_value = self._policy(ts, env_state.obs, env_state.states)
-        with torch.no_grad():
-            advantages, returns = self.compute_gae(traj, last_value)
-        batch = self.make_batch(traj, advantages, returns)
-        if cfg.normalize_advantage:
-            adv = batch["adv"]
-            batch["adv"] = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
-        if cfg.normalize_input:
-            ts.obs_rms = rms_update(ts.obs_rms, batch["obs"].reshape(-1, self.env.num_obs))
-            if self.asymmetric:
-                ts.states_rms = rms_update(ts.states_rms,
-                                           batch["states"].reshape(-1, self.num_states))
-        if cfg.normalize_value:
-            ts.value_rms = rms_update(ts.value_rms, batch["ret"].reshape(-1))
+        with span("learn.iteration"):
+            cfg = self.cfg
+            with span("ppo.rollout"):
+                if self.is_rnn:
+                    env_state, traj, last = self.rollout_rnn(ts, env_state)
+                else:
+                    env_state, traj = self.rollout(ts, env_state)
+            with torch.no_grad(), span("ppo.policy"):
+                if self.is_rnn:
+                    last = last * (1.0 - env_state.done)[:, None]
+                    _, _, last_value, _ = self._policy_rnn(ts, env_state.obs, last,
+                                                           env_state.states)
+                else:
+                    _, _, last_value = self._policy(ts, env_state.obs, env_state.states)
+            with torch.no_grad(), span("ppo.gae"):
+                advantages, returns = self.compute_gae(traj, last_value)
+            with span("ppo.batch"):
+                batch = self.make_batch(traj, advantages, returns)
+                if cfg.normalize_advantage:
+                    adv = batch["adv"]
+                    batch["adv"] = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+                if cfg.normalize_input:
+                    ts.obs_rms = rms_update(ts.obs_rms, batch["obs"].reshape(-1, self.env.num_obs))
+                    if self.asymmetric:
+                        ts.states_rms = rms_update(ts.states_rms,
+                                                   batch["states"].reshape(-1, self.num_states))
+                if cfg.normalize_value:
+                    ts.value_rms = rms_update(ts.value_rms, batch["ret"].reshape(-1))
 
-        N = batch["obs"].shape[0]
-        if self.is_rnn:
-            # N counts sequences, minibatch_size transitions
-            mb = max(1, min(cfg.minibatch_size, N * cfg.seq_len) // cfg.seq_len)
-            loss_fn = self._loss_rnn
-        else:
-            mb = min(cfg.minibatch_size, N)
-            loss_fn = self._loss
-        nmb = N // mb
-        params = ts.parameters()
-        auxs = {k: [] for k in ("a_loss", "v_loss", "entropy", "b_loss", "kl")}
-        last_kl = None
-        for _ in range(cfg.mini_epochs):
-            perm = torch.randperm(N, generator=ts.gen, device=self.device)
-            kls = []
-            for i in range(nmb):
-                idx = perm[i * mb:(i + 1) * mb]
-                loss, aux = loss_fn(ts, {k: v[idx] for k, v in batch.items()})
-                grads, aux = self.reduce(self.grads(loss, params), aux)
-                self._apply_grads(ts, grads)
-                for k in auxs:
-                    auxs[k].append(aux[k].detach())
-                kls.append(aux["kl"].detach())
-            last_kl = torch.stack(kls).mean()
-            ts.lr = self._adaptive_lr(ts.lr, last_kl)
-        ts.epoch += 1
-        metrics = dict(
-            reward_mean=traj["reward"].mean(),
-            episode_return_mean=env_state.last_episode_return.mean(),
-            episode_done_frac=traj["done"].mean(),
-            kl=last_kl,
-            a_loss=torch.stack(auxs["a_loss"]).mean(),
-            v_loss=torch.stack(auxs["v_loss"]).mean(),
-            entropy=torch.stack(auxs["entropy"]).mean(),
-            lr=ts.lr)
-        return ts, env_state, metrics
+            N = batch["obs"].shape[0]
+            if self.is_rnn:
+                # N counts sequences, minibatch_size transitions
+                mb = max(1, min(cfg.minibatch_size, N * cfg.seq_len) // cfg.seq_len)
+                loss_fn = self._loss_rnn
+            else:
+                mb = min(cfg.minibatch_size, N)
+                loss_fn = self._loss
+            nmb = N // mb
+            params = ts.parameters()
+            auxs = {k: [] for k in ("a_loss", "v_loss", "entropy", "b_loss", "kl")}
+            last_kl = None
+            for _ in range(cfg.mini_epochs):
+                perm = torch.randperm(N, generator=ts.gen, device=self.device)
+                kls = []
+                for i in range(nmb):
+                    with span("ppo.loss"):
+                        idx = perm[i * mb:(i + 1) * mb]
+                        loss, aux = loss_fn(ts, {k: v[idx] for k, v in batch.items()})
+                    with span("ppo.backward"):
+                        grads = self.grads(loss, params)
+                    grads, aux = self.reduce(grads, aux)
+                    with span("ppo.adam"):
+                        self._apply_grads(ts, grads)
+                    for k in auxs:
+                        auxs[k].append(aux[k].detach())
+                    kls.append(aux["kl"].detach())
+                last_kl = torch.stack(kls).mean()
+                ts.lr = self._adaptive_lr(ts.lr, last_kl)
+            ts.epoch += 1
+            metrics = dict(
+                reward_mean=traj["reward"].mean(),
+                episode_return_mean=env_state.last_episode_return.mean(),
+                episode_done_frac=traj["done"].mean(),
+                kl=last_kl,
+                a_loss=torch.stack(auxs["a_loss"]).mean(),
+                v_loss=torch.stack(auxs["v_loss"]).mean(),
+                entropy=torch.stack(auxs["entropy"]).mean(),
+                lr=ts.lr)
+            return ts, env_state, metrics
 
     # ------------------------------------------------------------------
     def train(self, num_epochs: int, seed: int | None = None, log_every: int = 10,

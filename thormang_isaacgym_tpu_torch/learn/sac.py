@@ -40,6 +40,7 @@ from torch import nn
 
 from thormang_isaacgym_tpu_torch.engine.env import EnvState, VecEnv, resolve_device
 from thormang_isaacgym_tpu_torch.learn.networks import _init_linears, _mlp
+from thormang_isaacgym_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,23 +271,24 @@ class SAC:
         """steps_per_iteration env steps, then (after num_seed_steps
         collection-only iterations) grad_steps gradient steps. Returns
         (ts, env_state, metrics of 0-d tensors)."""
-        cfg = self.cfg
-        for _ in range(cfg.steps_per_iteration):
-            env_state = self.collect(ts, env_state)
-        if ts.step >= cfg.num_seed_steps:
-            n_valid = self.slots if ts.buffer_full else max(ts.buffer_pos, 1)
-            aux = [self.grad_step(ts, n_valid) for _ in range(cfg.grad_steps)]
-            critic_loss = torch.stack([x["critic_loss"] for x in aux]).mean()
-            actor_loss = torch.stack([x["actor_loss"] for x in aux]).mean()
-            alpha = aux[-1]["alpha"]
-        else:
-            critic_loss = actor_loss = torch.zeros((), device=self.device)
-            alpha = torch.exp(ts.log_alpha)
-        ts.step += 1
-        metrics = dict(reward_mean=env_state.reward.mean(),
-                       episode_return_mean=env_state.last_episode_return.mean(),
-                       critic_loss=critic_loss, actor_loss=actor_loss, alpha=alpha.detach())
-        return ts, env_state, metrics
+        with span("learn.iteration"):
+            cfg = self.cfg
+            for _ in range(cfg.steps_per_iteration):
+                env_state = self.collect(ts, env_state)
+            if ts.step >= cfg.num_seed_steps:
+                n_valid = self.slots if ts.buffer_full else max(ts.buffer_pos, 1)
+                aux = [self.grad_step(ts, n_valid) for _ in range(cfg.grad_steps)]
+                critic_loss = torch.stack([x["critic_loss"] for x in aux]).mean()
+                actor_loss = torch.stack([x["actor_loss"] for x in aux]).mean()
+                alpha = aux[-1]["alpha"]
+            else:
+                critic_loss = actor_loss = torch.zeros((), device=self.device)
+                alpha = torch.exp(ts.log_alpha)
+            ts.step += 1
+            metrics = dict(reward_mean=env_state.reward.mean(),
+                           episode_return_mean=env_state.last_episode_return.mean(),
+                           critic_loss=critic_loss, actor_loss=actor_loss, alpha=alpha.detach())
+            return ts, env_state, metrics
 
     def train(self, num_iterations: int, seed: int = 42, log_every: int = 10):
         """init, reset and `num_iterations` train iterations; the history of

@@ -80,6 +80,7 @@ from thormang_isaacgym_tpu_torch.models.robot import (
 from thormang_isaacgym_tpu_torch.ops import collide, contact
 from thormang_isaacgym_tpu_torch.ops.kinematics import forward_kinematics
 from thormang_isaacgym_tpu_torch.ops.sim import SimParams, build_plain_step_fn, check_supported
+from thormang_isaacgym_tpu_torch.utils.trace import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "fused_step.cu")
@@ -531,7 +532,9 @@ class FusedStep:
     layout). The box instance's geometry depends on the width:
     ``launch_geometry(B)`` (``pick_box_geometry`` at the card's SM count,
     or ``force_geometry``, a (layout, lanes, block) tuple, where it is set);
-    ``last_geometry`` holds the last launch's."""
+    ``last_geometry`` holds the last launch's. A call is the span
+    ``fused.step``; on CUDA tensors its three parts are ``fused.pack``,
+    ``fused.launch`` and ``fused.unpack`` (``utils/trace.py``)."""
 
     def __init__(self, model: RobotModel, sim_params: SimParams, *,
                  ground=0.0, attractors=None, need_torque=True):
@@ -706,11 +709,17 @@ class FusedStep:
         return out
 
     def __call__(self, params, q, qd, ctrl, wrench):
-        if q.device.type == "cpu":
-            return self.plain(params, q, qd, ctrl, wrench)
-        if q.device.type != "cuda":
-            raise ValueError(f"unsupported device {q.device}")
-        return self.unpack(self.launch(self.pack(params, q, qd, ctrl, wrench)), q.shape[0])
+        with span("fused.step"):
+            if q.device.type == "cpu":
+                return self.plain(params, q, qd, ctrl, wrench)
+            if q.device.type != "cuda":
+                raise ValueError(f"unsupported device {q.device}")
+            with span("fused.pack"):
+                packed = self.pack(params, q, qd, ctrl, wrench)
+            with span("fused.launch"):
+                out = self.launch(packed)
+            with span("fused.unpack"):
+                return self.unpack(out, q.shape[0])
 
 
 def build_fused_step_fn(model: RobotModel, sim_params: SimParams, *,

@@ -22,8 +22,13 @@ than one agent MAPPO, else PPO) -> checkpoints under
 epochs (and the last), TensorBoard scalars under ``summaries/``: the JAX
 CLI's run layout. ``device=`` picks the device; without it the run is on
 CUDA, and raises where there is none. ``checkpoint=`` takes a port or a JAX
-checkpoint. ``profile_epoch=N`` writes a ``torch.profiler`` Chrome trace of
-epochs N..N+2 to ``profile/``.
+checkpoint. Each logged row also holds ``time/<span>_ms``: the host ms an
+iteration of each span of ``PHASES`` (``utils/trace.py``), averaged over the
+iterations since the last row. ``profile_epoch=N`` traces epochs N..N+2 with
+``torch.profiler`` at the tracer's ``annotate`` level, and writes the Chrome
+trace, the spans above their kernels, to ``profile/trace.json`` and each
+span's host self ms, kernels, device ms and device idle ms to
+``profile/spans.json`` (``trace.profile_table``).
 
 Data parallel (``parallel/``): with ``multi_host=true`` and its keys, or
 under torchrun, one process per rank; ``num_envs`` is the run's global count
@@ -51,7 +56,12 @@ from thormang_isaacgym_tpu_torch.learn.ppo import PPO, PPOConfig
 from thormang_isaacgym_tpu_torch.parallel.distributed import host_local_batch, maybe_initialize
 from thormang_isaacgym_tpu_torch.runtime.checkpoint import load_train_state, save_train_state
 from thormang_isaacgym_tpu_torch.tasks import make
+from thormang_isaacgym_tpu_torch.utils import trace
 from thormang_isaacgym_tpu_torch.utils.config import load_config
+
+# the spans whose host ms an iteration each logged row holds, as time/<span>_ms
+PHASES = ("ppo.rollout", "ppo.policy", "env.step", "fused.step", "ppo.gae", "ppo.batch",
+          "ppo.loss", "ppo.backward", "ppo.adam", "ppo.reduce")
 
 
 def main(argv=None):
@@ -131,13 +141,15 @@ def main(argv=None):
         env_state = env.reset(seed)
     max_iter = int(cfg.get("max_iterations", 1000))
     profile_at = int(cfg.get("profile_epoch", -1))
-    prof = None
+    prof = level = None
     best_reward = -float("inf")
     t_start = time.time()
+    seen = max((r.index for r in trace.iterations()), default=-1)
     logf = open(os.path.join(run_dir, "metrics.jsonl"), "a") if writer else None
     try:
         for epoch in range(max_iter):
             if epoch == profile_at:
+                level = trace.set_level("annotate")
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     *([torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda" else [])])
@@ -147,24 +159,34 @@ def main(argv=None):
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 prof.stop()
+                trace.set_level(level)
+                done, prof = prof, None
                 os.makedirs(os.path.join(run_dir, "profile"), exist_ok=True)
-                prof.export_chrome_trace(os.path.join(run_dir, "profile", "trace.json"))
-                prof = None
-                print(f"profile trace written to {run_dir}/profile")
+                done.export_chrome_trace(os.path.join(run_dir, "profile", "trace.json"))
+                table = trace.profile_table(trace.profiler_events(done))
+                with open(os.path.join(run_dir, "profile", "spans.json"), "w") as f:
+                    json.dump(table, f, indent=1)
+                print(f"profile trace and spans written to {run_dir}/profile")
             if epoch % 10 == 0 or epoch == max_iter - 1:
                 if group is not None:
                     check_replicas(ts, group)
                 if writer:
-                    best_reward = _log(_row(metrics, env_state, epoch, t_start,
-                                             ppo.cfg.horizon_length * num_envs),
-                                       logf, tb, wandb_run, run_dir, ts, best_reward)
+                    recs = [r for r in trace.iterations() if r.index > seen]
+                    seen = recs[-1].index if recs else seen
+                    row = _row(metrics, env_state, epoch, t_start,
+                               ppo.cfg.horizon_length * num_envs)
+                    if recs:
+                        row.update({f"time/{k}_ms": sum(r.total_ms(k) for r in recs) / len(recs)
+                                    for k in PHASES})
+                    best_reward = _log(row, logf, tb, wandb_run, run_dir, ts, best_reward)
             if epoch % 50 == 0 and writer:
                 save_train_state(os.path.join(run_dir, "nn", "last.ckpt"), ts)
     finally:
         if logf is not None:
             logf.close()
-    if prof is not None:
-        prof.stop()
+        if prof is not None:
+            prof.stop()
+            trace.set_level(level)
     if writer:
         save_train_state(os.path.join(run_dir, "nn", "last.ckpt"), ts)
         tb.close()
